@@ -8,15 +8,37 @@ Run from the repository root with no arguments:
 Phases, in order; any failure exits non-zero without the final line:
 
 1. device: a CUDA device must be present; prints its name and power limit;
-2. build: compiles the hand-written kernels (nvcc, sm_90a) and loads them;
+2. build: compiles the hand-written kernels (one nvcc per source, sm_90a,
+   in parallel), loads them, and builds their row code for the host
+   (operation counts for the bounds);
 3. B1 (camera-row linearization) and 4. B2 (Schur assembly): each kernel
    against its plain PyTorch version on the same config-4 inputs on the
-   card, in float64 and float32, with errors and median times;
+   card, in float64 and float32, with errors, median times and bounds;
 5. solve: BASELINE config 4 through the normal entry points
    (``synthetic.make_rsvi_problem`` -> ``Problem`` -> ``make_fused_solver``):
    a 1-iteration cost against the JAX package's value, an untimed warm-up
    solve, then the timed 25-iteration solve with launch counts,
-   final/initial cost and iterations per second.
+   final/initial cost and iterations per second;
+6. B4 (gyro/accel rows): the kernel against its plain version at config-1
+   and config-2 shapes (gyro on SO3, gyro and accel on the split
+   trajectory), linearization and cost-only, float64 and float32;
+7. configs 1 and 2 (``make_gyro_problem`` / ``make_imu_problem`` ->
+   ``Problem`` on the card by default -> ``make_fused_solver``, 'auto' ->
+   dense): structure, initial and 1-iteration costs against the JAX
+   package's, an untimed warm-up solve, the timed 25-iteration solve;
+8. breakdown: where one config-2 LM iteration's time goes (host clock with
+   a synchronize after each part, median of 5) and the card's busy share
+   over 3 iterations (``torch.profiler``).
+
+Each path's launch counts are set to 0 just before its timed solve and
+read just after. A kernel's bound is the larger of its bytes (each input
+read once, each output written once) over 3.35 TB/s and the floating-point
+operations its function needs on these inputs over the H100 SXM's float64
+peak, 67 TFLOP/s on its tensor cores (NVIDIA's data sheet). B1's and B4's
+operations are counted by running their row code on the host once per row
+in one full-width jet, with structural zeros and ones free
+(``csrc/host_rows.cpp``); B2's from the shapes, the upper triangle of the
+symmetric H only.
 
 The last two lines are a JSON object with the kernels' numbers and the JSON
 result ``{"ok": true, "device": {...}}``.
@@ -46,6 +68,33 @@ COST_RTOL = 1e-6
 # Config 4 is noise-free: 25 LM iterations must reach this ratio.
 FINAL_RATIO = 1e-8
 
+# BASELINE configs 1 and 2 (bench.py config1/config2), their structure as
+# the JAX package builds it, and their costs in float64 from the JAX package
+# on the CPU: total_cost at state0 and the final cost of
+# make_fused_solver(problem, 1, function_tolerance=0.0) ('auto' -> dense).
+# After 25 iterations the JAX package reaches final/initial 7.0e-31
+# (config 1, roundoff) and 1.24e-12 (config 2); the bounds leave room for
+# the last iterations' roundoff-level paths to differ.
+JAX_COST_CONFIG1_0 = 88.5467294379849
+JAX_COST_CONFIG1_1 = 0.013452322257610914
+JAX_COST_CONFIG2_0 = 116355.77064652363
+JAX_COST_CONFIG2_1 = 49.12247040995038
+IMU_CONFIGS = {
+    "config 1": dict(make="make_gyro_problem", kwargs=dict(duration=5.0, rate=200.0, seed=1),
+                     shape={"gyro": 1000, "num_tangent": 205},
+                     cost0=JAX_COST_CONFIG1_0, cost1=JAX_COST_CONFIG1_1, final_ratio=1e-20),
+    "config 2": dict(make="make_imu_problem", kwargs=dict(duration=5.0, rate=200.0, seed=2),
+                     shape={"gyro": 1000, "accel": 1000, "num_tangent": 397},
+                     cost0=JAX_COST_CONFIG2_0, cost1=JAX_COST_CONFIG2_1, final_ratio=1e-10),
+}
+
+# Peak rates of one H100 SXM at 700 W (NVIDIA's data sheet): HBM3, and
+# float64 on the tensor cores. B1's and B4's row chains cannot use the
+# tensor cores (34 TFLOP/s outside them), so their bounds are lower still
+# than they need be.
+HBM_BYTES_PER_S = 3.35e12
+F64_OPS_PER_S = 67e12
+
 # Kernel vs plain version, max |kernel - plain| / max |plain| per output.
 # f64: both run the same formulas in another order (and B2's atomics sum
 # in a run-dependent order), so they agree to rounding. f32: the SE3 log
@@ -56,6 +105,10 @@ TOL = {
     ("linearize_rows", torch.float32): 1e-3,
     ("assemble_schur_blocks", torch.float64): 1e-10,
     ("assemble_schur_blocks", torch.float32): 1e-4,
+    # IMU rows in f32: each side is ~1e-6 from f64 at these inputs, and the
+    # residual y - body cancels
+    ("imu_rows", torch.float64): 1e-10,
+    ("imu_rows", torch.float32): 1e-4,
 }
 
 
@@ -79,6 +132,34 @@ def cuda_ms(fn, reps=20, warmup=3):
         times.append(start.elapsed_time(end))
     times.sort()
     return times[len(times) // 2]
+
+
+def bound(nbytes, ops):
+    """(bound_ms, bound_by): the least time the card could take."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F64_OPS_PER_S
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def reset_counts():
+    from kontiki_tpu_torch.ops import assembly_kernels as ak
+    from kontiki_tpu_torch.ops import linearize_kernels as lk
+
+    lk.linearize_rows.launches = 0
+    ak.assemble_schur_blocks.launches = 0
+    lk.imu_rows.launches = 0
+    lk.imu_rows.cost_launches = 0
+
+
+def read_counts():
+    from kontiki_tpu_torch.ops import assembly_kernels as ak
+    from kontiki_tpu_torch.ops import linearize_kernels as lk
+
+    return {
+        "linearize_rows": lk.linearize_rows.launches,
+        "assemble_schur_blocks": ak.assemble_schur_blocks.launches,
+        "imu_rows": lk.imu_rows.launches,
+        "imu_rows cost-only": lk.imu_rows.cost_launches,
+    }
 
 
 def compare(kernel, dtype, names, got, want):
@@ -122,8 +203,12 @@ def phase_build():
     build.load_library()
     print(f"build: {time.time() - t0:.1f} s -> {os.path.relpath(so, ROOT)}", flush=True)
     for line in so.with_suffix(".log").read_text().splitlines():
-        if "Function properties" in line or "registers" in line or "spill" in line:
+        if ("Compiling entry" in line or "Function properties" in line
+                or "registers" in line or "spill" in line or line.startswith("==")):
             print(f"  ptxas: {line.strip()}", flush=True)
+    t0 = time.time()
+    build.load_host_library()
+    print(f"host row code: {time.time() - t0:.1f} s", flush=True)
 
 
 def phase_problem():
@@ -164,8 +249,14 @@ def phase_b1(problem):
             out["max_abs_err"] = err
             out["ms"] = cuda_ms(lambda: lk.linearize_rows(x))
             out["plain_ms"] = cuda_ms(lambda: lk.linearize_rows_plain(x), reps=5)
-            print(f"  linearize_rows f64 M={x['u_ref'].shape[1]}: kernel "
-                  f"{out['ms']:.3f} ms, plain {out['plain_ms']:.3f} ms", flush=True)
+            M = x["u_ref"].shape[1]
+            nbytes = 8 * M * (sum(k for _, k in lk.INPUTS) + lk.RDIM * (lk.C + 2))
+            ops = lk.linearize_rows_ops(x)
+            out["bound_ms"], out["bound_by"] = bound(nbytes, ops)
+            out["library_ms"] = None  # no single PyTorch call computes B1
+            print(f"  linearize_rows f64 M={M}: kernel {out['ms']:.3f} ms, plain "
+                  f"{out['plain_ms']:.3f} ms, bound {out['bound_ms']:.4f} ms by "
+                  f"{out['bound_by']} ({nbytes} bytes, {ops} operations)", flush=True)
     return out
 
 
@@ -198,14 +289,29 @@ def phase_b2(problem):
                 out["max_abs_err"] = err
                 out["ms"] = cuda_ms(lambda: ak.assemble_schur_blocks(*x, **kw))
                 out["plain_ms"] = cuda_ms(lambda: ak.assemble_schur_blocks_plain(*x, **kw))
+                Jw, cols = x[0], x[1]
+                M, rdim, C = Jw.shape
+                nbytes = (8 * (Jw.numel() + 2 * M * rdim + Pc * Pc + Pc + L * Pc + 2 * L)
+                          + 4 * (cols.numel() + M))
+                # per row, rdim multiply-adds for each of: the C(C+1)/2
+                # products of the symmetric H's upper triangle, C for g and
+                # C for E, one each for D and g_l
+                ops = M * 2 * rdim * (C * (C + 1) // 2 + 2 * C + 2)
+                out["bound_ms"], out["bound_by"] = bound(nbytes, ops)
+                # the yardstick: one cuBLAS product of the densely scattered rows
+                Jd = torch.zeros(M, rdim, Pc, dtype=Jw.dtype, device=Jw.device)
+                Jd.scatter_add_(2, cols.long()[:, None, :].expand(M, rdim, C), Jw)
+                Jd = Jd.reshape(M * rdim, Pc)
+                out["library_ms"] = cuda_ms(lambda: Jd.T @ Jd)
                 print(f"  assemble_schur_blocks f64 camera bucket: kernel "
-                      f"{out['ms']:.3f} ms, plain {out['plain_ms']:.3f} ms", flush=True)
+                      f"{out['ms']:.3f} ms, plain {out['plain_ms']:.3f} ms, cuBLAS "
+                      f"Jd^T Jd [{M * rdim} x {Pc}] {out['library_ms']:.4f} ms, bound "
+                      f"{out['bound_ms']:.4f} ms by {out['bound_by']} ({nbytes} bytes, "
+                      f"{ops} operations)", flush=True)
     return out
 
 
 def phase_solve(problem):
-    from kontiki_tpu_torch.ops import assembly_kernels as ak
-    from kontiki_tpu_torch.ops import linearize_kernels as lk
     from kontiki_tpu_torch.solver import kernels
     from kontiki_tpu_torch.solver.lm import make_fused_solver
     from kontiki_tpu_torch.solver.schur import build_schur_parts
@@ -233,16 +339,12 @@ def phase_solve(problem):
     solve(problem.state0)
     torch.cuda.synchronize()
     print(f"warm-up solve: {time.perf_counter() - t0:.3f} s", flush=True)
-    lk.linearize_rows.launches = 0
-    ak.assemble_schur_blocks.launches = 0
+    reset_counts()
     t0 = time.perf_counter()
     state, cost, iters = solve(problem.state0)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = {
-        "linearize_rows": lk.linearize_rows.launches,
-        "assemble_schur_blocks": ak.assemble_schur_blocks.launches,
-    }
+    launches = read_counts()
     cost = cost.item()
     ratio = cost / cost0
     print(f"solve: {iters} iterations in {seconds:.3f} s = {iters / seconds:.2f} it/s; "
@@ -255,10 +357,197 @@ def phase_solve(problem):
         fail(f"final/initial cost {ratio:.3e} > {FINAL_RATIO:.0e}")
     if iters != 25:
         fail(f"ran {iters} iterations, expected 25")
-    for name, n in launches.items():
-        if n <= 0:
+    for name in ("linearize_rows", "assemble_schur_blocks"):
+        if launches[name] <= 0:
             fail(f"{name} was never launched by the solve")
     return launches
+
+
+def imu_problem(name):
+    """Build a config-1/2 problem through the entry points (on the card by
+    default) and check its structure against the JAX package's."""
+    from kontiki_tpu_torch import synthetic
+    from kontiki_tpu_torch.solver import kernels
+    from kontiki_tpu_torch.solver.problem import Problem
+
+    cfg = IMU_CONFIGS[name]
+    t0 = time.time()
+    prob = getattr(synthetic, cfg["make"])(**cfg["kwargs"])
+    problem = Problem(prob["trajectory"], prob["measurements"])
+    if problem.device.type != "cuda":
+        fail(f"{name}: Problem built on {problem.device}, not on the card")
+    spec = kernels.problem_spec(problem)
+    shape = {b.kind: b.M for b in spec.buckets}
+    shape["num_tangent"] = spec.num_tangent
+    print(f"{name}: {shape}, splines {[(sp.kind, sp.n) for sp in spec.splines]} "
+          f"({time.time() - t0:.1f} s on the host)", flush=True)
+    if shape != cfg["shape"]:
+        fail(f"{name} structure {shape} != {cfg['shape']}")
+    return problem
+
+
+def phase_b4(problems):
+    """B4 against its plain version on every bucket of configs 1 and 2."""
+    from kontiki_tpu_torch.ops import linearize_kernels as lk
+    from kontiki_tpu_torch.solver import kernels
+
+    total = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0, bytes=0, ops=0)
+    for name, problem in problems.items():
+        spec = kernels.problem_spec(problem)
+        runtime = kernels.problem_runtime(problem)
+        for bspec, data in zip(spec.buckets, runtime["data"]):
+            cfg, ins, _ = kernels._imu_inputs(spec, bspec, runtime, problem.state0, data)
+            tag = f"{bspec.kind}/{'so3' if cfg['so3_only'] else 'split'}"
+            M = bspec.M
+            print(f"  {name} {tag} M={M} C={lk.imu_columns(cfg)}", flush=True)
+            for dtype in (torch.float64, torch.float32):
+                x = {k: v.to(dtype).contiguous() for k, v in ins.items()}
+                got = lk.imu_rows(cfg, x)
+                got_c = lk.imu_rows(cfg, x, cost_only=True)
+                torch.cuda.synchronize()
+                want = lk.imu_rows_plain(cfg, x)
+                err = compare("imu_rows", dtype, ("r", "J", "r cost-only"),
+                              (*got, got_c), (*want, want[0]))
+                if dtype != torch.float64:
+                    continue
+                n_in = sum(k for n, k in lk.IMU_INPUTS if n in x)
+                for cost_only in (False, True):
+                    ms = cuda_ms(lambda: lk.imu_rows(cfg, x, cost_only=cost_only))
+                    plain_ms = cuda_ms(
+                        lambda: lk.imu_rows_plain(cfg, x, cost_only=cost_only), reps=5)
+                    nbytes = 8 * M * (n_in + 3 + (0 if cost_only else 3 * lk.imu_columns(cfg)))
+                    ops = lk.imu_rows_ops(cfg, x, cost_only=cost_only)
+                    b_ms, b_by = bound(nbytes, ops)
+                    form = "cost-only" if cost_only else "linearize"
+                    print(f"  imu_rows f64 {tag} {form}: kernel {ms:.4f} ms, plain "
+                          f"{plain_ms:.3f} ms, bound {b_ms:.5f} ms by {b_by} "
+                          f"({nbytes} bytes, {ops} operations)", flush=True)
+                    if not cost_only:
+                        total["max_abs_err"] = max(total["max_abs_err"], err)
+                        total["ms"] += ms
+                        total["plain_ms"] += plain_ms
+                        total["bytes"] += nbytes
+                        total["ops"] += ops
+    total["bound_ms"], total["bound_by"] = bound(total.pop("bytes"), total.pop("ops"))
+    total["library_ms"] = None  # no single PyTorch call computes B4
+    print(f"  imu_rows f64, one linearization of all three buckets: kernel "
+          f"{total['ms']:.4f} ms, plain {total['plain_ms']:.3f} ms, bound "
+          f"{total['bound_ms']:.5f} ms by {total['bound_by']}", flush=True)
+    return total
+
+
+def phase_imu_solve(name, problem):
+    """Configs 1/2: initial and 1-iteration costs against the JAX package,
+    a warm-up solve, then the timed 25-iteration solve."""
+    from kontiki_tpu_torch.solver import kernels
+    from kontiki_tpu_torch.solver.lm import make_fused_solver
+
+    cfg = IMU_CONFIGS[name]
+    spec = kernels.problem_spec(problem)
+    runtime = kernels.problem_runtime(problem)
+    cost0 = kernels.build_parts(spec)["total_cost"](runtime, problem.state0).item()
+    _, cost1, _ = make_fused_solver(problem, 1, function_tolerance=0.0)(problem.state0)
+    cost1 = cost1.item()
+    for what, got, want in (("initial", cost0, cfg["cost0"]), ("1-iteration", cost1, cfg["cost1"])):
+        rel = abs(got - want) / want
+        print(f"{name}: {what} cost {got!r} (JAX {want!r}, rel {rel:.2e})", flush=True)
+        if not rel <= COST_RTOL:
+            fail(f"{name}: {what} cost differs from the JAX package by {rel:.2e}")
+
+    solve = make_fused_solver(problem, 25, function_tolerance=0.0)  # 'auto' -> dense
+    t0 = time.perf_counter()
+    solve(problem.state0)
+    torch.cuda.synchronize()
+    print(f"{name}: warm-up solve {time.perf_counter() - t0:.3f} s", flush=True)
+    reset_counts()
+    t0 = time.perf_counter()
+    state, cost, iters = solve(problem.state0)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_counts()
+    ratio = cost.item() / cost0
+    print(f"{name}: {iters} iterations in {seconds:.4f} s = {iters / seconds:.2f} it/s; "
+          f"initial cost {cost0:.6e} final cost {cost.item():.6e} ratio {ratio:.3e}; "
+          f"launches {launches}", flush=True)
+    for k, v in state.items():
+        if v.shape != problem.state0[k].shape or not torch.isfinite(v).all():
+            fail(f"{name}: final state {k}: bad shape or non-finite values")
+    if not (math.isfinite(ratio) and ratio <= cfg["final_ratio"]):
+        fail(f"{name}: final/initial cost {ratio:.3e} > {cfg['final_ratio']:.0e}")
+    if iters != 25:
+        fail(f"{name}: ran {iters} iterations, expected 25")
+    n_lin = launches["imu_rows"] - launches["imu_rows cost-only"]
+    if n_lin <= 0 or launches["imu_rows cost-only"] <= 0:
+        fail(f"{name}: imu_rows was not launched by both the linearization and the "
+             f"re-cost ({launches})")
+    return launches
+
+
+def host_ms(fn, reps=5):
+    """Median host milliseconds of ``fn()`` ending in a synchronize."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    times.sort()
+    return times[len(times) // 2]
+
+
+def phase_breakdown(problem):
+    """One config-2 LM iteration (``build_parts`` step) by part."""
+    from kontiki_tpu_torch.ops import linearize_kernels as lk
+    from kontiki_tpu_torch.solver import kernels
+
+    spec = kernels.problem_spec(problem)
+    rt = kernels.problem_runtime(problem)
+    parts = kernels.build_parts(spec)
+    s0 = problem.state0
+    lam = torch.tensor(1e-4, dtype=problem.dtype, device=problem.device)
+    cost, H, g = parts["linearize"](rt, s0)
+    delta, _ = parts["solve_from_lin"](rt, s0, H, g, lam)
+    rows = {}
+    for bspec, data in zip(spec.buckets, rt["data"]):
+        cfg, ins, _ = kernels._imu_inputs(spec, bspec, rt, s0, data)
+        rows[bspec.kind] = (
+            host_ms(lambda: kernels._imu_inputs(spec, bspec, rt, s0, data)),
+            host_ms(lambda: lk.imu_rows(cfg, ins)),
+            host_ms(lambda: lk.imu_rows(cfg, ins, cost_only=True)),
+        )
+    table = [
+        ("step (one LM iteration)", host_ms(lambda: parts["step"](rt, s0, lam))),
+        ("- linearize (2 buckets, dense assembly)", host_ms(lambda: parts["linearize"](rt, s0))),
+        *[(f"-- {k}: gather {a:.3f} + B4 {b:.3f}", a + b) for k, (a, b, _) in rows.items()],
+        ("- damped solve + projection + prediction",
+         host_ms(lambda: parts["solve_from_lin"](rt, s0, H, g, lam))),
+        ("- retract", host_ms(lambda: parts["retract"](rt, s0, delta))),
+        ("- re-cost (total_cost)", host_ms(lambda: parts["total_cost"](rt, s0))),
+        *[(f"-- {k}: B4 cost-only", c) for k, (_, _, c) in rows.items()],
+    ]
+    print("config 2 iteration breakdown (host ms, synchronize after each part, median of 5):",
+          flush=True)
+    for name, ms in table:
+        print(f"  {name}: {ms:.3f} ms", flush=True)
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            parts["step"](rt, s0, lam)
+        torch.cuda.synchronize()
+    wall = 1e3 * (time.perf_counter() - t0)
+    events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    dev = sum(e.self_device_time_total for e in events) / 1e3
+    n = sum(e.count for e in events)
+    if not (n > 0 and dev > 0):
+        fail(f"profiler: no device time in the trace ({n} device events)")
+    print(f"  profiler, 3 iterations: {n} device kernels, {dev:.3f} ms of device "
+          f"time in {wall:.3f} ms of wall time (busy {dev / wall:.1%}, profiler on)",
+          flush=True)
 
 
 def main():
@@ -268,6 +557,10 @@ def main():
     b1 = phase_b1(problem)
     b2 = phase_b2(problem)
     launches = phase_solve(problem)
+    imu = {name: imu_problem(name) for name in IMU_CONFIGS}
+    b4 = phase_b4(imu)
+    b4_launches = sum(phase_imu_solve(name, p)["imu_rows"] for name, p in imu.items())
+    phase_breakdown(imu["config 2"])
     kernels = [
         dict(name="linearize_rows", route="cuda",
              source="kontiki_tpu_torch/csrc/linearize_rows.cu",
@@ -277,6 +570,10 @@ def main():
              source="kontiki_tpu_torch/csrc/assemble_schur.cu",
              replaces="kontiki_tpu/ops/assembly_kernels.py:102",
              launches=launches["assemble_schur_blocks"], **b2),
+        dict(name="imu_rows", route="cuda",
+             source="kontiki_tpu_torch/csrc/imu_rows.cu",
+             replaces="kontiki_tpu/ops/linearize_kernels.py:1601",
+             launches=b4_launches, **b4),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,195 @@
+// The row kernels' per-row code (linearize_rows.cu, imu_rows.cu), compiled
+// for the host with a plain C++ compiler. Two uses:
+//   - on double, the same row functions the CUDA kernels run, to check the
+//     row math against the plain PyTorch versions without a card;
+//   - on Counted, a double that counts its floating-point operations, to
+//     count the operations the function needs on given inputs (the
+//     operation side of the bound that chip_smoke.py reports).
+// The count is of the function, not of the kernel's schedule:
+//   - each row runs once with one jet as wide as all its seeds, so the
+//     primal chain is counted once and not once per seed chunk (B1's
+//     separate primal stage, which its jets recompute, is subtracted);
+//   - a constant 0 or 1 in the code (a jet lane no seed reaches, a seed's
+//     unit tangent, an identity) is structural: adding or multiplying by it,
+//     and anything computed only from zeros, counts nothing;
+//   - each +, -, *, / of two other values counts one; each sqrt, sin, cos,
+//     atan and atan2 counts one too, which undercounts them; sign flips and
+//     fabs count nothing. So the bound stays a lower bound.
+// Built by kontiki_tpu_torch/ops/build.py build_host():
+//   c++ -std=c++17 -O2 -shared -fPIC -o libkontiki_host.so host_rows.cpp
+#include <cmath>
+#include <vector>
+
+namespace {
+long long g_ops = 0;
+}
+
+struct Counted {
+  enum Kind { kValue, kZero, kOne };
+  double x = 0.0;
+  Kind kind = kValue;
+  Counted() {}
+  // A constant of the code: 0 and 1 are structural.
+  Counted(double v) : x(v), kind(v == 0.0 ? kZero : v == 1.0 ? kOne : kValue) {}
+  // An input or a computed value, whatever it holds.
+  static Counted value(double v) {
+    Counted c;
+    c.x = v;
+    return c;
+  }
+};
+
+inline Counted counted(double v) { ++g_ops; return Counted::value(v); }
+inline Counted operator-(Counted a) {
+  Counted r = Counted::value(-a.x);
+  if (a.kind == Counted::kZero) r.kind = Counted::kZero;
+  return r;
+}
+inline Counted operator+(Counted a, Counted b) {
+  if (a.kind == Counted::kZero) return b;
+  if (b.kind == Counted::kZero) return a;
+  return counted(a.x + b.x);
+}
+inline Counted operator-(Counted a, Counted b) {
+  if (b.kind == Counted::kZero) return a;
+  if (a.kind == Counted::kZero) return -b;
+  return counted(a.x - b.x);
+}
+inline Counted operator*(Counted a, Counted b) {
+  if (a.kind == Counted::kZero || b.kind == Counted::kZero) return Counted(0.0);
+  if (a.kind == Counted::kOne) return b;
+  if (b.kind == Counted::kOne) return a;
+  return counted(a.x * b.x);
+}
+inline Counted operator/(Counted a, Counted b) {
+  if (a.kind == Counted::kZero) return Counted(0.0);
+  if (b.kind == Counted::kOne) return a;
+  return counted(a.x / b.x);
+}
+inline bool operator<=(Counted a, Counted b) { return a.x <= b.x; }
+inline bool operator>=(Counted a, Counted b) { return a.x >= b.x; }
+inline Counted val(Counted a) { return a; }
+inline Counted kt_sqrt(Counted a) { return a.kind == Counted::kZero ? a : counted(std::sqrt(a.x)); }
+inline Counted kt_sin(Counted a) { return a.kind == Counted::kZero ? a : counted(std::sin(a.x)); }
+inline Counted kt_cos(Counted a) { return a.kind == Counted::kZero ? Counted(1.0) : counted(std::cos(a.x)); }
+inline Counted kt_atan(Counted a) { return a.kind == Counted::kZero ? a : counted(std::atan(a.x)); }
+inline Counted kt_atan2(Counted a, Counted b) { return counted(std::atan2(a.x, b.x)); }
+inline Counted kt_abs(Counted a) {
+  Counted r = Counted::value(std::fabs(a.x));
+  r.kind = a.kind;
+  return r;
+}
+
+#include "imu_rows.cu"
+#include "linearize_rows.cu"
+
+namespace {
+
+// Copies of [k, M] double inputs as Counted (null stays null).
+struct CountedInputs {
+  std::vector<std::vector<Counted>> store;
+  std::vector<const Counted*> ptrs;
+  CountedInputs(const double* const* ins, const int* ks, int n, int M) {
+    store.resize(n);
+    for (int i = 0; i < n; ++i) {
+      if (!ins[i]) {
+        ptrs.push_back(nullptr);
+        continue;
+      }
+      const size_t len = static_cast<size_t>(ks[i]) * M;
+      for (size_t j = 0; j < len; ++j) store[i].push_back(Counted::value(ins[i][j]));
+      ptrs.push_back(store[i].data());
+    }
+  }
+};
+
+const int kImuKs[10] = {16, 1, 1, 12, 1, 1, 3, 1, 3, 1};
+const int kLinKs[12] = {28, 1, 28, 1, 1, 4, 3, 1, 3, 2, 1, 9};
+
+}  // namespace
+
+extern "C" {
+
+// B4 row code on double: ins as for kontiki_imu_rows_f64; J unused when
+// flags has the cost-only bit. wide = 0 runs the kernel's seed chunks,
+// wide = 1 the one full-width jet that the operation count runs.
+void kontiki_host_imu_rows_f64(const double* const* ins, double* r, double* J,
+                               int M, int flags, int wide) {
+  const ImuInputs<double> in =
+      make_imu_inputs<double>(reinterpret_cast<const void* const*>(ins), M, flags);
+  for (int m = 0; m < M; ++m) {
+    if (flags & kCostOnly) {
+      imu_row_cost<double>(in, m, r);
+    } else if (wide) {
+      imu_row_chunk<double, kSeeds>(in, m, 0, r, J);
+    } else {
+      for (int c = 0; c < kChunks; ++c) imu_row_chunk<double>(in, m, c, r, J);
+    }
+  }
+}
+
+// Operations of B4's function on these inputs: each row once, all 13 seeds
+// in one jet (the kernel runs them in chunks of kN, each re-running the
+// primal chain).
+long long kontiki_count_imu_rows(const double* const* ins, int M, int flags) {
+  CountedInputs c(ins, kImuKs, 10, M);
+  const ImuInputs<Counted> in = make_imu_inputs<Counted>(
+      reinterpret_cast<const void* const*>(c.ptrs.data()), M, flags);
+  std::vector<Counted> r(static_cast<size_t>(M) * 3);
+  std::vector<Counted> J(static_cast<size_t>(M) * 3 * imu_columns(flags));
+  g_ops = 0;
+  for (int m = 0; m < M; ++m) {
+    if (flags & kCostOnly) {
+      imu_row_cost<Counted>(in, m, r.data());
+    } else {
+      imu_row_chunk<Counted, kSeeds>(in, m, 0, r.data(), J.data());
+    }
+  }
+  return g_ops;
+}
+
+// B1 row code on double: ins as for kontiki_linearize_rows_f64; wide as
+// for kontiki_host_imu_rows_f64.
+void kontiki_host_linearize_rows_f64(const double* const* ins, double* r, double* J,
+                                     double* J_rho, int M, int wide) {
+  const Inputs<double> in = {ins[0], ins[1], ins[2], ins[3], ins[4],  ins[5],
+                             ins[6], ins[7], ins[8], ins[9], ins[10], ins[11], M};
+  for (int m = 0; m < M; ++m) {
+    if (wide) {
+      linearize_row<double, 25, 21>(in, m, r, J, J_rho);
+    } else {
+      linearize_row<double>(in, m, r, J, J_rho);
+    }
+  }
+}
+
+// Operations of B1's function on these inputs: each row once with one jet
+// per stage (25 and 21 seeds), less the primal windows of stage 1, which
+// the stage-3 jets compute again.
+long long kontiki_count_linearize_rows(const double* const* ins, int M) {
+  CountedInputs c(ins, kLinKs, 12, M);
+  const Counted* const* p = c.ptrs.data();
+  const Inputs<Counted> in = {p[0], p[1], p[2], p[3], p[4], p[5],
+                              p[6], p[7], p[8], p[9], p[10], p[11], M};
+  std::vector<Counted> r(static_cast<size_t>(M) * 2), J_rho(static_cast<size_t>(M) * 2);
+  std::vector<Counted> J(static_cast<size_t>(M) * 2 * kC);
+  g_ops = 0;
+  for (int m = 0; m < M; ++m) {
+    linearize_row<Counted, 25, 21>(in, m, r.data(), J.data(), J_rho.data());
+  }
+  const long long total = g_ops;
+  g_ops = 0;
+  Counted zero[24], win[28], out[7];
+  for (int k = 0; k < 24; ++k) zero[k] = Counted(0.0);
+  for (int m = 0; m < M; ++m) {
+    for (int w = 0; w < 2; ++w) {
+      const Counted* src = w ? in.win_obs : in.win_ref;
+      for (int k = 0; k < 28; ++k) win[k] = src[k * M + m];
+      pq_se3<Counted, Counted>(win, (w ? in.u_obs : in.u_ref)[m], in.dts[m], zero,
+                               Counted(0.0), out);
+    }
+  }
+  return total - g_ops;
+}
+
+}  // extern "C"

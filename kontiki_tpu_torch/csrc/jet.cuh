@@ -169,6 +169,8 @@ KT_HD float kt_cos(float x) { return cosf(x); }
 KT_HD double kt_cos(double x) { return cos(x); }
 KT_HD float kt_atan(float x) { return atanf(x); }
 KT_HD double kt_atan(double x) { return atan(x); }
+KT_HD float kt_atan2(float y, float x) { return atan2f(y, x); }
+KT_HD double kt_atan2(double y, double x) { return atan2(y, x); }
 KT_HD float kt_abs(float x) { return fabsf(x); }
 KT_HD double kt_abs(double x) { return fabs(x); }
 
@@ -209,5 +211,15 @@ KT_HD Jet<T, N> kt_atan(const Jet<T, N>& x) {
   const T d = T(1) / (T(1) + x.a * x.a);
 #pragma unroll
   for (int i = 0; i < N; ++i) r.v[i] = d * x.v[i];
+  return r;
+}
+
+template <typename T, int N>
+KT_HD Jet<T, N> kt_atan2(const Jet<T, N>& y, const Jet<T, N>& x) {
+  Jet<T, N> r;
+  r.a = kt_atan2(y.a, x.a);
+  const T d = T(1) / (x.a * x.a + y.a * y.a);
+#pragma unroll
+  for (int i = 0; i < N; ++i) r.v[i] = (x.a * y.v[i] - y.a * x.v[i]) * d;
   return r;
 }

@@ -19,71 +19,23 @@
 //      written out, so no window Jacobian is kept per thread.
 // The sensor block is [q_ct(3), p_ct(3), d = t_ref + t_obs, biases = 0].
 //
-// Bound: arithmetic and registers. A row reads 82 values and writes 126, so
-// memory traffic is small (~1.6 KB/row in f64); each row runs the SE3
-// window chain (trig, sqrt, atan) 10 times with 6-wide jets and the
-// residual 3 times with 8-wide jets. Seed chunks keep the live jets small
+// Bound: a row reads 82 values and writes 126 (~1.7 KB in f64) and the
+// function needs ~27 k float64 operations (csrc/host_rows.cpp counts
+// them): at config 4's 12,304 rows, ~6 us of bytes and ~5 us of operations
+// at 67 TFLOP/s. The kernel's time is set by arithmetic latency and
+// registers instead: each row runs the SE3 window chain (trig, sqrt, atan)
+// 10 times with 6-wide jets and the residual 3 times with 8-wide jets.
+// Seed chunks keep the live jets small
 // (a 25-wide jet would need ~50 registers per value and spill heavily);
 // the price is re-running the primal chain once per chunk.
-#include "jet.cuh"
+#include "rowmath.cuh"
 
 namespace {
 
-constexpr double kEps3 = 1e-10;   // theta^2 guard (math.se3._EPS)
 constexpr double kPi = 3.14159265358979323846;
 constexpr int kC = 61;            // Jacobian columns: 24 ref | 24 obs | 13 sensor
 constexpr int kN1 = 5;            // stage-1 seed chunk (25 = 5 x 5)
 constexpr int kN2 = 7;            // stage-2 seed chunk (21 = 3 x 7)
-
-template <typename S>
-struct V3 { S x, y, z; };
-template <typename S>
-struct Q4 { S w, x, y, z; };
-
-template <typename S>
-KT_HD Q4<S> qmul(const Q4<S>& a, const Q4<S>& b) {
-  return {a.w * b.w - a.x * b.x - a.y * b.y - a.z * b.z,
-          a.w * b.x + a.x * b.w + a.y * b.z - a.z * b.y,
-          a.w * b.y - a.x * b.z + a.y * b.w + a.z * b.x,
-          a.w * b.z + a.x * b.y - a.y * b.x + a.z * b.w};
-}
-
-template <typename S>
-KT_HD Q4<S> qconj(const Q4<S>& q) { return {q.w, -q.x, -q.y, -q.z}; }
-
-template <typename S>
-KT_HD V3<S> cross(const V3<S>& a, const V3<S>& b) {
-  return {a.y * b.z - a.z * b.y, a.z * b.x - a.x * b.z, a.x * b.y - a.y * b.x};
-}
-
-// (q (0,v) q*).vec in the 15-multiply form
-template <typename S>
-KT_HD V3<S> qrotate(const Q4<S>& q, const V3<S>& v) {
-  using T = typename BaseT<S>::type;
-  const V3<S> qv = {q.x, q.y, q.z};
-  V3<S> t = cross(qv, v);
-  t = {T(2) * t.x, T(2) * t.y, T(2) * t.z};
-  const V3<S> c = cross(qv, t);
-  return {v.x + q.w * t.x + c.x, v.y + q.w * t.y + c.y, v.z + q.w * t.z + c.z};
-}
-
-// rotation vector -> unit quaternion, Taylor-guarded
-template <typename S>
-KT_HD Q4<S> so3_exp_quat(const V3<S>& o) {
-  using T = typename BaseT<S>::type;
-  const S theta2 = o.x * o.x + o.y * o.y + o.z * o.z;
-  S k, w;
-  if (val(theta2) <= T(kEps3)) {
-    k = T(0.5) - theta2 / T(48);
-    w = T(1) - theta2 / T(8);
-  } else {
-    const S theta = kt_sqrt(theta2);
-    const S half = T(0.5) * theta;
-    k = kt_sin(half) / theta;
-    w = kt_cos(half);
-  }
-  return {w, k * o.x, k * o.y, k * o.z};
-}
 
 // unit quaternion -> minimal rotation vector (Sophus SO3::log branches)
 template <typename S>
@@ -235,8 +187,9 @@ struct Inputs {
 
 }  // namespace
 
-// Linearize row m: r [M, 2], J [M, 2, 61], J_rho [M, 2].
-template <typename T>
+// Linearize row m: r [M, 2], J [M, 2, 61], J_rho [M, 2]. The kernel runs
+// the seed chunks N1 = kN1, N2 = kN2; N1 = 25, N2 = 21 is one chunk each.
+template <typename T, int N1 = kN1, int N2 = kN2>
 KT_HD void linearize_row(const Inputs<T>& in, int m, T* r_out, T* J_out,
                          T* Jrho_out) {
   const int M = in.M;
@@ -273,18 +226,18 @@ KT_HD void linearize_row(const Inputs<T>& in, int m, T* r_out, T* J_out,
 
   // 2. residual and its 21 seed columns
   T JG[21][2], r[2];
-  for (int s0 = 0; s0 < 21; s0 += kN2) {
-    using S = Jet<T, kN2>;
+  for (int s0 = 0; s0 < 21; s0 += N2) {
+    using S = Jet<T, N2>;
     S ur[7], uo[7], dsen[6], out[2];
     for (int k = 0; k < 7; ++k) {
-      ur[k] = seeded<T, kN2>(pq[0][k], k - s0);
-      uo[k] = seeded<T, kN2>(pq[1][k], 7 + k - s0);
+      ur[k] = seeded<T, N2>(pq[0][k], k - s0);
+      uo[k] = seeded<T, N2>(pq[1][k], 7 + k - s0);
     }
-    for (int k = 0; k < 6; ++k) dsen[k] = seeded<T, kN2>(T(0), 14 + k - s0);
-    const S drho = seeded<T, kN2>(T(0), 20 - s0);
+    for (int k = 0; k < 6; ++k) dsen[k] = seeded<T, N2>(T(0), 14 + k - s0);
+    const S drho = seeded<T, N2>(T(0), 20 - s0);
     residual_G<T, S>(row, ur, uo, dsen, drho, out);
 #pragma unroll
-    for (int i = 0; i < kN2; ++i) {
+    for (int i = 0; i < N2; ++i) {
       JG[s0 + i][0] = out[0].v[i];
       JG[s0 + i][1] = out[1].v[i];
     }
@@ -296,14 +249,14 @@ KT_HD void linearize_row(const Inputs<T>& in, int m, T* r_out, T* J_out,
   T* J = J_out + static_cast<size_t>(m) * 2 * kC;
   T t_sum[2] = {T(0), T(0)};  // d(r)/d(time): t_ref + t_obs
   for (int w = 0; w < 2; ++w) {
-    for (int s0 = 0; s0 < 25; s0 += kN1) {
-      using S = Jet<T, kN1>;
+    for (int s0 = 0; s0 < 25; s0 += N1) {
+      using S = Jet<T, N1>;
       S delta[24], out[7];
-      for (int k = 0; k < 24; ++k) delta[k] = seeded<T, kN1>(T(0), k - s0);
-      const S s = seeded<T, kN1>(T(0), 24 - s0);
+      for (int k = 0; k < 24; ++k) delta[k] = seeded<T, N1>(T(0), k - s0);
+      const S s = seeded<T, N1>(T(0), 24 - s0);
       pq_se3<T, S>(win[w], u[w], dt, delta, s, out);
 #pragma unroll
-      for (int i = 0; i < kN1; ++i) {
+      for (int i = 0; i < N1; ++i) {
         const int c = s0 + i;
         for (int rr = 0; rr < 2; ++rr) {
           T acc = T(0);

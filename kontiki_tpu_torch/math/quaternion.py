@@ -52,6 +52,39 @@ def qrotate(q, v):
     return v + w * t + cross(qv, t)
 
 
+def logq(q):
+    """Unit-quaternion logarithm as a pure quaternion (0, k v), with
+    ``k = atan2(|v|, w) / |v|`` and the Taylor fallback ``k = 1`` when
+    ``|v|^2 <= EPS`` (reference quaternion_math.h:44-52)."""
+    v = q[..., 1:]
+    w = q[..., 0]
+    v2 = torch.sum(v * v, dim=-1)
+    small = v2 <= EPS
+    vn = torch.sqrt(torch.where(small, 1.0, v2))
+    k = torch.where(small, 1.0, torch.atan2(vn, w) / vn)
+    return torch.cat([torch.zeros_like(w)[..., None], v * k[..., None]], dim=-1)
+
+
+def expq(q):
+    """Quaternion exponential ``e^w (cos|v|, sinc(|v|) v)``, Taylor fallback
+    ``cos -> 1, sinc -> 1`` when ``|v|^2 <= EPS`` (quaternion_math.h:74-83)."""
+    v = q[..., 1:]
+    w = q[..., 0]
+    v2 = torch.sum(v * v, dim=-1)
+    small = v2 <= EPS
+    vn = torch.sqrt(torch.where(small, 1.0, v2))
+    ea = torch.exp(w)
+    ka = torch.where(small, ea, ea * torch.cos(vn))
+    kv = torch.where(small, ea, ea * torch.sin(vn) / vn)
+    return torch.cat([ka[..., None], kv[..., None] * v], dim=-1)
+
+
+def angular_velocity(q, dq):
+    """World-frame angular velocity ``2 (dq q^-1).vec``
+    (reference quaternion_math.h:92-96)."""
+    return 2.0 * qmul(dq, qconj(q))[..., 1:]
+
+
 def qnormalize(q):
     """Normalize to unit norm."""
     return q / torch.linalg.vector_norm(q, dim=-1, keepdim=True)

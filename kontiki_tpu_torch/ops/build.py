@@ -1,11 +1,17 @@
 """Build and bind the port's CUDA kernels.
 
 The sources under ``kontiki_tpu_torch/csrc`` are compiled with ``nvcc`` for
-Hopper (``sm_90a``) into one shared library with a plain C interface, bound
-with ``ctypes``. The library is built at first use into
+Hopper (``sm_90a``), one ``nvcc`` per ``.cu`` file, all started together,
+and linked into one shared library with a plain C interface, bound with
+``ctypes``. The library is built at first use into
 ``kontiki_tpu_torch/_build`` (git-ignored) under a name keyed by a hash of
 the sources and flags, so a changed source is rebuilt and an unchanged one
 is loaded as it is.
+
+``build_host`` compiles the kernels' per-row code for the host with a plain
+C++ compiler (``csrc/host_rows.cpp``): the row math on ``double`` for checks
+without a card, and on an operation-counting scalar for the operation side
+of a kernel's bound.
 """
 import ctypes
 import functools
@@ -20,7 +26,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P = ctypes.c_void_p
@@ -29,6 +35,15 @@ _I = ctypes.c_int
 _ENTRIES = {
     "kontiki_linearize_rows": [_P] * 12 + [_P, _P, _P, _I, _P],
     "kontiki_assemble_schur": [_P] * 10 + [_I] * 6 + [_P],
+    "kontiki_imu_rows": [_P] * 10 + [_P, _P, _I, _I, _P],
+}
+HOST_FLAGS = ("-std=c++17", "-O2", "-shared", "-fPIC")
+#: host entry points: name -> (argument types, return type)
+_HOST_ENTRIES = {
+    "kontiki_host_imu_rows_f64": ([_P, _P, _P, _I, _I, _I], None),
+    "kontiki_count_imu_rows": ([_P, _I, _I], ctypes.c_longlong),
+    "kontiki_host_linearize_rows_f64": ([_P, _P, _P, _P, _I, _I], None),
+    "kontiki_count_linearize_rows": ([_P, _I], ctypes.c_longlong),
 }
 
 
@@ -44,33 +59,76 @@ def _nvcc():
     return str(Path(cuda_home) / "bin" / "nvcc")
 
 
-def library_path():
-    """Path of the shared library for the current sources and flags."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+def _library_path(stem, flags, sources):
+    h = hashlib.sha256(" ".join(flags).encode())
+    for src in sources:
         h.update(src.name.encode())
         h.update(src.read_bytes())
-    return BUILD_DIR / f"kontiki_kernels_{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"{stem}_{h.hexdigest()[:16]}.so"
+
+
+def library_path():
+    """Path of the shared library for the current sources and flags."""
+    return _library_path("kontiki_kernels", NVCC_FLAGS, _sources())
+
+
+def _compile(so, cmd):
+    """Run ``cmd -o <tmp>`` and move the result to ``so`` (atomic, so
+    concurrent builds race safely); the report is added to ``so``'s
+    ``.log``."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = so.with_suffix(f".so.tmp{os.getpid()}")
+    proc = subprocess.run([*cmd, "-o", str(tmp)], capture_output=True, text=True)
+    with open(so.with_suffix(".log"), "a") as log:
+        log.write(proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"{cmd[0]} failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}"
+        )
+    os.replace(tmp, so)
+    return so
 
 
 def build():
-    """Compile the kernels if the library for these sources is missing.
-    Returns its path; the compiler's report is kept beside it (``.log``)."""
+    """Compile the kernels if the library for these sources is missing:
+    each ``.cu`` to an object in parallel, then one link. Returns the
+    library's path; the compilers' reports are kept beside it (``.log``)."""
     so = library_path()
     if so.exists():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_suffix(f".so.tmp{os.getpid()}")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(s) for s in _sources() if s.suffix == ".cu"]]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    so.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}"
-        )
-    os.replace(tmp, so)  # atomic: concurrent builds race safely
-    return so
+    tag = f"{so.stem}.{os.getpid()}"
+    jobs = []
+    for cu in (s for s in _sources() if s.suffix == ".cu"):
+        obj = BUILD_DIR / f"{tag}.{cu.stem}.o"
+        cmd = [_nvcc(), *NVCC_FLAGS, "-c", str(cu), "-o", str(obj)]
+        jobs.append((cu, obj, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                               stderr=subprocess.STDOUT, text=True)))
+    log, failed = [], []
+    for cu, _, proc in jobs:
+        log.append(f"== {cu.name}\n{proc.communicate()[0]}")
+        if proc.returncode != 0:
+            failed.append(cu.name)
+    so.with_suffix(".log").write_text("\n".join(log))
+    objs = [str(obj) for _, obj, _ in jobs]
+    try:
+        if failed:
+            raise RuntimeError(f"nvcc failed on {failed}:\n" + "\n".join(log))
+        return _compile(so, [_nvcc(), "-shared", *NVCC_FLAGS[:2], *objs])
+    finally:
+        for obj in objs:
+            Path(obj).unlink(missing_ok=True)
+
+
+def build_host():
+    """Compile ``csrc/host_rows.cpp`` with the host C++ compiler if needed;
+    returns the library's path."""
+    src = CSRC / "host_rows.cpp"
+    so = _library_path("kontiki_host", HOST_FLAGS, [src, *_sources()])
+    if so.exists():
+        return so
+    cxx = os.environ.get("CXX") or shutil.which("c++") or "g++"
+    return _compile(so, [cxx, *HOST_FLAGS, str(src)])
 
 
 @functools.lru_cache(maxsize=None)
@@ -83,4 +141,15 @@ def load_library():
             fn = getattr(lib, name + suffix)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def load_host_library():
+    """Build (if needed) and load ``csrc/host_rows.cpp``'s library."""
+    lib = ctypes.CDLL(str(build_host()))
+    for name, (argtypes, restype) in _HOST_ENTRIES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = restype
     return lib

@@ -1,6 +1,11 @@
-"""Camera-row linearization: the CUDA kernel ``csrc/linearize_rows.cu`` and
-its plain PyTorch version (counterpart of
-``kontiki_tpu.ops.linearize_kernels.linearize_rows``, kernel B1).
+"""Row linearization kernels and their plain PyTorch versions (counterpart
+of ``kontiki_tpu.ops.linearize_kernels``):
+
+- B1 ``linearize_rows``: camera rows, CUDA kernel ``csrc/linearize_rows.cu``;
+- B4 ``imu_rows``: gyro/accel rows on SO3 or split R3 + SO3 splines, CUDA
+  kernel ``csrc/imu_rows.cu`` (described at ``imu_rows_plain``).
+
+B1, camera rows:
 
 For each ``rs_static`` pinhole row on an SE3 spline it computes the residual
 ``r [M, 2]``, the compressed Jacobian ``J [M, 2, 61]`` over
@@ -23,6 +28,8 @@ import ctypes
 
 import torch
 
+from ..constants import GRAVITY
+from ..math.quaternion import EPS as _EPS
 from ..math.se3 import _EPS as _EPS3
 from ..sensors.camera_models import pinhole_project
 
@@ -134,6 +141,38 @@ def _Vinv_apply(omega, t):
     return (t[0] - 0.5 * c1[0] + c * c2[0],
             t[1] - 0.5 * c1[1] + c * c2[1],
             t[2] - 0.5 * c1[2] + c * c2[2])
+
+
+def _logq_vec(q):
+    """Unit-quaternion log vector part k v, k = atan2(|v|, w) / |v|
+    (quaternion.logq)."""
+    w, x, y, z = q
+    v2 = x * x + y * y + z * z
+    small = v2 <= _EPS
+    vn = torch.sqrt(torch.where(small, 1.0, v2))
+    k = torch.where(small, 1.0, torch.atan2(vn, w) / vn)
+    return (k * x, k * y, k * z)
+
+
+def _expq_pure(v):
+    """exp of a pure quaternion (0, v): (cos|v|, sinc(|v|) v)."""
+    x, y, z = v
+    v2 = x * x + y * y + z * z
+    small = v2 <= _EPS
+    vn = torch.sqrt(torch.where(small, 1.0, v2))
+    ka = torch.where(small, 1.0, torch.cos(vn))
+    kv = torch.where(small, 1.0, torch.sin(vn) / vn)
+    return (ka, kv * x, kv * y, kv * z)
+
+
+def _standard_basis(u):
+    """B(0..3) of the R3 spline (spline_eval.M_BASIS columns)."""
+    u2 = u * u
+    u3 = u2 * u
+    return ((1.0 - 3.0 * u + 3.0 * u2 - u3) / 6.0,
+            (4.0 - 6.0 * u2 + 3.0 * u3) / 6.0,
+            (1.0 + 3.0 * u + 3.0 * u2 - 3.0 * u3) / 6.0,
+            u3 / 6.0)
 
 
 def _cumulative_basis(u):
@@ -332,3 +371,262 @@ def linearize_rows(ins):
 
 #: kernel launches since the count was last reset (CUDA tensors only)
 linearize_rows.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# B4: gyro / accel rows on SO3 or split R3 + SO3 splines
+# ---------------------------------------------------------------------------
+
+SENSOR_COLS = 13
+#: input names, in the kernel's argument order, with their leading sizes;
+#: the r3 inputs are absent for SO3-only problems and ``valid`` is optional
+IMU_INPUTS = (
+    ("win_so3", 16), ("u_so3", 1), ("dts_so3", 1), ("win_r3", 12), ("u_r3", 1),
+    ("dts_r3", 1), ("y", 3), ("weight", 1), ("bias", 3), ("valid", 1),
+)
+_IMU_OPTIONAL = ("win_r3", "u_r3", "dts_r3", "valid")
+
+
+def imu_columns(cfg):
+    """Jacobian width C: the window columns (12 SO3, or 12 R3 + 12 SO3),
+    then the 13 sensor columns."""
+    return (12 if cfg["so3_only"] else 24) + SENSOR_COLS
+
+
+def _imu_body(cfg, ins):
+    """``body(delta [nk, M], s [M]) -> [3, M]``: the modelled body-frame
+    gyro rate or specific force at ``u + s/dt`` with window increments
+    ``delta`` (SO3 knots left ``exp``, R3 knots additive); time derivatives
+    are nested ``torch.func.jvp`` through ``s``, as ``_tile_imu`` does."""
+    so3_only = cfg["so3_only"]
+    r3_first = cfg.get("r3_first", True)
+    ws = [tuple(ins["win_so3"][4 * j + k] for k in range(4)) for j in range(4)]
+    u_so3, dt_so3 = ins["u_so3"][0], ins["dts_so3"][0]
+    off_so3 = 0 if so3_only else (12 if r3_first else 0)
+    off_r3 = 0 if r3_first else 12
+
+    def qfun(delta, s):
+        kq = [_qmul(_so3_exp_quat(tuple(delta[off_so3 + 3 * j + k] for k in range(3))),
+                    ws[j]) for j in range(4)]
+        Bs = _cumulative_basis(u_so3 + s / dt_so3)
+        q = kq[0]
+        for j in (1, 2, 3):
+            w3 = _logq_vec(_qmul(_qconj(kq[j - 1]), kq[j]))
+            b = Bs[j - 1]
+            q = _qmul(q, _expq_pure((b * w3[0], b * w3[1], b * w3[2])))
+        return torch.stack(q)
+
+    def tangent_one(x):
+        return torch.ones_like(x)
+
+    if cfg["kind"] == "gyro":
+        def body(delta, s):
+            q, dq = torch.func.jvp(lambda ss: qfun(delta, ss), (s,), (tangent_one(s),))
+            qt = tuple(q)
+            wq = _qmul(tuple(dq), _qconj(qt))  # omega_world = 2 (dq q^-1).vec
+            return torch.stack(_qrotate(_qconj(qt), (2.0 * wq[1], 2.0 * wq[2], 2.0 * wq[3])))
+        return body
+
+    wr = [tuple(ins["win_r3"][3 * j + k] for k in range(3)) for j in range(4)]
+    u_r3, dt_r3 = ins["u_r3"][0], ins["dts_r3"][0]
+
+    def pfun(delta, s):
+        B = _standard_basis(u_r3 + s / dt_r3)
+        return torch.stack([
+            sum(B[j] * (wr[j][k] + delta[off_r3 + 3 * j + k]) for j in range(4))
+            for k in range(3)
+        ])
+
+    def body(delta, s):
+        def vel(ss):
+            return torch.func.jvp(lambda s2: pfun(delta, s2), (ss,), (tangent_one(ss),))[1]
+
+        a = torch.func.jvp(vel, (s,), (tangent_one(s),))[1]
+        qt = tuple(qfun(delta, s))
+        return torch.stack(_qrotate(_qconj(qt), (a[0], a[1], a[2] + float(GRAVITY[2]))))
+    return body
+
+
+def imu_rows_plain(cfg, ins, cost_only=False):
+    """Plain PyTorch B4 (the TPU kernel's ``_tile_imu``).
+
+    ``cfg``: ``kind`` ('gyro' | 'accel'), ``so3_only``, ``r3_first``.
+    ``ins``: the gathered, transposed ``[k, M]`` rows named as in
+    ``IMU_INPUTS``. The residual is ``w (y - body - bias)``:
+
+    - gyro: ``body = R(q)^T omega_world``, ``omega_world = 2 (dq/dt q^-1).vec``;
+    - accel: ``body = R(q)^T (d2p/dt2 + g)``, ``g = (0, 0, -9.80665)``.
+
+    J holds ``-w d(body)/d(window increments)`` (window columns in the
+    ``r3_first`` order; a gyro row's R3 columns are zero), the time shift in
+    sensor column 6, and ``-w I`` in the bias columns (7-9 accel, 10-12
+    gyro); the relative-pose columns stay zero (IMUs ignore it). Rows with
+    ``valid = 0`` are zero. Returns ``(r [M, 3], J [M, 3, C])``, or ``r``
+    with ``cost_only``."""
+    u = ins["u_so3"]
+    M = u.shape[1]
+    opts = dict(dtype=u.dtype, device=u.device)
+    nk = 12 if cfg["so3_only"] else 24
+    body = _imu_body(cfg, ins)
+    zerosK, zerosM = torch.zeros(nk, M, **opts), torch.zeros(M, **opts)
+    w = ins["weight"][0]
+    valid = ins["valid"][0] if "valid" in ins else None
+
+    if cost_only:
+        b0 = body(zerosK, zerosM)
+    else:
+        eye = torch.eye(nk + 1, **opts)
+        b0, Jb = _jvp_seeds(body, (zerosK, zerosM), (eye[:, :nk], eye[:, nk:]))
+    r = w * (ins["y"] - b0 - ins["bias"])
+    if valid is not None:
+        r = r * valid
+    if cost_only:
+        return r.T.contiguous()
+
+    C = nk + SENSOR_COLS
+    J = torch.zeros(3, C, M, **opts)
+    J[:, :nk] = -(Jb[:nk] * w).transpose(0, 1)
+    J[:, nk + 6] = -Jb[nk] * w
+    bias_off = nk + (7 if cfg["kind"] == "accel" else 10)
+    for k in range(3):
+        J[k, bias_off + k] = -w
+    if valid is not None:
+        J = J * valid
+    return r.T.contiguous(), J.permute(2, 0, 1).contiguous()
+
+
+def _check_imu_inputs(cfg, ins):
+    x = ins["u_so3"]
+    if x.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"imu_rows: unsupported dtype {x.dtype}")
+    if cfg["kind"] not in ("gyro", "accel"):
+        raise ValueError(f"imu_rows: unsupported kind {cfg['kind']!r}")
+    if cfg["kind"] == "accel" and cfg["so3_only"]:
+        raise ValueError("imu_rows: accel rows need an R3 spline")
+    M = x.shape[-1]
+    for name, k in IMU_INPUTS:
+        if name not in ins:
+            if name == "valid" or (cfg["so3_only"] and name in _IMU_OPTIONAL):
+                continue
+            raise ValueError(f"imu_rows: missing input {name}")
+        a = ins[name]
+        if a.shape != (k, M) or a.dtype != x.dtype or a.device != x.device:
+            raise ValueError(
+                f"imu_rows: {name} must be [{k}, {M}] {x.dtype} on {x.device}, "
+                f"got {tuple(a.shape)} {a.dtype} on {a.device}"
+            )
+        if not a.is_contiguous():
+            raise ValueError(f"imu_rows: {name} must be contiguous")
+    return M
+
+
+def _imu_flags(cfg, cost_only):
+    """Flags of the C entry points (bits of ``csrc/imu_rows.cu``)."""
+    return ((1 if cfg["kind"] == "accel" else 0) | (0 if cfg["so3_only"] else 2)
+            | (4 if cfg.get("r3_first", True) else 0) | (8 if cost_only else 0))
+
+
+def imu_rows(cfg, ins, cost_only=False):
+    """B4: ``(r [M, 3], J [M, 3, C])``, or ``r`` with ``cost_only``, of
+    gyro/accel rows (see ``imu_rows_plain``). CPU tensors run the plain
+    version, CUDA tensors the hand-written kernel."""
+    M = _check_imu_inputs(cfg, ins)
+    x = ins["u_so3"]
+    if x.device.type == "cpu":
+        return imu_rows_plain(cfg, ins, cost_only=cost_only)
+    if x.device.type != "cuda":
+        raise ValueError(f"imu_rows: unsupported device {x.device}")
+    from .build import load_library
+
+    lib = load_library()
+    fn = lib.kontiki_imu_rows_f64 if x.dtype == torch.float64 else lib.kontiki_imu_rows_f32
+    C = imu_columns(cfg)
+    r = torch.empty(M, 3, dtype=x.dtype, device=x.device)
+    J = torch.empty(0 if cost_only else M, 3, C, dtype=x.dtype, device=x.device)
+    if M == 0:
+        return r if cost_only else (r, J)
+    flags = _imu_flags(cfg, cost_only)
+    ptrs = [ctypes.c_void_p(ins[n].data_ptr() if n in ins else None) for n, _ in IMU_INPUTS]
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(*ptrs, ctypes.c_void_p(r.data_ptr()),
+                 ctypes.c_void_p(J.data_ptr() if not cost_only else None),
+                 ctypes.c_int(M), ctypes.c_int(flags), ctypes.c_void_p(stream))
+    if err:
+        raise RuntimeError(f"imu_rows: kernel launch failed (CUDA error {err})")
+    imu_rows.launches += 1
+    imu_rows.cost_launches += int(cost_only)
+    return r if cost_only else (r, J)
+
+
+#: kernel launches since the count was last reset (CUDA tensors only), and
+#: how many of them were the cost-only form
+imu_rows.launches = 0
+imu_rows.cost_launches = 0
+
+
+# ---------------------------------------------------------------------------
+# the kernels' per-row code on the host (csrc/host_rows.cpp): row checks
+# without a card, and operation counts for the kernels' bounds
+# ---------------------------------------------------------------------------
+
+def _host_args(names, ins):
+    """float64 CPU copies of ``ins`` (absent names -> null) and the C array
+    of their pointers."""
+    keep = [ins[n].detach().to("cpu", torch.float64).contiguous() if n in ins else None
+            for n, _ in names]
+    ptrs = (ctypes.c_void_p * len(keep))(*[a.data_ptr() if a is not None else None
+                                           for a in keep])
+    return keep, ptrs
+
+
+def imu_rows_host(cfg, ins, cost_only=False, wide=False):
+    """B4's CUDA row code compiled for the host, in float64: the same
+    outputs as ``imu_rows`` (CPU tensors). ``wide`` runs each row in one
+    full-width jet, as ``imu_rows_ops`` counts it, instead of the kernel's
+    seed chunks."""
+    from .build import load_host_library
+
+    M = _check_imu_inputs(cfg, ins)
+    keep, ptrs = _host_args(IMU_INPUTS, ins)
+    r = torch.zeros(M, 3, dtype=torch.float64)
+    J = torch.zeros(M, 3, imu_columns(cfg), dtype=torch.float64)
+    load_host_library().kontiki_host_imu_rows_f64(
+        ptrs, r.data_ptr(), J.data_ptr(), M, _imu_flags(cfg, cost_only), int(wide))
+    return r if cost_only else (r, J)
+
+
+def imu_rows_ops(cfg, ins, cost_only=False):
+    """Floating-point operations B4's function needs on ``ins``, counted by
+    running its row code on the host once per row in one full-width jet,
+    with structural zeros and ones free (``csrc/host_rows.cpp``)."""
+    from .build import load_host_library
+
+    M = _check_imu_inputs(cfg, ins)
+    keep, ptrs = _host_args(IMU_INPUTS, ins)
+    return load_host_library().kontiki_count_imu_rows(ptrs, M, _imu_flags(cfg, cost_only))
+
+
+def linearize_rows_host(ins, wide=False):
+    """B1's CUDA row code compiled for the host, in float64; ``wide`` as
+    for ``imu_rows_host``."""
+    from .build import load_host_library
+
+    M = _check_inputs(ins)
+    keep, ptrs = _host_args(INPUTS, ins)
+    r = torch.zeros(M, RDIM, dtype=torch.float64)
+    J = torch.zeros(M, RDIM, C, dtype=torch.float64)
+    J_rho = torch.zeros(M, RDIM, dtype=torch.float64)
+    load_host_library().kontiki_host_linearize_rows_f64(
+        ptrs, r.data_ptr(), J.data_ptr(), J_rho.data_ptr(), M, int(wide))
+    return r, J, J_rho
+
+
+def linearize_rows_ops(ins):
+    """Floating-point operations B1's function needs on ``ins``, counted
+    as ``imu_rows_ops`` counts B4's."""
+    from .build import load_host_library
+
+    M = _check_inputs(ins)
+    keep, ptrs = _host_args(INPUTS, ins)
+    return load_host_library().kontiki_count_linearize_rows(ptrs, M)

@@ -1,16 +1,22 @@
-"""Batched residual / Jacobian terms, bounds and retraction (counterpart of
-``kontiki_tpu.solver.kernels``, the subset BASELINE config 4 uses).
+"""Batched residual / Jacobian terms, bounds, retraction and the dense
+solver parts (counterpart of ``kontiki_tpu.solver.kernels``, the subset
+BASELINE configs 1, 2 and 4 use).
 
 - Camera rows (``rs_static``, pinhole, SE3 spline) gather their 4-knot
   windows and row constants into the transposed ``[k, M]`` layout and run
   kernel B1 (``ops.linearize_kernels.linearize_rows``).
-- Gyro and accel rows take the generic path: forward mode over the
-  per-row tangent increments with ``torch.func.vmap(torch.func.jacfwd)``.
-  Each row's knot window is gathered before the differentiated function,
-  so ``jacfwd`` sees only the deltas.
-- Locks are masks over tangent columns, applied after assembly; SE3 knots
-  retract by right-multiplied ``exp`` (Sophus ``T * exp(x)``), sensor
-  orientations by left-multiplied ``exp``.
+- Gyro and accel rows on an SO3 spline or a split R3 + SO3 trajectory do
+  the same for kernel B4 (``ops.linearize_kernels.imu_rows``), which also
+  has the cost-only form the dense re-cost uses.
+- Gyro and accel rows on the SE3 spline take the generic path: forward mode
+  over the per-row tangent increments with
+  ``torch.func.vmap(torch.func.jacfwd)``, as the JAX package keeps them on
+  its generic path. Each row's knot window is gathered before the
+  differentiated function, so ``jacfwd`` sees only the deltas.
+- Locks are masks over tangent columns, applied after assembly. R3 knots
+  retract additively, SO3 knots by left-multiplied ``exp``, SE3 knots by
+  right-multiplied ``exp`` (Sophus ``T * exp(x)``), sensor orientations by
+  left-multiplied ``exp``.
 - Huber loss follows Ceres: cost ``0.5 * sum(rho(|r|^2))`` and IRLS weights
   ``rho'(s)`` on the normal equations.
 """
@@ -21,13 +27,13 @@ import torch
 from ..constants import GRAVITY
 from ..math import quaternion as quat
 from ..math import se3 as se3m
-from ..ops.linearize_kernels import linearize_rows
+from ..ops.linearize_kernels import imu_rows, linearize_rows
 from ..trajectories import spline_eval as ev
 from .problem import SENSOR_TANGENT_DIM, TANGENT_DIMS
 
 
 class SplineSpec(NamedTuple):
-    kind: str  # 'se3'
+    kind: str  # 'r3' | 'so3' | 'se3'
     n: int
     tangent_offset: int
 
@@ -51,8 +57,12 @@ class ProblemSpec(NamedTuple):
 
 
 def retract_window(kind, win, delta):
-    """Apply tangent increments [..., td] to knots [..., D] (SE3: right
-    increment ``(q exp(w), t + R(q) V(w) v)``)."""
+    """Apply tangent increments [..., td] to knots [..., D]: R3 additive,
+    SO3 left ``exp(w) q``, SE3 right ``(q exp(w), t + R(q) V(w) v)``."""
+    if kind == "r3":
+        return win + delta
+    if kind == "so3":
+        return quat.qmul(se3m.so3_exp_quat(delta), win)
     if kind != "se3":
         raise ValueError(kind)
     q, t = se3m.se3_unpack(win)
@@ -116,7 +126,72 @@ def _camera_rows(spec, runtime, state, data):
 
 
 # ---------------------------------------------------------------------------
-# IMU rows: generic forward mode
+# IMU rows on SO3 / split splines: kernel B4
+# ---------------------------------------------------------------------------
+
+def _fused_imu_enabled(spec, bspec):
+    """Whether kernel B4 covers this bucket: gyro/accel rows over ('so3',)
+    or split ('r3', 'so3') splines with 4-knot windows. Accel rows need the
+    R3 spline (the TPU kernel has no R3 window without one)."""
+    if bspec.kind not in ("gyro", "accel"):
+        return False
+    kinds = tuple(sp.kind for sp in spec.splines)
+    if kinds != ("so3",) and sorted(kinds) != ["r3", "so3"]:
+        return False
+    if bspec.kind == "accel" and kinds == ("so3",):
+        return False
+    return all(w == 4 for w in bspec.windows)
+
+
+def _imu_inputs(spec, bspec, runtime, state, data):
+    """Gather + transpose IMU rows for B4. Returns ``(cfg, ins, i0s)``: the
+    kernel's configuration, the [k, M] input dict and the window base index
+    per spline (windows re-center on the current time offset)."""
+    M = data["t"].shape[0]
+    te = data["t"] + state["d"][data["sid"]]
+    kinds = tuple(sp.kind for sp in spec.splines)
+    ins, i0s = {}, []
+    for si, sp in enumerate(spec.splines):
+        t0, dt = runtime["spline_t0"][si], runtime["spline_dt"][si]
+        i0, u = ev.index_and_u(te, t0, dt, sp.n)
+        win = ev.gather_windows(state[sp.kind], i0)
+        i0s.append(i0)
+        ins[f"win_{sp.kind}"] = win.reshape(M, -1).T.contiguous()
+        ins[f"u_{sp.kind}"] = u[None, :].contiguous()
+        ins[f"dts_{sp.kind}"] = torch.full((1, M), dt, dtype=te.dtype, device=te.device)
+    ins["y"] = data["y"].T.contiguous()
+    ins["weight"] = data["weight"][None, :].contiguous()
+    bias = state["gbias" if bspec.kind == "gyro" else "abias"]
+    ins["bias"] = bias[data["sid"]].T.contiguous()
+    if "valid" in data:
+        ins["valid"] = data["valid"][None, :].contiguous()
+    so3_only = kinds == ("so3",)
+    cfg = dict(kind=bspec.kind, so3_only=so3_only,
+               r3_first=not so3_only and kinds[0] == "r3")
+    return cfg, ins, i0s
+
+
+def _imu_rows_fused(spec, bspec, runtime, state, data, cost_only=False):
+    """(r [M,3], J [M,3,C], cols [M,C]) of gyro/accel rows through B4 with
+    columns [spline windows in spline order, sensor]; ``r`` alone with
+    ``cost_only``."""
+    cfg, ins, i0s = _imu_inputs(spec, bspec, runtime, state, data)
+    if cost_only:
+        return imu_rows(cfg, ins, cost_only=True)
+    r, J = imu_rows(cfg, ins)
+    sid = data["sid"]
+    cols = [
+        sp.tangent_offset + i0[:, None] * TANGENT_DIMS[sp.kind]
+        + torch.arange(4 * TANGENT_DIMS[sp.kind], device=sid.device)
+        for sp, i0 in zip(spec.splines, i0s)
+    ]
+    cols.append(spec.sensor_offset + sid[:, None] * SENSOR_TANGENT_DIM
+                + torch.arange(SENSOR_TANGENT_DIM, device=sid.device))
+    return r, J, torch.cat(cols, dim=1)
+
+
+# ---------------------------------------------------------------------------
+# IMU rows on the SE3 spline: generic forward mode
 # ---------------------------------------------------------------------------
 
 def _imu_residual(kind, t0, dt, gravity):
@@ -189,9 +264,21 @@ def bucket_terms(spec, bspec, runtime, state, data):
     off (the Schur path's form)."""
     if bspec.kind == "rs_static":
         return _camera_rows(spec, runtime, state, data)
-    if bspec.kind in ("gyro", "accel"):
+    if _fused_imu_enabled(spec, bspec):
+        return (*_imu_rows_fused(spec, bspec, runtime, state, data), None)
+    if bspec.kind in ("gyro", "accel") and [sp.kind for sp in spec.splines] == ["se3"]:
         return (*_imu_rows(spec, bspec, runtime, state, data), None)
-    raise NotImplementedError(f"bucket kind {bspec.kind!r}")
+    raise NotImplementedError(
+        f"bucket kind {bspec.kind!r} on splines {[sp.kind for sp in spec.splines]}"
+    )
+
+
+def bucket_residuals(spec, bspec, runtime, state, data):
+    """Residuals ``r [M, rdim]`` of one bucket: B4's cost-only form where it
+    covers the bucket, else the linearization's residual."""
+    if _fused_imu_enabled(spec, bspec):
+        return _imu_rows_fused(spec, bspec, runtime, state, data, cost_only=True)
+    return bucket_terms(spec, bspec, runtime, state, data)[0]
 
 
 # ---------------------------------------------------------------------------
@@ -206,6 +293,16 @@ def _huber(s, c):
 def _huber_prime(s, c):
     b = c * c
     return torch.where(s <= b, 1.0, c / torch.sqrt(torch.maximum(s, b)))
+
+
+def _bucket_cost(bspec, data, r):
+    """``(cost, rho')`` of one bucket's residuals: 0.5 sum rho(|r|^2), Huber
+    on camera rows (Ceres semantics), plain squares elsewhere."""
+    s = torch.sum(r * r, dim=-1)
+    if bspec.kind == "rs_static":
+        c = data["huber_c"]
+        return 0.5 * torch.sum(_huber(s, c)), _huber_prime(s, c)
+    return 0.5 * torch.sum(s), torch.ones_like(s)
 
 
 # ---------------------------------------------------------------------------
@@ -243,6 +340,13 @@ def landmark_free_mask(state_rho, g_l, mask_l):
     return mask_l * (1.0 - (at_bound & outward).to(mask_l.dtype))
 
 
+def damped_solve(mask, H, g, lam):
+    """LM-damped masked normal-equation solve (Ceres diagonal clamping)."""
+    D = torch.clamp(torch.diagonal(H), 1e-6, 1e32)
+    A = H + lam * torch.diag(D) + torch.diag(1.0 - mask)
+    return -torch.linalg.solve(A, g) * mask
+
+
 def _retract_state(spec, runtime, state, delta):
     """Apply a masked global tangent step to the state dict; bounds
     (rho >= 0, |d| <= max_time_offset) are enforced by projection."""
@@ -268,6 +372,81 @@ def _retract_state(spec, runtime, state, delta):
         lo = spec.landmark_offset
         new["rho"] = torch.clamp(state["rho"] + delta[lo:lo + L], min=0.0)
     return new
+
+
+# ---------------------------------------------------------------------------
+# dense strategy (JAX ``build_parts`` with ASSEMBLY == "dense")
+# ---------------------------------------------------------------------------
+
+def build_parts(spec):
+    """Dense solver functions: ``total_cost(runtime, state)``,
+    ``linearize(runtime, state) -> (cost, H, g)``, ``retract``,
+    ``solve_from_lin`` and ``step(runtime, state, lam) -> (cost, new_state,
+    new_cost, pred, delta)`` (the classic LM step: linearize, damped solve,
+    retract, re-cost)."""
+    P = spec.num_tangent
+    L, lo = spec.num_landmarks, spec.landmark_offset
+
+    def total_cost(runtime, state):
+        cost = torch.zeros((), dtype=runtime["mask"].dtype, device=runtime["mask"].device)
+        for bspec, data in zip(spec.buckets, runtime["data"]):
+            r = bucket_residuals(spec, bspec, runtime, state, data)
+            cost = cost + _bucket_cost(bspec, data, r)[0]
+        return cost
+
+    def linearize(runtime, state):
+        mask = runtime["mask"]
+        H = torch.zeros(P, P, dtype=mask.dtype, device=mask.device)
+        g = torch.zeros(P, dtype=mask.dtype, device=mask.device)
+        cost = torch.zeros((), dtype=mask.dtype, device=mask.device)
+        for bspec, data in zip(spec.buckets, runtime["data"]):
+            r, J, cols, J_rho = bucket_terms(spec, bspec, runtime, state, data)
+            if J_rho is not None:  # the landmark column joins the row
+                J = torch.cat([J, J_rho[..., None]], dim=-1)
+                cols = torch.cat([cols, (lo + data["lid"])[:, None]], dim=1)
+            c, rho_p = _bucket_cost(bspec, data, r)
+            cost = cost + c
+            # Scatter each row's whitened block into a dense [rdim, P] row
+            # Jacobian (duplicate column ids add), then one GEMM for H, g.
+            sq = torch.sqrt(rho_p)
+            Jw = J * sq[:, None, None]
+            rw = r * sq[:, None]
+            M, rdim, C = Jw.shape
+            Jd = torch.zeros(M, rdim, P, dtype=Jw.dtype, device=Jw.device)
+            Jd.scatter_add_(2, cols[:, None, :].expand(M, rdim, C), Jw)
+            Jd = Jd.reshape(M * rdim, P)
+            H = H + Jd.T @ Jd
+            g = g + Jd.T @ rw.reshape(-1)
+        # lock masking after assembly: (J diag(m))^T (J diag(m)) = m m^T o J^T J
+        H = H * (mask[:, None] * mask[None, :])
+        g = g * mask
+        return cost, H, g
+
+    def retract(runtime, state, delta):
+        return _retract_state(spec, runtime, state, delta)
+
+    def solve_from_lin(runtime, state, H, g, lam):
+        """(projected delta, predicted cost reduction) from ``(H, g)``."""
+        mask = runtime["mask"]
+        if L:
+            # freeze rho = 0 landmarks with an outward gradient for this step
+            free = torch.ones_like(g)
+            free[lo:lo + L] = landmark_free_mask(state["rho"], g[lo:lo + L],
+                                                 torch.ones_like(g[lo:lo + L]))
+            H = H * free[:, None] * free[None, :]
+            g = g * free
+            mask = mask * free
+        delta = project_delta(spec, runtime, state, damped_solve(mask, H, g, lam))
+        return delta, -(g @ delta + 0.5 * delta @ (H @ delta))
+
+    def step(runtime, state, lam):
+        cost, H, g = linearize(runtime, state)
+        delta, pred = solve_from_lin(runtime, state, H, g, lam)
+        new_state = retract(runtime, state, delta)
+        return cost, new_state, total_cost(runtime, new_state), pred, delta
+
+    return dict(total_cost=total_cost, linearize=linearize, retract=retract,
+                solve_from_lin=solve_from_lin, step=step)
 
 
 # ---------------------------------------------------------------------------

@@ -6,9 +6,12 @@ activates knot spans (reference CheckTimeSpans, trajectory_estimator.h:
 97-122, and knot activation, spline_base.h:361-404), and fills one
 struct-of-arrays bucket per measurement kind. Arrays are built in numpy
 and moved to ``device`` once, floats as ``dtype`` and indices as int64.
+``device`` defaults to the CUDA card (``config.resolve_device``); pass
+``device="cpu"`` to build on the CPU.
 
-- **State** is a dict of tensors: knots per spline kind, stacked sensor
-  parameters, landmark inverse depths.
+- **State** is a dict of tensors: knots per spline kind (``r3``, ``so3``,
+  ``se3``), stacked sensor parameters (IMU biases from ``ConstantBiasImu``),
+  landmark inverse depths.
 - **Locks -> masks** over the global tangent vector reproduce
   ``SetParameterBlockConstant``; only knots inside some measurement's span
   are free.
@@ -20,23 +23,30 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from ..config import default_dtype
+from ..config import default_dtype, resolve_device
 from ..measurements import (
     AccelerometerMeasurement,
     GyroscopeMeasurement,
     StaticRsCameraMeasurement,
 )
-from ..sensors import PinholeCamera
-from ..trajectories.splines import UniformSE3SplineTrajectory
+from ..sensors import ConstantBiasImu, PinholeCamera
+from ..trajectories.splines import (
+    SplitTrajectory,
+    UniformR3SplineTrajectory,
+    UniformSE3SplineTrajectory,
+    UniformSO3SplineTrajectory,
+)
 
 #: tangent dimension per spline kind
-TANGENT_DIMS = {"se3": 6}
+TANGENT_DIMS = {"r3": 3, "so3": 3, "se3": 6}
 
 #: sensor tangent slot layout: q_ct(3), p_ct(3), d(1), abias(3), gbias(3)
 SENSOR_TANGENT_DIM = 13
 SLOT_Q = slice(0, 3)
 SLOT_P = slice(3, 6)
 SLOT_D = slice(6, 7)
+SLOT_AB = slice(7, 10)
+SLOT_GB = slice(10, 13)
 
 _SPAN_ERRORS = {
     1: "Time span out of range for trajectory",
@@ -48,7 +58,7 @@ _SPAN_ERRORS = {
 @dataclass
 class SplineInfo:
     kind: str
-    obj: UniformSE3SplineTrajectory
+    obj: object  # the spline container
     tangent_offset: int = 0
     active: Optional[np.ndarray] = None  # bool [n]
 
@@ -87,8 +97,15 @@ class Bucket:
 
 
 def _decompose_trajectory(trajectory) -> List[SplineInfo]:
+    if isinstance(trajectory, UniformR3SplineTrajectory):
+        return [SplineInfo("r3", trajectory)]
+    if isinstance(trajectory, UniformSO3SplineTrajectory):
+        return [SplineInfo("so3", trajectory)]
     if isinstance(trajectory, UniformSE3SplineTrajectory):
         return [SplineInfo("se3", trajectory)]
+    if isinstance(trajectory, SplitTrajectory):
+        return [SplineInfo("r3", trajectory.R3_spline),
+                SplineInfo("so3", trajectory.SO3_spline)]
     raise TypeError(f"Unsupported trajectory type {type(trajectory)}")
 
 
@@ -119,11 +136,12 @@ def _activate_spans(t1, t2, t0, dt, nknots):
 
 
 class Problem:
-    """Compiled estimation problem on ``device`` in ``dtype``."""
+    """Compiled estimation problem on ``device`` (the CUDA card unless
+    another is named) in ``dtype``."""
 
     def __init__(self, trajectory, measurements, device=None,
                  dtype=default_dtype):
-        self.device = torch.device(device if device is not None else "cpu")
+        self.device = resolve_device(device)
         self.dtype = dtype
         self.trajectory = trajectory
         self.measurements = list(measurements)
@@ -234,15 +252,19 @@ class Problem:
         q_ct = np.tile(np.array([1.0, 0, 0, 0]), (S, 1))
         p_ct = np.zeros((S, 3))
         d = np.zeros(S)
+        ab = np.zeros((S, 3))
+        gb = np.zeros((S, 3))
         for i, sensor in enumerate(self.sensors):
             q_ct[i], p_ct[i] = sensor.relative_pose
             d[i] = sensor.time_offset
+            if isinstance(sensor, ConstantBiasImu):
+                ab[i] = sensor.accelerometer_bias
+                gb[i] = sensor.gyroscope_bias
         state["q_ct"] = q_ct
         state["p_ct"] = p_ct
         state["d"] = d
-        # constant-bias IMUs are not ported: biases stay zero
-        state["abias"] = np.zeros((S, 3))
-        state["gbias"] = np.zeros((S, 3))
+        state["abias"] = ab
+        state["gbias"] = gb
         state["rho"] = np.array([lm.inverse_depth for lm in self.landmarks],
                                 dtype=np.float64)
         self.state0 = {k: self._tensor(v) for k, v in state.items()}
@@ -266,6 +288,11 @@ class Problem:
                 sm[SLOT_P] = 1.0
             if not sensor.time_offset_locked:
                 sm[SLOT_D] = 1.0
+            if isinstance(sensor, ConstantBiasImu):
+                if not sensor.accelerometer_bias_locked:
+                    sm[SLOT_AB] = 1.0
+                if not sensor.gyroscope_bias_locked:
+                    sm[SLOT_GB] = 1.0
             mask[base: base + SENSOR_TANGENT_DIM] = sm
         for li, lm in enumerate(self.landmarks):
             mask[self.landmark_offset + li] = 0.0 if lm.locked else 1.0

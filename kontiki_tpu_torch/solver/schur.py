@@ -20,8 +20,7 @@ import torch
 
 from ..ops.assembly_kernels import assemble_schur_blocks
 from .kernels import (
-    _huber,
-    _huber_prime,
+    _bucket_cost,
     _retract_state,
     bucket_terms,
     landmark_free_mask,
@@ -36,14 +35,7 @@ def whitened_rows(spec, bspec, runtime, state, data, mask_l):
     B2's inputs (Huber ``sqrt(rho')`` whitening; c-space column ids; the
     landmark column masked per row by the landmark lock mask)."""
     r, J, cols, J_rho = bucket_terms(spec, bspec, runtime, state, data)
-    s = torch.sum(r * r, dim=-1)
-    if J_rho is not None:
-        c = data["huber_c"]
-        rho_p = _huber_prime(s, c)
-        cost = 0.5 * torch.sum(_huber(s, c))
-    else:
-        rho_p = torch.ones_like(s)
-        cost = 0.5 * torch.sum(s)
+    cost, rho_p = _bucket_cost(bspec, data, r)
     lo, L = spec.landmark_offset, spec.num_landmarks
     cols_c = torch.where(cols >= lo, cols - L, cols).to(torch.int32)
     sq = torch.sqrt(rho_p)

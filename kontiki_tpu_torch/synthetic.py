@@ -1,5 +1,7 @@
 """Synthetic problem generators (counterpart of ``kontiki_tpu.synthetic``):
-the SE3 rolling-shutter visual-inertial problem of BASELINE config 4.
+the gyro-only SO3 fit of BASELINE config 1, the IMU fusion on a split
+R3 + SO3 trajectory of config 2 and the SE3 rolling-shutter visual-inertial
+problem of config 4.
 
 Random draws come from ``numpy.random.default_rng(seed)`` in the same order
 as the JAX package, so both packages build the same problem from one seed.
@@ -18,9 +20,13 @@ from .measurements import (
     StaticRsCameraMeasurement,
 )
 from .rotations import axis_angle_to_quat, quat_mult, quat_to_rotation_matrix
-from .sensors import BasicImu, PinholeCamera
+from .sensors import BasicImu, ConstantBiasImu, PinholeCamera
 from .sfm import Landmark, View
-from .trajectories import UniformSE3SplineTrajectory
+from .trajectories import (
+    SplitTrajectory,
+    UniformSE3SplineTrajectory,
+    UniformSO3SplineTrajectory,
+)
 
 
 def _smooth_noise(rng, n, dim, scale, smooth=4):
@@ -45,6 +51,29 @@ def _so3_knots(rng, n, dt, wmag):
     return qs
 
 
+def make_split_trajectory(duration, dt=0.1, t0=0.0, seed=0, speed=0.5, wmag=0.4):
+    """Smooth random SplitTrajectory valid on [t0, t0 + duration)."""
+    rng = np.random.default_rng(seed)
+    n = int(np.ceil(duration / dt)) + 4
+    traj = SplitTrajectory(dt, dt, t0, t0)
+    vel = _smooth_noise(rng, n, 3, speed)
+    for p in np.cumsum(vel * dt, axis=0):
+        traj.R3_spline.append_knot(p)
+    for q in _so3_knots(rng, n, dt, wmag):
+        traj.SO3_spline.append_knot(q)
+    return traj
+
+
+def make_so3_trajectory(duration, dt=0.1, t0=0.0, seed=0, wmag=0.4):
+    """Smooth random SO3 spline valid on [t0, t0 + duration)."""
+    rng = np.random.default_rng(seed)
+    n = int(np.ceil(duration / dt)) + 4
+    traj = UniformSO3SplineTrajectory(dt, t0)
+    for q in _so3_knots(rng, n, dt, wmag):
+        traj.append_knot(q)
+    return traj
+
+
 def make_se3_trajectory(duration, dt=0.1, t0=0.0, seed=0, speed=0.5, wmag=0.4):
     """Smooth random SE3 cumulative spline valid on [t0, t0 + duration)."""
     rng = np.random.default_rng(seed)
@@ -63,19 +92,32 @@ def make_se3_trajectory(duration, dt=0.1, t0=0.0, seed=0, speed=0.5, wmag=0.4):
     return traj
 
 
-def perturb_trajectory(traj, sigma_p=0.05, sigma_q=0.02, seed=1):
-    """Clone with perturbed knots — a realistic optimizer starting point."""
-    rng = np.random.default_rng(seed)
-    out = traj.clone()
-    knots = out.knots.copy()
-    for i in range(knots.shape[0]):
+def _perturb_rotations(rng, qs, sigma_q):
+    """Left-multiply each wxyz row of ``qs`` (in place) by a random rotation."""
+    for i in range(qs.shape[0]):
         axis = rng.normal(size=3)
         axis /= np.linalg.norm(axis)
         dq = axis_angle_to_quat(axis, rng.normal(scale=sigma_q))
-        knots[i, :4] = quat_mult(dq, knots[i, :4])
-        knots[i, :4] /= np.linalg.norm(knots[i, :4])
-    knots[:, 4:] += rng.normal(scale=sigma_p, size=(knots.shape[0], 3))
-    out.set_knots(knots)
+        qs[i] = quat_mult(dq, qs[i])
+        qs[i] /= np.linalg.norm(qs[i])
+
+
+def perturb_trajectory(traj, sigma_p=0.05, sigma_q=0.02, seed=1):
+    """Clone with perturbed knots — a realistic optimizer starting point.
+    R3 knots move additively, SO3 and SE3 rotations by a left increment."""
+    rng = np.random.default_rng(seed)
+    out = traj.clone()
+    splines = [out.R3_spline, out.SO3_spline] if isinstance(out, SplitTrajectory) else [out]
+    for sp in splines:
+        knots = sp.knots.copy()
+        if knots.shape[1] == 3:
+            knots = knots + rng.normal(scale=sigma_p, size=knots.shape)
+        elif knots.shape[1] == 4:
+            _perturb_rotations(rng, knots, sigma_q)
+        else:  # packed SE3 (q wxyz, t)
+            _perturb_rotations(rng, knots[:, :4], sigma_q)  # in place on the view
+            knots[:, 4:] += rng.normal(scale=sigma_p, size=(knots.shape[0], 3))
+        sp.set_knots(knots)
     return out
 
 
@@ -89,13 +131,55 @@ def _body_imu(traj, ts):
     return quat.qrotate(q_conj, w).numpy(), quat.qrotate(q_conj, a + g).numpy()
 
 
-def make_imu_measurements(traj, imu, t1, t2, rate):
-    """Noise-free gyro then accel measurements at ``rate`` on [t1, t2)."""
+def make_imu_measurements(traj, imu, t1, t2, rate, noise=0.0, seed=0, gyro=True,
+                          accel=True):
+    """Gyro then accel measurements at ``rate`` on [t1, t2), with the IMU's
+    constant biases added and optional white noise of std ``noise``."""
+    rng = np.random.default_rng(seed)
     ts = np.arange(t1, t2, 1.0 / rate)
     w, a = _body_imu(traj, ts)
-    ms = [GyroscopeMeasurement(imu, t, wi) for t, wi in zip(ts, w)]
-    ms += [AccelerometerMeasurement(imu, t, ai) for t, ai in zip(ts, a)]
+    gb = getattr(imu, "gyroscope_bias", np.zeros(3))
+    ab = getattr(imu, "accelerometer_bias", np.zeros(3))
+    if noise:
+        w = w + rng.normal(scale=noise, size=w.shape)
+        a = a + rng.normal(scale=noise, size=a.shape)
+    ms = []
+    if gyro:
+        ms += [GyroscopeMeasurement(imu, t, wi + gb) for t, wi in zip(ts, w)]
+    if accel:
+        ms += [AccelerometerMeasurement(imu, t, ai + ab) for t, ai in zip(ts, a)]
     return ms
+
+
+def make_gyro_problem(duration=5.0, rate=200.0, knot_dt=0.1, seed=0, noise=0.0,
+                      sigma_q=0.05):
+    """BASELINE config 1: gyro-only SO3 spline fit."""
+    true_traj = make_so3_trajectory(duration + 1.0, dt=knot_dt, seed=seed)
+    imu = BasicImu()
+    ms = make_imu_measurements(
+        true_traj, imu, 0.5, 0.5 + duration, rate, noise=noise, seed=seed, accel=False
+    )
+    traj = perturb_trajectory(true_traj, sigma_q=sigma_q, seed=seed + 1)
+    return dict(trajectory=traj, true_trajectory=true_traj, imu=imu, measurements=ms)
+
+
+def make_imu_problem(duration=5.0, rate=200.0, knot_dt=0.1, seed=0, noise=0.0,
+                     bias=True, sigma_p=0.05, sigma_q=0.02):
+    """BASELINE config 2: gyro + accel fusion on a split trajectory, with
+    unlocked constant biases when ``bias``."""
+    true_traj = make_split_trajectory(duration + 1.0, dt=knot_dt, seed=seed)
+    rng = np.random.default_rng(seed + 7)
+    if bias:
+        imu = ConstantBiasImu(rng.normal(scale=0.05, size=3), rng.normal(scale=0.01, size=3))
+        imu.accelerometer_bias_locked = False
+        imu.gyroscope_bias_locked = False
+    else:
+        imu = BasicImu()
+    ms = make_imu_measurements(
+        true_traj, imu, 0.5, 0.5 + duration, rate, noise=noise, seed=seed
+    )
+    traj = perturb_trajectory(true_traj, sigma_p=sigma_p, sigma_q=sigma_q, seed=seed + 1)
+    return dict(trajectory=traj, true_trajectory=true_traj, imu=imu, measurements=ms)
 
 
 _DEFAULT_K = np.array([[500.0, 0.0, 320.0], [0.0, 500.0, 240.0], [0.0, 0.0, 1.0]])

@@ -1,2 +1,7 @@
-from .splines import UniformSE3SplineTrajectory  # noqa: F401
+from .splines import (  # noqa: F401
+    SplitTrajectory,
+    UniformR3SplineTrajectory,
+    UniformSE3SplineTrajectory,
+    UniformSO3SplineTrajectory,
+)
 from . import spline_eval  # noqa: F401

@@ -1,5 +1,6 @@
 """User-facing trajectory classes (counterpart of
-``kontiki_tpu.trajectories.splines``; the SE3 spline only).
+``kontiki_tpu.trajectories.splines``): the R3, SO3 and SE3 splines and the
+split R3 + SO3 trajectory.
 
 Knots are stored on the host as a numpy array that grows by doubling;
 queries evaluate through the batched torch kernels of ``spline_eval`` on
@@ -16,7 +17,16 @@ from ..config import host_dtype
 from ..math import quaternion as quat
 from . import spline_eval as ev
 
-__all__ = ["UniformSE3SplineTrajectory"]
+__all__ = [
+    "UniformR3SplineTrajectory",
+    "UniformSO3SplineTrajectory",
+    "UniformSE3SplineTrajectory",
+    "SplitTrajectory",
+]
+
+
+def _torch(a):
+    return torch.as_tensor(np.asarray(a, dtype=host_dtype))
 
 
 class _TrajectoryBase:
@@ -58,6 +68,10 @@ class _TrajectoryBase:
     def position(self, t):
         "Position in the world coordinate frame"
         return self._query(t, "position")
+
+    def velocity(self, t):
+        "Velocity in the world coordinate frame"
+        return self._query(t, "velocity")
 
     def acceleration(self, t):
         "Acceleration in the world coordinate frame"
@@ -159,6 +173,69 @@ class _UniformSplineTrajectory(_TrajectoryBase):
         self._knots[: self._n] = values
 
 
+class UniformR3SplineTrajectory(_UniformSplineTrajectory):
+    """Position spline with control points in R^3 (reference
+    uniform_r3_spline_trajectory.h). Orientation queries return identity,
+    angular velocity zero."""
+
+    _KNOT_DIM = 3
+
+    def _validate_and_convert(self, cp):
+        cp = np.asarray(cp, dtype=host_dtype)
+        if cp.shape != (3,):
+            raise ValueError("R3 control point must be a 3-vector")
+        return cp
+
+    def _convert_out(self, row):
+        return row.copy()
+
+    def _eval(self, ts):
+        self._validate_size()
+        p, v, a = ev.r3_evaluate(_torch(self.knots), self._t0, self._dt, _torch(ts))
+        B = p.shape[0]
+        identity = np.zeros((B, 4), dtype=host_dtype)
+        identity[:, 0] = 1.0
+        return {
+            "position": p.numpy(),
+            "velocity": v.numpy(),
+            "acceleration": a.numpy(),
+            "orientation": identity,
+            "angular_velocity": np.zeros((B, 3), dtype=host_dtype),
+        }
+
+
+class UniformSO3SplineTrajectory(_UniformSplineTrajectory):
+    """Cumulative orientation spline with unit-quaternion control points
+    (wxyz; reference uniform_so3_spline_trajectory.h). Position, velocity and
+    acceleration queries return zero. Control points must be unit norm to
+    ``quat.EPS_UNIT_CHECK``."""
+
+    _KNOT_DIM = 4
+
+    def _validate_and_convert(self, cp):
+        cp = np.asarray(cp, dtype=host_dtype)
+        if cp.shape != (4,):
+            raise ValueError("SO3 control point must be a wxyz 4-vector")
+        if abs(np.linalg.norm(cp) - 1.0) >= quat.EPS_UNIT_CHECK:
+            raise ValueError("Control point must be unit quaternion!")
+        return cp
+
+    def _convert_out(self, row):
+        return row.copy()
+
+    def _eval(self, ts):
+        self._validate_size()
+        q, w = ev.so3_evaluate(_torch(self.knots), self._t0, self._dt, _torch(ts))
+        zeros = np.zeros((q.shape[0], 3), dtype=host_dtype)
+        return {
+            "position": zeros,
+            "velocity": zeros,
+            "acceleration": zeros,
+            "orientation": q.numpy(),
+            "angular_velocity": w.numpy(),
+        }
+
+
 class UniformSE3SplineTrajectory(_UniformSplineTrajectory):
     """Cumulative SE(3) spline; control points are 4x4 rigid transforms,
     stored packed as (q wxyz, t) rows (reference
@@ -186,14 +263,68 @@ class UniformSE3SplineTrajectory(_UniformSplineTrajectory):
 
     def _eval(self, ts):
         self._validate_size()
-        p, v, a, q, w = ev.se3_evaluate(
-            torch.from_numpy(self.knots.copy()), self._t0, self._dt,
-            torch.as_tensor(np.asarray(ts, dtype=host_dtype)),
-        )
+        p, v, a, q, w = ev.se3_evaluate(_torch(self.knots), self._t0, self._dt,
+                                        _torch(ts))
         return {
             "position": p.numpy(),
             "velocity": v.numpy(),
             "acceleration": a.numpy(),
             "orientation": q.numpy(),
             "angular_velocity": w.numpy(),
+        }
+
+
+class SplitTrajectory(_TrajectoryBase):
+    """Independent R3 and SO3 splines (reference split_trajectory.h): linear
+    queries go to the R3 spline, rotational ones to the SO3 spline. The
+    valid span is the intersection of both; both must share a lock state."""
+
+    def __init__(self, r3_arg=1.0, so3_arg=1.0, r3_t0=0.0, so3_t0=0.0):
+        if isinstance(r3_arg, UniformR3SplineTrajectory):
+            if not isinstance(so3_arg, UniformSO3SplineTrajectory):
+                raise TypeError("Expected UniformSO3SplineTrajectory")
+            self._r3, self._so3 = r3_arg, so3_arg
+        else:
+            self._r3 = UniformR3SplineTrajectory(float(r3_arg), float(r3_t0))
+            self._so3 = UniformSO3SplineTrajectory(float(so3_arg), float(so3_t0))
+
+    @property
+    def R3_spline(self):
+        return self._r3
+
+    @property
+    def SO3_spline(self):
+        return self._so3
+
+    @property
+    def min_time(self):
+        return max(self._r3.min_time, self._so3.min_time)
+
+    @property
+    def max_time(self):
+        return min(self._r3.max_time, self._so3.max_time)
+
+    @property
+    def locked(self):
+        if self._r3.locked != self._so3.locked:
+            raise RuntimeError("R3 and SO3 trajectories have different lock status!")
+        return self._r3.locked
+
+    @locked.setter
+    def locked(self, flag):
+        self._r3.locked = flag
+        self._so3.locked = flag
+
+    def clone(self):
+        return copy.deepcopy(self)
+
+    def _eval(self, ts):
+        r3 = self._r3._eval(ts)
+        so3 = self._so3._eval(ts)
+        return {
+            "position": r3["position"],
+            "velocity": r3["velocity"],
+            "acceleration": r3["acceleration"],
+            "orientation": so3["orientation"],
+            "angular_velocity": so3["angular_velocity"],
         }

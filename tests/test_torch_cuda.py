@@ -6,9 +6,11 @@ nor the JAX package, so it runs where only the port is installed:
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_cuda.py
 
 Tolerances are normwise (max |kernel - plain| / max |plain|): 1e-10 in
-float64; in float32 1e-3 for the linearization (cancellation in the SE3
-log / V^-1 coefficients) and 1e-4 for the assembly (~1e4-term sums whose
-order the atomics change from run to run)."""
+float64; in float32 1e-3 for the camera-row linearization (cancellation in
+the SE3 log / V^-1 coefficients), 1e-4 for the assembly (~1e4-term sums
+whose order the atomics change from run to run) and 1e-4 for the IMU rows
+(each side is ~1e-6 from float64 at config-1/2 inputs; the residual
+y - body cancels)."""
 import numpy as np
 import pytest
 import torch
@@ -18,7 +20,7 @@ from kontiki_tpu_torch.ops import linearize_kernels as lk
 from kontiki_tpu_torch.solver import kernels
 from kontiki_tpu_torch.solver.lm import make_fused_solver
 from kontiki_tpu_torch.solver.problem import Problem
-from kontiki_tpu_torch.synthetic import make_rsvi_problem
+from kontiki_tpu_torch.synthetic import make_gyro_problem, make_imu_problem, make_rsvi_problem
 
 torch.set_num_threads(1)
 pytestmark = pytest.mark.gpu
@@ -36,7 +38,7 @@ def cuda():
 @pytest.fixture(scope="module")
 def problems(cuda):
     gen = make_rsvi_problem(**SMALL)
-    return (gen, Problem(gen["trajectory"], gen["measurements"]),
+    return (gen, Problem(gen["trajectory"], gen["measurements"], device="cpu"),
             Problem(gen["trajectory"], gen["measurements"], device=cuda))
 
 
@@ -82,6 +84,48 @@ def test_solve_on_cuda_matches_cpu(problems):
     _, cpu, gpu = problems
     s0, c0, it0 = make_fused_solver(cpu, 5, function_tolerance=0.0)(cpu.state0)
     s1, c1, it1 = make_fused_solver(gpu, 5, function_tolerance=0.0)(gpu.state0)
+    assert it1 == it0
+    np.testing.assert_allclose(c1.item(), c0.item(), rtol=1e-8)
+    for k, v in s1.items():
+        np.testing.assert_allclose(v.cpu().numpy(), s0[k].numpy(), rtol=0, atol=1e-7)
+
+
+@pytest.fixture(scope="module")
+def imu_problems(cuda):
+    """Config-1 and config-2 shaped problems (1 s at 40 Hz, IMU noise) on
+    the CPU and on the card."""
+    gens = {"so3": make_gyro_problem(duration=1.0, rate=40.0, seed=1, noise=0.05),
+            "split": make_imu_problem(duration=1.0, rate=40.0, seed=2, noise=0.05)}
+    return {k: (Problem(g["trajectory"], g["measurements"], device="cpu"),
+                Problem(g["trajectory"], g["measurements"], device=cuda))
+            for k, g in gens.items()}
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-10), (torch.float32, 1e-4)])
+@pytest.mark.parametrize("which,kind", [("so3", "gyro"), ("split", "gyro"), ("split", "accel")])
+def test_imu_rows_kernel_matches_plain(imu_problems, which, kind, dtype, tol):
+    problem = imu_problems[which][1]
+    spec, rt = kernels.problem_spec(problem), kernels.problem_runtime(problem)
+    (i,) = [i for i, b in enumerate(spec.buckets) if b.kind == kind]
+    cfg, ins, _ = kernels._imu_inputs(spec, spec.buckets[i], rt, problem.state0, rt["data"][i])
+    x = {k: v.to(dtype).contiguous() for k, v in ins.items()}
+    for cost_only in (False, True):
+        before = lk.imu_rows.launches
+        got = lk.imu_rows(cfg, x, cost_only=cost_only)
+        assert lk.imu_rows.launches == before + 1
+        want = lk.imu_rows_plain(cfg, x, cost_only=cost_only)
+        _assert_close((got,) if cost_only else got, (want,) if cost_only else want, tol)
+
+
+@pytest.mark.parametrize("which", ["so3", "split"])
+def test_dense_solve_on_cuda_matches_cpu(imu_problems, which):
+    """Configs 1 and 2's path ('auto' -> dense) through B4 equals the plain
+    CPU path."""
+    cpu, gpu = imu_problems[which]
+    s0, c0, it0 = make_fused_solver(cpu, 5, function_tolerance=0.0)(cpu.state0)
+    before = lk.imu_rows.launches
+    s1, c1, it1 = make_fused_solver(gpu, 5, function_tolerance=0.0)(gpu.state0)
+    assert lk.imu_rows.launches > before
     assert it1 == it0
     np.testing.assert_allclose(c1.item(), c0.item(), rtol=1e-8)
     for k, v in s1.items():

@@ -54,5 +54,6 @@ def test_function_tolerance_ends_the_solve():
 
 def test_unported_strategies_raise():
     T = problem_pair()["torch"]
-    with pytest.raises(NotImplementedError):
-        make_fused_solver(T, 1, strategy="dense")
+    for strategy in ("iterative_schur", "banded"):
+        with pytest.raises(NotImplementedError):
+            make_fused_solver(T, 1, strategy=strategy)

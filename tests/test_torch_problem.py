@@ -67,8 +67,8 @@ def _pair(J, T, keep):
     np_state = {k: np.asarray(v) for k, v in J.state0.items()}
     return dict(
         jax=J, jspec=jk.problem_spec(J), jrt=jrt, torch=T,
-        rt=interop.runtime_from_numpy(np_rt),
-        state=interop.state_from_numpy(np_state),
+        rt=interop.runtime_from_numpy(np_rt, device="cpu"),
+        state=interop.state_from_numpy(np_state, device="cpu"),
         keep=keep,
     )
 
@@ -80,7 +80,7 @@ def problem_pair(noise_px=0.0):
     same objects (``jax``) with its spec, runtime and state0 moved into the
     port (``rt``, ``state``)."""
     tgen = torch_make_rsvi_problem(trajectory="se3", noise_px=noise_px, **SMALL)
-    T = TProblem(tgen["trajectory"], tgen["measurements"])
+    T = TProblem(tgen["trajectory"], tgen["measurements"], device="cpu")
     J, views = _jax_problem_from(tgen)
     return _pair(J, T, keep=(tgen, views))
 
@@ -91,7 +91,7 @@ def pair():
     jgen = jax_make_rsvi_problem(trajectory="se3", **SMALL)
     tgen = torch_make_rsvi_problem(trajectory="se3", **SMALL)
     J = JProblem(jgen["trajectory"], jgen["measurements"])
-    T = TProblem(tgen["trajectory"], tgen["measurements"])
+    T = TProblem(tgen["trajectory"], tgen["measurements"], device="cpu")
     return _pair(J, T, keep=(jgen, tgen))
 
 
@@ -152,4 +152,22 @@ def test_jax_problem_over_port_objects_matches(pair):
 def test_problem_rejects_unsupported_measurements(pair):
     T = pair["torch"]
     with pytest.raises(TypeError):
-        TProblem(T.trajectory, [object()])
+        TProblem(T.trajectory, [object()], device="cpu")
+
+
+def test_default_device_is_the_card(pair, monkeypatch):
+    """No device means the CUDA card; without one the entry points raise
+    instead of falling back to the CPU."""
+    from kontiki_tpu_torch.config import resolve_device
+
+    T = pair["torch"]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        TProblem(T.trajectory, T.measurements)
+    with pytest.raises(RuntimeError):
+        interop.state_from_numpy({"d": np.zeros(1)})
+    with pytest.raises(RuntimeError):
+        interop.runtime_from_numpy({})
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert resolve_device(None) == torch.device("cuda")
+    assert resolve_device("cpu") == torch.device("cpu")

@@ -45,7 +45,8 @@ def step():
     jstep = jax.jit(jax_parts(pair["jspec"], True)["step_spec"])
     want = jstep(pair["jrt"], pair["jax"].state0,
                  tuple(jnp.asarray(x.numpy()) for x in lin0), jnp.asarray(lam))
-    jstate = interop.state_from_numpy({k: np.asarray(v) for k, v in want[0].items()})
+    jstate = interop.state_from_numpy({k: np.asarray(v) for k, v in want[0].items()},
+                                      device="cpu")
     lin_at_jstate = tparts["linearize"](pair["rt"], jstate)
     return got, want, lin_at_jstate
 
