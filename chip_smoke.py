@@ -19,16 +19,32 @@ Phases, in order; any failure exits non-zero without the final line:
    a 1-iteration cost against the JAX package's value, an untimed warm-up
    solve, then the timed 25-iteration solve with launch counts,
    final/initial cost and iterations per second;
-6. B4 (gyro/accel rows): the kernel against its plain version at config-1
+6. B1's split branch against its plain version on config-3 inputs (split
+   R3 + SO3 trajectory), float64 and float32, with time and bound;
+7. B3 (camera-row cost) against its plain version on config-3 (split) and
+   config-4 (SE3) inputs, float64 and float32, and against B1's residual,
+   with times and bounds;
+8. config 3 (``make_rsvi_problem`` with its split trajectory ->
+   ``Problem`` -> ``make_fused_solver``, 'auto' -> Schur): structure,
+   initial and 1-iteration costs against the JAX package's, an untimed
+   warm-up solve, the timed 25-iteration solve;
+9. B4 (gyro/accel rows): the kernel against its plain version at config-1
    and config-2 shapes (gyro on SO3, gyro and accel on the split
    trajectory), linearization and cost-only, float64 and float32;
-7. configs 1 and 2 (``make_gyro_problem`` / ``make_imu_problem`` ->
-   ``Problem`` on the card by default -> ``make_fused_solver``, 'auto' ->
-   dense): structure, initial and 1-iteration costs against the JAX
-   package's, an untimed warm-up solve, the timed 25-iteration solve;
-8. breakdown: where one config-2 LM iteration's time goes (host clock with
-   a synchronize after each part, median of 5) and the card's busy share
-   over 3 iterations (``torch.profiler``).
+10. configs 1 and 2 (``make_gyro_problem`` / ``make_imu_problem`` ->
+    ``Problem`` on the card by default -> ``make_fused_solver``, 'auto' ->
+    dense): structure, initial and 1-iteration costs against the JAX
+    package's, an untimed warm-up solve, the timed 25-iteration solve;
+11. breakdown: where one config-2 LM iteration's time goes (host clock with
+    a synchronize after each part, median of 5) and the card's busy share
+    over 3 iterations (``torch.profiler``);
+12. estimator: ``TrajectoryEstimator(trajectory).solve(...)`` (on the card
+    by default; the phase-split ``solver.lm.solve``) on the config-3 and
+    config-4 measurement objects: Summary costs and counts against the JAX
+    package's ``lm.solve``, launches per iteration (B3 re-costs, B1/B2
+    linearize), the written-back objects holding the final state, and the
+    Summary's per-phase times (config 3's and config 4's iteration
+    breakdown).
 
 Each path's launch counts are set to 0 just before its timed solve and
 read just after. A kernel's bound is the larger of its bytes (each input
@@ -37,8 +53,10 @@ operations its function needs on these inputs over the H100 SXM's float64
 peak, 67 TFLOP/s on its tensor cores (NVIDIA's data sheet). B1's and B4's
 operations are counted by running their row code on the host once per row
 in one full-width jet, with structural zeros and ones free
-(``csrc/host_rows.cpp``); B2's from the shapes, the upper triangle of the
-symmetric H only.
+(``csrc/host_rows.cpp``), B3's as its scalar chain once per row; B2's
+from the shapes, the upper triangle of the symmetric H only. A kernel's
+``launches`` in the JSON line is the sum over the main-path runs (the
+timed fused solves and the estimator solves).
 
 The last two lines are a JSON object with the kernels' numbers and the JSON
 result ``{"ok": true, "device": {...}}``.
@@ -67,6 +85,41 @@ JAX_COST_1 = 1.5295605102254368
 COST_RTOL = 1e-6
 # Config 4 is noise-free: 25 LM iterations must reach this ratio.
 FINAL_RATIO = 1e-8
+
+# BASELINE config 3 (bench.py config3): rolling-shutter SfM on a split
+# R3 + SO3 trajectory (make_rsvi_problem's default), no IMU.
+CONFIG3 = dict(nviews=32, nlandmarks=200, imu_rate=0.0, seed=3)
+CONFIG3_SHAPE = {"rs_static": 6091, "num_tangent": 339}
+# Costs of config 3 in float64 from the JAX package on the CPU: the
+# linearization cost at state0 and the final cost of
+# make_fused_solver(problem, 1, function_tolerance=0.0) ('auto' -> schur).
+# After 25 iterations the JAX package reaches final/initial 4.07e-28; the
+# bound leaves room for the last, roundoff-level iterations to differ.
+JAX_COST_CONFIG3_0 = 36944.3554707825
+JAX_COST_CONFIG3_1 = 15.992373182756788
+FINAL_RATIO_CONFIG3 = 1e-20
+# The JAX package's lm.solve(problem, max_iterations=3, function_tolerance=
+# 0.0, strategy="schur") on the CPU in float64: initial and iteration-1
+# costs and the Summary's counts (num_parameters, num_parameter_blocks,
+# num_parameters_reduced, num_residuals, num_residual_blocks). Config 4's
+# costs are its fused values above: lm.solve takes the same first step
+# (on config 3 the two iteration-1 costs differ by 8e-12 relative); its
+# counts come from the JAX package's Problem on the same generator.
+LM_SOLVE = {
+    "config 3": dict(cost0=36944.3554707825, cost1=15.992373182884757,
+                     counts=(285, 225, 277, 12182, 6091)),
+    "config 4": dict(cost0=JAX_COST_0, cost1=JAX_COST_1,
+                     counts=(342, 224, 326, 27158, 13154)),
+}
+SUMMARY_COUNTS = ("num_parameters", "num_parameter_blocks", "num_parameters_reduced",
+                  "num_residuals", "num_residual_blocks")
+
+CAMERA_CONFIGS = {
+    "config 4": dict(kwargs=CONFIG4, shape=CONFIG4_SHAPE, cost0=JAX_COST_0,
+                     cost1=JAX_COST_1, final_ratio=FINAL_RATIO),
+    "config 3": dict(kwargs=CONFIG3, shape=CONFIG3_SHAPE, cost0=JAX_COST_CONFIG3_0,
+                     cost1=JAX_COST_CONFIG3_1, final_ratio=FINAL_RATIO_CONFIG3),
+}
 
 # BASELINE configs 1 and 2 (bench.py config1/config2), their structure as
 # the JAX package builds it, and their costs in float64 from the JAX package
@@ -109,6 +162,11 @@ TOL = {
     # residual y - body cancels
     ("imu_rows", torch.float64): 1e-10,
     ("imu_rows", torch.float32): 1e-4,
+    # camera-row cost: B1's primal chain without the Jacobian's
+    # cancellations; and B3 against B1's residual on the same inputs
+    ("cost_rows", torch.float64): 1e-10,
+    ("cost_rows", torch.float32): 1e-4,
+    ("cost_rows vs linearize_rows", torch.float64): 1e-12,
 }
 
 
@@ -145,6 +203,8 @@ def reset_counts():
     from kontiki_tpu_torch.ops import linearize_kernels as lk
 
     lk.linearize_rows.launches = 0
+    lk.linearize_rows.split_launches = 0
+    lk.cost_rows.launches = 0
     ak.assemble_schur_blocks.launches = 0
     lk.imu_rows.launches = 0
     lk.imu_rows.cost_launches = 0
@@ -154,12 +214,21 @@ def read_counts():
     from kontiki_tpu_torch.ops import assembly_kernels as ak
     from kontiki_tpu_torch.ops import linearize_kernels as lk
 
-    return {
+    counts = {
         "linearize_rows": lk.linearize_rows.launches,
+        "linearize_rows split": lk.linearize_rows.split_launches,
+        "cost_rows": lk.cost_rows.launches,
         "assemble_schur_blocks": ak.assemble_schur_blocks.launches,
         "imu_rows": lk.imu_rows.launches,
         "imu_rows cost-only": lk.imu_rows.cost_launches,
     }
+    for name, n in counts.items():
+        MAIN_PATH_LAUNCHES[name] = MAIN_PATH_LAUNCHES.get(name, 0) + n
+    return counts
+
+
+#: launches summed over the main-path runs (each read by read_counts)
+MAIN_PATH_LAUNCHES = {}
 
 
 def compare(kernel, dtype, names, got, want):
@@ -211,53 +280,105 @@ def phase_build():
     print(f"host row code: {time.time() - t0:.1f} s", flush=True)
 
 
-def phase_problem():
+def phase_problem(name):
+    """Build config 3 or 4 through the entry points on the card and check
+    its structure against the JAX package's."""
     from kontiki_tpu_torch.solver import kernels
     from kontiki_tpu_torch.solver.problem import Problem
     from kontiki_tpu_torch.synthetic import make_rsvi_problem
 
+    cfg = CAMERA_CONFIGS[name]
     t0 = time.time()
-    prob = make_rsvi_problem(**CONFIG4)
-    problem = Problem(prob["trajectory"], prob["measurements"], device="cuda")
+    prob = make_rsvi_problem(**cfg["kwargs"])
+    problem = Problem(prob["trajectory"], prob["measurements"])
+    if problem.device.type != "cuda":
+        fail(f"{name}: Problem built on {problem.device}, not on the card")
     spec = kernels.problem_spec(problem)
     shape = {b.kind: b.M for b in spec.buckets}
     shape["num_tangent"] = spec.num_tangent
-    print(f"config 4: {shape}, landmarks {spec.num_landmarks} "
+    print(f"{name}: {shape}, splines {[(sp.kind, sp.n) for sp in spec.splines]}, "
+          f"landmarks {spec.num_landmarks}, Pc {spec.num_tangent - spec.num_landmarks} "
           f"({time.time() - t0:.1f} s on the host)", flush=True)
-    if shape != CONFIG4_SHAPE:
-        fail(f"config 4 structure {shape} != {CONFIG4_SHAPE}")
+    if shape != cfg["shape"]:
+        fail(f"{name} structure {shape} != {cfg['shape']}")
     return prob, problem
 
 
 def phase_b1(problem):
     from kontiki_tpu_torch.ops import linearize_kernels as lk
+
+    cfg, ins = camera_rows(problem)
+    names = ("r", "J", "J_rho")
+    out = {}
+    for dtype in (torch.float64, torch.float32):
+        x = {k: v.to(dtype).contiguous() for k, v in ins.items()}
+        got = lk.linearize_rows(cfg, x)
+        torch.cuda.synchronize()
+        want = lk.linearize_rows_plain(cfg, x)
+        err = compare("linearize_rows", dtype, names, got, want)
+        if dtype == torch.float64:
+            out["max_abs_err"] = err
+            out["ms"] = cuda_ms(lambda: lk.linearize_rows(cfg, x))
+            out["plain_ms"] = cuda_ms(lambda: lk.linearize_rows_plain(cfg, x), reps=5)
+            M = x["u_ref"].shape[1]
+            nbytes = 8 * M * (n_inputs(cfg, x) + lk.RDIM * (lk.C + 2))
+            ops = lk.linearize_rows_ops(cfg, x)
+            out["bound_ms"], out["bound_by"] = bound(nbytes, ops)
+            out["library_ms"] = None  # no single PyTorch call computes B1
+            print(f"  linearize_rows {cfg['kind']} f64 M={M}: kernel {out['ms']:.3f} ms, "
+                  f"plain {out['plain_ms']:.3f} ms, bound {out['bound_ms']:.4f} ms by "
+                  f"{out['bound_by']} ({nbytes} bytes, {ops} operations)", flush=True)
+    return out
+
+
+def camera_rows(problem):
+    """(cfg, ins) of the problem's camera bucket at state0, on the card."""
     from kontiki_tpu_torch.solver import kernels
 
     spec = kernels.problem_spec(problem)
     runtime = kernels.problem_runtime(problem)
     (cam,) = [i for i, b in enumerate(spec.buckets) if b.kind == "rs_static"]
-    ins, _ = kernels._camera_inputs(spec, runtime, problem.state0, runtime["data"][cam])
-    names = ("r", "J", "J_rho")
-    out = {}
-    for dtype in (torch.float64, torch.float32):
-        x = {k: v.to(dtype).contiguous() for k, v in ins.items()}
-        got = lk.linearize_rows(x)
-        torch.cuda.synchronize()
-        want = lk.linearize_rows_plain(x)
-        err = compare("linearize_rows", dtype, names, got, want)
-        if dtype == torch.float64:
-            out["max_abs_err"] = err
-            out["ms"] = cuda_ms(lambda: lk.linearize_rows(x))
-            out["plain_ms"] = cuda_ms(lambda: lk.linearize_rows_plain(x), reps=5)
-            M = x["u_ref"].shape[1]
-            nbytes = 8 * M * (sum(k for _, k in lk.INPUTS) + lk.RDIM * (lk.C + 2))
-            ops = lk.linearize_rows_ops(x)
+    return kernels._camera_inputs(spec, runtime, problem.state0, runtime["data"][cam])[:2]
+
+
+def n_inputs(cfg, x):
+    """Values a camera row reads: the sizes of the inputs present."""
+    from kontiki_tpu_torch.ops import linearize_kernels as lk
+
+    return sum(slot[1] for slot in lk.camera_inputs(cfg) if slot is not None and slot[0] in x)
+
+
+def phase_b3(problems):
+    """B3 against its plain version and against B1's residual, on the
+    camera rows of each problem; returns the numbers of the first."""
+    from kontiki_tpu_torch.ops import linearize_kernels as lk
+
+    first = None
+    for name, problem in problems.items():
+        cfg, ins = camera_rows(problem)
+        M = ins["u_ref"].shape[1]
+        print(f"  {name} ({cfg['kind']}) M={M}", flush=True)
+        for dtype in (torch.float64, torch.float32):
+            x = {k: v.to(dtype).contiguous() for k, v in ins.items()}
+            got = lk.cost_rows(cfg, x)
+            torch.cuda.synchronize()
+            err = compare("cost_rows", dtype, ("r",), (got,), (lk.cost_rows_plain(cfg, x),))
+            if dtype != torch.float64:
+                continue
+            compare("cost_rows vs linearize_rows", dtype, ("r",), (got,),
+                    (lk.linearize_rows(cfg, x)[0],))
+            out = dict(max_abs_err=err)
+            out["ms"] = cuda_ms(lambda: lk.cost_rows(cfg, x))
+            out["plain_ms"] = cuda_ms(lambda: lk.cost_rows_plain(cfg, x), reps=5)
+            nbytes = 8 * M * (n_inputs(cfg, x) + lk.RDIM)
+            ops = lk.cost_rows_ops(cfg, x)
             out["bound_ms"], out["bound_by"] = bound(nbytes, ops)
-            out["library_ms"] = None  # no single PyTorch call computes B1
-            print(f"  linearize_rows f64 M={M}: kernel {out['ms']:.3f} ms, plain "
-                  f"{out['plain_ms']:.3f} ms, bound {out['bound_ms']:.4f} ms by "
+            out["library_ms"] = None  # no single PyTorch call computes B3
+            print(f"  cost_rows {cfg['kind']} f64 M={M}: kernel {out['ms']:.4f} ms, plain "
+                  f"{out['plain_ms']:.3f} ms, bound {out['bound_ms']:.5f} ms by "
                   f"{out['bound_by']} ({nbytes} bytes, {ops} operations)", flush=True)
-    return out
+            first = first or out
+    return first
 
 
 def phase_b2(problem):
@@ -311,34 +432,32 @@ def phase_b2(problem):
     return out
 
 
-def phase_solve(problem):
+def phase_solve(name, problem):
+    """Configs 3/4 ('auto' -> Schur): initial and 1-iteration costs against
+    the JAX package, a warm-up solve, then the timed 25-iteration solve."""
     from kontiki_tpu_torch.solver import kernels
     from kontiki_tpu_torch.solver.lm import make_fused_solver
     from kontiki_tpu_torch.solver.schur import build_schur_parts
 
+    cfg = CAMERA_CONFIGS[name]
     spec = kernels.problem_spec(problem)
     runtime = kernels.problem_runtime(problem)
     cost0 = build_schur_parts(spec)["linearize"](runtime, problem.state0)[0].item()
-    rel0 = abs(cost0 - JAX_COST_0) / JAX_COST_0
-    print(f"initial cost {cost0!r} (JAX {JAX_COST_0!r}, rel {rel0:.2e})", flush=True)
-    if not rel0 <= COST_RTOL:
-        fail(f"initial cost differs from the JAX package by {rel0:.2e}")
-
-    solve1 = make_fused_solver(problem, 1, function_tolerance=0.0, strategy="schur")
-    _, cost1, _ = solve1(problem.state0)
+    _, cost1, _ = make_fused_solver(problem, 1, function_tolerance=0.0)(problem.state0)
     cost1 = cost1.item()
-    rel1 = abs(cost1 - JAX_COST_1) / JAX_COST_1
-    print(f"1-iteration cost {cost1!r} (JAX {JAX_COST_1!r}, rel {rel1:.2e})", flush=True)
-    if not rel1 <= COST_RTOL:
-        fail(f"1-iteration cost differs from the JAX package by {rel1:.2e}")
+    for what, got, want in (("initial", cost0, cfg["cost0"]), ("1-iteration", cost1, cfg["cost1"])):
+        rel = abs(got - want) / want
+        print(f"{name}: {what} cost {got!r} (JAX {want!r}, rel {rel:.2e})", flush=True)
+        if not rel <= COST_RTOL:
+            fail(f"{name}: {what} cost differs from the JAX package by {rel:.2e}")
 
-    solve = make_fused_solver(problem, 25, function_tolerance=0.0, strategy="schur")
+    solve = make_fused_solver(problem, 25, function_tolerance=0.0)
     # The first solve on a fresh process pays one-off set-up (lazy CUDA
     # module loads, library handles) worth several solves: time the second.
     t0 = time.perf_counter()
     solve(problem.state0)
     torch.cuda.synchronize()
-    print(f"warm-up solve: {time.perf_counter() - t0:.3f} s", flush=True)
+    print(f"{name}: warm-up solve {time.perf_counter() - t0:.3f} s", flush=True)
     reset_counts()
     t0 = time.perf_counter()
     state, cost, iters = solve(problem.state0)
@@ -347,19 +466,23 @@ def phase_solve(problem):
     launches = read_counts()
     cost = cost.item()
     ratio = cost / cost0
-    print(f"solve: {iters} iterations in {seconds:.3f} s = {iters / seconds:.2f} it/s; "
+    print(f"{name}: {iters} iterations in {seconds:.3f} s = {iters / seconds:.2f} it/s; "
           f"initial cost {cost0:.6e} final cost {cost:.6e} ratio {ratio:.3e}; "
           f"launches {launches}", flush=True)
     for k, v in state.items():
         if v.shape != problem.state0[k].shape or not torch.isfinite(v).all():
-            fail(f"final state {k}: bad shape or non-finite values")
-    if not (math.isfinite(ratio) and ratio <= FINAL_RATIO):
-        fail(f"final/initial cost {ratio:.3e} > {FINAL_RATIO:.0e}")
+            fail(f"{name}: final state {k}: bad shape or non-finite values")
+    if not (math.isfinite(ratio) and ratio <= cfg["final_ratio"]):
+        fail(f"{name}: final/initial cost {ratio:.3e} > {cfg['final_ratio']:.0e}")
     if iters != 25:
-        fail(f"ran {iters} iterations, expected 25")
-    for name in ("linearize_rows", "assemble_schur_blocks"):
-        if launches[name] <= 0:
-            fail(f"{name} was never launched by the solve")
+        fail(f"{name}: ran {iters} iterations, expected 25")
+    # the speculative loop linearizes state0 and each iteration's candidate
+    split = spec.splines[0].kind != "se3"
+    want = {"linearize_rows": iters + 1, "linearize_rows split": (iters + 1) * split,
+            "assemble_schur_blocks": (iters + 1) * len(spec.buckets)}
+    got = {k: launches[k] for k in want}
+    if got != want:
+        fail(f"{name}: launches {got}, expected {want}")
     return launches
 
 
@@ -550,30 +673,110 @@ def phase_breakdown(problem):
           flush=True)
 
 
+def phase_estimator(name, prob):
+    """``TrajectoryEstimator`` on a config's measurement objects, on the
+    card by default: ``solve(max_iterations=10, progress=False,
+    function_tolerance=0.0)`` against the JAX package's ``lm.solve``."""
+    from kontiki_tpu_torch import TrajectoryEstimator
+    from kontiki_tpu_torch.solver import kernels
+    from kontiki_tpu_torch.solver.lm import solve as lm_solve
+    from kontiki_tpu_torch.solver.problem import Problem
+
+    ref = LM_SOLVE[name]
+    estimator = TrajectoryEstimator(prob["trajectory"])
+    for m in prob["measurements"]:
+        estimator.add_measurement(m)
+    # untimed warm-up of the phase-split path (no write-back)
+    t0 = time.perf_counter()
+    lm_solve(Problem(prob["trajectory"], prob["measurements"]), max_iterations=1)
+    torch.cuda.synchronize()
+    print(f"{name} estimator: warm-up solve {time.perf_counter() - t0:.3f} s", flush=True)
+    reset_counts()
+    t0 = time.perf_counter()
+    summary = estimator.solve(max_iterations=10, progress=False, function_tolerance=0.0)
+    seconds = time.perf_counter() - t0
+    launches = read_counts()
+    n = len(summary.iterations) - 1
+    print(f"{name} estimator: {summary.BriefReport()}; {n} iterations in {seconds:.3f} s "
+          f"(with problem build and write-back); launches {launches}", flush=True)
+    times = (("jacobian", summary.jacobian_evaluation_time_in_seconds),
+             ("linear solver", summary.linear_solver_time_in_seconds),
+             ("residual", summary.residual_evaluation_time_in_seconds))
+    print(f"{name} estimator per-phase times (host clock, each phase ended by its "
+          f"result's host read), per iteration: "
+          + ", ".join(f"{k} {1e3 * v / max(n, 1):.3f} ms" for k, v in times)
+          + f"; minimizer {summary.minimizer_time_in_seconds:.3f} s, total "
+          f"{summary.total_time_in_seconds:.3f} s", flush=True)
+
+    for what, got, want in (("initial", summary.initial_cost, ref["cost0"]),
+                            ("iteration-1", summary.iterations[1].cost, ref["cost1"])):
+        rel = abs(got - want) / want
+        print(f"{name} estimator: {what} cost {got!r} (JAX lm.solve {want!r}, rel {rel:.2e})",
+              flush=True)
+        if not rel <= COST_RTOL:
+            fail(f"{name} estimator: {what} cost differs from the JAX package by {rel:.2e}")
+    counts = tuple(getattr(summary, k) for k in SUMMARY_COUNTS)
+    if counts != ref["counts"]:
+        fail(f"{name} estimator: Summary counts {counts} != JAX {ref['counts']}")
+    if summary.termination_type.name not in ("NoConvergence", "Convergence") or n < 2:
+        fail(f"{name} estimator: {summary.termination_type.name} after {n} iterations")
+
+    problem = Problem(prob["trajectory"], prob["measurements"])
+    spec = kernels.problem_spec(problem)
+    cams = sum(b.kind == "rs_static" for b in spec.buckets)
+    want = {"cost_rows": n * cams, "linearize_rows": n * cams,
+            "assemble_schur_blocks": n * len(spec.buckets)}
+    got = {k: launches[k] for k in want}
+    if got != want:
+        fail(f"{name} estimator: launches {got}, expected {want} for {n} iterations")
+    # the written-back objects hold the final state: rebuilt, they cost it
+    written = kernels.total_cost(spec, kernels.problem_runtime(problem), problem.state0).item()
+    print(f"{name} estimator: cost of the written-back objects {written!r}, Summary final "
+          f"cost {summary.final_cost!r}", flush=True)
+    if not abs(written - summary.final_cost) <= 1e-9 * summary.initial_cost:
+        fail(f"{name} estimator: the written-back objects do not hold the final state")
+    return dict(times, iterations=n)
+
+
 def main():
     phase_device()
     phase_build()
-    _, problem = phase_problem()
-    b1 = phase_b1(problem)
-    b2 = phase_b2(problem)
-    launches = phase_solve(problem)
+    prob4, problem4 = phase_problem("config 4")
+    b1 = phase_b1(problem4)
+    b2 = phase_b2(problem4)
+    phase_solve("config 4", problem4)
+    prob3, problem3 = phase_problem("config 3")
+    b1_split = phase_b1(problem3)
+    b3 = phase_b3({"config 3": problem3, "config 4": problem4})
+    phase_solve("config 3", problem3)
     imu = {name: imu_problem(name) for name in IMU_CONFIGS}
     b4 = phase_b4(imu)
-    b4_launches = sum(phase_imu_solve(name, p)["imu_rows"] for name, p in imu.items())
+    for name, p in imu.items():
+        phase_imu_solve(name, p)
     phase_breakdown(imu["config 2"])
+    for name, prob in (("config 3", prob3), ("config 4", prob4)):
+        phase_estimator(name, prob)
+    n = MAIN_PATH_LAUNCHES
+    print(f"main-path launches: {n}", flush=True)
+    b1_source = dict(route="cuda", source="kontiki_tpu_torch/csrc/linearize_rows.cu")
     kernels = [
-        dict(name="linearize_rows", route="cuda",
-             source="kontiki_tpu_torch/csrc/linearize_rows.cu",
+        dict(name="linearize_rows", **b1_source,
              replaces="kontiki_tpu/ops/linearize_kernels.py:682",
-             launches=launches["linearize_rows"], **b1),
+             launches=n["linearize_rows"] - n["linearize_rows split"], **b1),
+        dict(name="linearize_rows (split)", **b1_source,
+             replaces="kontiki_tpu/ops/linearize_kernels.py:682",
+             launches=n["linearize_rows split"], **b1_split),
         dict(name="assemble_schur_blocks", route="cuda",
              source="kontiki_tpu_torch/csrc/assemble_schur.cu",
              replaces="kontiki_tpu/ops/assembly_kernels.py:102",
-             launches=launches["assemble_schur_blocks"], **b2),
+             launches=n["assemble_schur_blocks"], **b2),
+        dict(name="cost_rows", **b1_source,
+             replaces="kontiki_tpu/ops/linearize_kernels.py:1220",
+             launches=n["cost_rows"], **b3),
         dict(name="imu_rows", route="cuda",
              source="kontiki_tpu_torch/csrc/imu_rows.cu",
              replaces="kontiki_tpu/ops/linearize_kernels.py:1601",
-             launches=b4_launches, **b4),
+             launches=n["imu_rows"], **b4),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -2,10 +2,12 @@
 
 Mirrors the JAX package's module paths and names. It imports torch and never
 jax; the JAX package stays beside it as the reference the port is tested
-against. The hot kernels of the config-4 solve (camera-row linearization and
-Schur assembly) and of the IMU-fusion solves of configs 1 and 2 (gyro and
-accel rows) are hand-written CUDA C++ for Hopper (``csrc/``), each beside a
-plain PyTorch version that runs for CPU tensors.
+against. Users call ``TrajectoryEstimator(trajectory).solve()`` as with the
+reference. The hot kernels of the camera solves of configs 3 and 4
+(camera-row linearization and cost, Schur assembly) and of the IMU-fusion
+solves of configs 1 and 2 (gyro and accel rows) are hand-written CUDA C++
+for Hopper (``csrc/``), each beside a plain PyTorch version that runs for
+CPU tensors.
 """
 from . import config  # noqa: F401
 
@@ -19,3 +21,11 @@ from .trajectories import (  # noqa: F401,E402
     UniformSO3SplineTrajectory,
 )
 from . import measurements, sensors, sfm  # noqa: F401,E402
+from . import _ceres  # noqa: F401,E402
+from ._ceres import (  # noqa: F401,E402
+    CallbackReturnType,
+    IterationSummary,
+    Summary,
+    TerminationType,
+)
+from .estimator import TrajectoryEstimator  # noqa: F401,E402

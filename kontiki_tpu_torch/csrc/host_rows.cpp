@@ -1,4 +1,5 @@
-// The row kernels' per-row code (linearize_rows.cu, imu_rows.cu), compiled
+// The row kernels' per-row code (linearize_rows.cu: B1 and B3; imu_rows.cu:
+// B4), compiled
 // for the host with a plain C++ compiler. Two uses:
 //   - on double, the same row functions the CUDA kernels run, to check the
 //     row math against the plain PyTorch versions without a card;
@@ -9,6 +10,7 @@
 //   - each row runs once with one jet as wide as all its seeds, so the
 //     primal chain is counted once and not once per seed chunk (B1's
 //     separate primal stage, which its jets recompute, is subtracted);
+//     B3 runs the primal chain on the scalar alone;
 //   - a constant 0 or 1 in the code (a jet lane no seed reaches, a seed's
 //     unit tangent, an identity) is structural: adding or multiplying by it,
 //     and anything computed only from zeros, counts nothing;
@@ -104,7 +106,59 @@ struct CountedInputs {
 };
 
 const int kImuKs[10] = {16, 1, 1, 12, 1, 1, 3, 1, 3, 1};
-const int kLinKs[12] = {28, 1, 28, 1, 1, 4, 3, 1, 3, 2, 1, 9};
+
+// Leading sizes of the camera kernels' 17 input slots (Inputs order).
+void camera_ks(int flags, int* ks) {
+  static const int se3[17] = {28, 0, 1, 0, 28, 0, 1, 0, 1, 4, 3, 1, 3, 2, 1, 9, 1};
+  static const int split[17] = {12, 16, 1, 1, 12, 16, 1, 1, 2, 4, 3, 1, 3, 2, 1, 9, 1};
+  for (int i = 0; i < 17; ++i) ks[i] = (flags & kCamSplit) ? split[i] : se3[i];
+}
+
+template <bool Split>
+void host_linearize(const Inputs<double>& in, double* r, double* J, double* J_rho,
+                    int wide) {
+  for (int m = 0; m < in.M; ++m) {
+    if (wide) {
+      linearize_row<double, Split, 25, 21>(in, m, r, J, J_rho);
+    } else {
+      linearize_row<double, Split>(in, m, r, J, J_rho);
+    }
+  }
+}
+
+// B1's operations: each row once with one jet per stage (25 and 21 seeds),
+// less the primal windows of stage 1, which the stage-3 jets compute again.
+template <bool Split>
+long long count_linearize(const Inputs<Counted>& in) {
+  const int M = in.M;
+  std::vector<Counted> r(static_cast<size_t>(M) * 2), J_rho(static_cast<size_t>(M) * 2);
+  std::vector<Counted> J(static_cast<size_t>(M) * 2 * kC);
+  g_ops = 0;
+  for (int m = 0; m < M; ++m) {
+    linearize_row<Counted, Split, 25, 21>(in, m, r.data(), J.data(), J_rho.data());
+  }
+  const long long total = g_ops;
+  g_ops = 0;
+  const bool r3_first = (in.flags & kCamR3First) != 0;
+  Counted zero[24], out[7];
+  for (int k = 0; k < 24; ++k) zero[k] = Counted(0.0);
+  for (int m = 0; m < M; ++m) {
+    Windows<Counted> w;
+    Row<Counted> row;
+    load_row<Counted, Split>(in, m, w, row);
+    for (int i = 0; i < 2; ++i) window_pq<Counted, Split, Counted>(w, i, r3_first, zero, Counted(0.0), out);
+  }
+  return total - g_ops;
+}
+
+// B3's operations: each row's primal chain once.
+template <bool Split>
+long long count_cost(const Inputs<Counted>& in) {
+  std::vector<Counted> r(static_cast<size_t>(in.M) * 2);
+  g_ops = 0;
+  for (int m = 0; m < in.M; ++m) cost_row<Counted, Split>(in, m, r.data());
+  return g_ops;
+}
 
 }  // namespace
 
@@ -148,48 +202,50 @@ long long kontiki_count_imu_rows(const double* const* ins, int M, int flags) {
   return g_ops;
 }
 
-// B1 row code on double: ins as for kontiki_linearize_rows_f64; wide as
-// for kontiki_host_imu_rows_f64.
+// B1 row code on double: ins and flags as for kontiki_linearize_rows_f64;
+// wide as for kontiki_host_imu_rows_f64.
 void kontiki_host_linearize_rows_f64(const double* const* ins, double* r, double* J,
-                                     double* J_rho, int M, int wide) {
-  const Inputs<double> in = {ins[0], ins[1], ins[2], ins[3], ins[4],  ins[5],
-                             ins[6], ins[7], ins[8], ins[9], ins[10], ins[11], M};
+                                     double* J_rho, int M, int flags, int wide) {
+  const Inputs<double> in =
+      make_inputs<double>(reinterpret_cast<const void* const*>(ins), M, flags);
+  if (flags & kCamSplit) {
+    host_linearize<true>(in, r, J, J_rho, wide);
+  } else {
+    host_linearize<false>(in, r, J, J_rho, wide);
+  }
+}
+
+// B3 row code on double: ins and flags as for kontiki_cost_rows_f64.
+void kontiki_host_cost_rows_f64(const double* const* ins, double* r, int M, int flags) {
+  const Inputs<double> in =
+      make_inputs<double>(reinterpret_cast<const void* const*>(ins), M, flags);
   for (int m = 0; m < M; ++m) {
-    if (wide) {
-      linearize_row<double, 25, 21>(in, m, r, J, J_rho);
+    if (flags & kCamSplit) {
+      cost_row<double, true>(in, m, r);
     } else {
-      linearize_row<double>(in, m, r, J, J_rho);
+      cost_row<double, false>(in, m, r);
     }
   }
 }
 
-// Operations of B1's function on these inputs: each row once with one jet
-// per stage (25 and 21 seeds), less the primal windows of stage 1, which
-// the stage-3 jets compute again.
-long long kontiki_count_linearize_rows(const double* const* ins, int M) {
-  CountedInputs c(ins, kLinKs, 12, M);
-  const Counted* const* p = c.ptrs.data();
-  const Inputs<Counted> in = {p[0], p[1], p[2], p[3], p[4], p[5],
-                              p[6], p[7], p[8], p[9], p[10], p[11], M};
-  std::vector<Counted> r(static_cast<size_t>(M) * 2), J_rho(static_cast<size_t>(M) * 2);
-  std::vector<Counted> J(static_cast<size_t>(M) * 2 * kC);
-  g_ops = 0;
-  for (int m = 0; m < M; ++m) {
-    linearize_row<Counted, 25, 21>(in, m, r.data(), J.data(), J_rho.data());
-  }
-  const long long total = g_ops;
-  g_ops = 0;
-  Counted zero[24], win[28], out[7];
-  for (int k = 0; k < 24; ++k) zero[k] = Counted(0.0);
-  for (int m = 0; m < M; ++m) {
-    for (int w = 0; w < 2; ++w) {
-      const Counted* src = w ? in.win_obs : in.win_ref;
-      for (int k = 0; k < 28; ++k) win[k] = src[k * M + m];
-      pq_se3<Counted, Counted>(win, (w ? in.u_obs : in.u_ref)[m], in.dts[m], zero,
-                               Counted(0.0), out);
-    }
-  }
-  return total - g_ops;
+// Operations of B1's function on these inputs.
+long long kontiki_count_linearize_rows(const double* const* ins, int M, int flags) {
+  int ks[17];
+  camera_ks(flags, ks);
+  CountedInputs c(ins, ks, 17, M);
+  const Inputs<Counted> in = make_inputs<Counted>(
+      reinterpret_cast<const void* const*>(c.ptrs.data()), M, flags);
+  return (flags & kCamSplit) ? count_linearize<true>(in) : count_linearize<false>(in);
+}
+
+// Operations of B3's function on these inputs.
+long long kontiki_count_cost_rows(const double* const* ins, int M, int flags) {
+  int ks[17];
+  camera_ks(flags, ks);
+  CountedInputs c(ins, ks, 17, M);
+  const Inputs<Counted> in = make_inputs<Counted>(
+      reinterpret_cast<const void* const*>(c.ptrs.data()), M, flags);
+  return (flags & kCamSplit) ? count_cost<true>(in) : count_cost<false>(in);
 }
 
 }  // extern "C"

@@ -49,7 +49,6 @@
 
 namespace {
 
-constexpr double kEpsQ = 1e-16;   // quaternion log/exp guard (math.quaternion.EPS)
 constexpr double kGravityZ = -9.80665;
 constexpr int kSensorCols = 13;
 constexpr int kSeeds = 13;        // 12 SO3 knot increments + the time shift s
@@ -61,17 +60,6 @@ constexpr int kAccel = 1;
 constexpr int kSplit = 2;
 constexpr int kR3First = 4;
 constexpr int kCostOnly = 8;
-
-// Unit-quaternion log, vector part: k v with k = atan2(|v|, w) / |v|.
-template <typename S>
-KT_HD V3<S> logq_vec(const Q4<S>& q) {
-  using T = typename BaseT<S>::type;
-  const S v2 = q.x * q.x + q.y * q.y + q.z * q.z;
-  if (val(v2) <= T(kEpsQ)) return {q.x, q.y, q.z};
-  const S vn = kt_sqrt(v2);
-  const S k = kt_atan2(vn, q.w) / vn;
-  return {k * q.x, k * q.y, k * q.z};
-}
 
 // exp of the pure quaternion (0, v) and its time derivative along vd (a
 // multiple of v), in the branch the TPU kernel takes.

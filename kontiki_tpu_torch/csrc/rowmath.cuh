@@ -1,6 +1,7 @@
 // Quaternion and rotation helpers on scalars or Jets, shared by the
 // port's row kernels (linearize_rows.cu, imu_rows.cu). Formulas and guards
-// mirror kontiki_tpu_torch.math.{quaternion,se3}.
+// mirror kontiki_tpu_torch.math.{quaternion,se3}; guards are taken on the
+// primal value, as the TPU kernels' `where` does.
 #pragma once
 
 #include "jet.cuh"
@@ -8,6 +9,7 @@
 namespace {
 
 constexpr double kEps3 = 1e-10;   // theta^2 guard (math.se3._EPS)
+constexpr double kEpsQ = 1e-16;   // quaternion log/exp guard (math.quaternion.EPS)
 
 template <typename S>
 struct V3 { S x, y, z; };
@@ -57,6 +59,29 @@ KT_HD Q4<S> so3_exp_quat(const V3<S>& o) {
     w = kt_cos(half);
   }
   return {w, k * o.x, k * o.y, k * o.z};
+}
+
+// Unit-quaternion log, vector part: k v with k = atan2(|v|, w) / |v|.
+template <typename S>
+KT_HD V3<S> logq_vec(const Q4<S>& q) {
+  using T = typename BaseT<S>::type;
+  const S v2 = q.x * q.x + q.y * q.y + q.z * q.z;
+  if (val(v2) <= T(kEpsQ)) return {q.x, q.y, q.z};
+  const S vn = kt_sqrt(v2);
+  const S k = kt_atan2(vn, q.w) / vn;
+  return {k * q.x, k * q.y, k * q.z};
+}
+
+// exp of the pure quaternion (0, v): (cos|v|, sinc(|v|) v), or (1, v) when
+// |v|^2 <= kEpsQ.
+template <typename S>
+KT_HD Q4<S> expq_pure(const V3<S>& v) {
+  using T = typename BaseT<S>::type;
+  const S v2 = v.x * v.x + v.y * v.y + v.z * v.z;
+  if (val(v2) <= T(kEpsQ)) return {S(T(1)), v.x, v.y, v.z};
+  const S vn = kt_sqrt(v2);
+  const S kv = kt_sin(vn) / vn;
+  return {kt_cos(vn), kv * v.x, kv * v.y, kv * v.z};
 }
 
 }  // namespace

@@ -33,7 +33,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 #: C entry points: name -> argument types (every entry returns cudaError_t)
 _ENTRIES = {
-    "kontiki_linearize_rows": [_P] * 12 + [_P, _P, _P, _I, _P],
+    "kontiki_linearize_rows": [_P, _P, _P, _P, _I, _I, _P],
+    "kontiki_cost_rows": [_P, _P, _I, _I, _P],
     "kontiki_assemble_schur": [_P] * 10 + [_I] * 6 + [_P],
     "kontiki_imu_rows": [_P] * 10 + [_P, _P, _I, _I, _P],
 }
@@ -42,8 +43,10 @@ HOST_FLAGS = ("-std=c++17", "-O2", "-shared", "-fPIC")
 _HOST_ENTRIES = {
     "kontiki_host_imu_rows_f64": ([_P, _P, _P, _I, _I, _I], None),
     "kontiki_count_imu_rows": ([_P, _I, _I], ctypes.c_longlong),
-    "kontiki_host_linearize_rows_f64": ([_P, _P, _P, _P, _I, _I], None),
-    "kontiki_count_linearize_rows": ([_P, _I], ctypes.c_longlong),
+    "kontiki_host_linearize_rows_f64": ([_P, _P, _P, _P, _I, _I, _I], None),
+    "kontiki_count_linearize_rows": ([_P, _I, _I], ctypes.c_longlong),
+    "kontiki_host_cost_rows_f64": ([_P, _P, _I, _I], None),
+    "kontiki_count_cost_rows": ([_P, _I, _I], ctypes.c_longlong),
 }
 
 

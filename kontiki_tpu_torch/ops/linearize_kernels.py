@@ -2,27 +2,34 @@
 of ``kontiki_tpu.ops.linearize_kernels``):
 
 - B1 ``linearize_rows``: camera rows, CUDA kernel ``csrc/linearize_rows.cu``;
+- B3 ``cost_rows``: camera-row residuals only (B1's primal chain, no
+  seeds), in the same CUDA source;
 - B4 ``imu_rows``: gyro/accel rows on SO3 or split R3 + SO3 splines, CUDA
   kernel ``csrc/imu_rows.cu`` (described at ``imu_rows_plain``).
 
 B1, camera rows:
 
-For each ``rs_static`` pinhole row on an SE3 spline it computes the residual
-``r [M, 2]``, the compressed Jacobian ``J [M, 2, 61]`` over
+For each ``rs_static`` pinhole row it computes the residual ``r [M, 2]``,
+the compressed Jacobian ``J [M, 2, 61]`` over
 [ref window (24) | obs window (24) | sensor (13)] and the split landmark
 column ``J_rho [M, 2]``:
 
-- stage 1 evaluates the ref and obs 4-knot cumulative SE3 windows at
-  ``u + s/dt`` in forward mode over 25 seeds (24 knot tangents, right
-  increments ``(q exp(w), t + R(q) V(w) v)``, plus the time shift ``s``);
+- stage 1 evaluates the ref and obs windows at ``u + s/dt`` in forward mode
+  over 25 seeds (24 knot tangents plus the time shift ``s``). ``cfg["kind"]``
+  names the window: ``'se3'``, 4 cumulative SE3 knots with right increments
+  ``(q exp(w), t + R(q) V(w) v)``; or ``'split'``, 4 R3 knots (additive) and
+  4 cumulative SO3 knots (left ``exp``), each spline at its own ``u`` and
+  ``dt``, whose 24 seeds are the first spline's 12, then the second's
+  (``cfg["r3_first"]``);
 - stage 2 linearizes the projection residual over 21 seeds
   (p, q of ref and obs, sensor rotation and translation, inverse depth);
 - the chain rule through the (p, q) bottleneck gives the window blocks, and
   the sensor block is ``[q_ct(3), p_ct(3), d = t_ref + t_obs, biases = 0]``.
 
-Inputs are the gathered, transposed ``[k, M]`` rows of
-``solver.kernels._camera_inputs`` (the JAX package's names and layout).
-A CPU tensor goes to the plain version; a CUDA tensor launches the kernel.
+Rows with ``valid = 0`` (an optional input) give zeros. Inputs are the
+gathered, transposed ``[k, M]`` rows of ``solver.kernels._camera_inputs``
+(the JAX package's names and layout). A CPU tensor goes to the plain
+version; a CUDA tensor launches the kernel.
 """
 import ctypes
 
@@ -35,12 +42,25 @@ from ..sensors.camera_models import pinhole_project
 
 RDIM = 2
 C = 61
-#: input names, in the kernel's argument order, with their leading sizes
-INPUTS = (
-    ("win_ref", 28), ("u_ref", 1), ("win_obs", 28), ("u_obs", 1), ("dts", 1),
-    ("q_ct", 4), ("p_ct", 3), ("rho", 1), ("yh_ref", 3), ("uv_obs", 2),
-    ("weight", 1), ("K", 9),
-)
+_WINDOWS = {
+    "se3": (("win_ref", 28), None, ("u_ref", 1), None, ("win_obs", 28), None,
+            ("u_obs", 1), None, ("dts", 1)),
+    "split": (("win_ref_r3", 12), ("win_ref_so3", 16), ("u_ref", 1), ("u_ref_so3", 1),
+              ("win_obs_r3", 12), ("win_obs_so3", 16), ("u_obs", 1), ("u_obs_so3", 1),
+              ("dts", 2)),
+}
+_ROW = (("q_ct", 4), ("p_ct", 3), ("rho", 1), ("yh_ref", 3), ("uv_obs", 2),
+        ("weight", 1), ("K", 9))
+
+
+def camera_inputs(cfg):
+    """The camera kernels' input slots, in the C entry points' order:
+    ``(name, leading size)``, or None where ``cfg``'s window kind has no
+    such input. The last slot, ``valid``, is optional."""
+    if cfg["kind"] not in _WINDOWS:
+        raise ValueError(f"camera rows: unsupported window kind {cfg['kind']!r}")
+    return (*_WINDOWS[cfg["kind"]], *_ROW, ("valid", 1))
+
 
 # ---------------------------------------------------------------------------
 # component math on tuples of [M] tensors (formulas and guards mirror
@@ -224,6 +244,50 @@ def _pq_se3(win, u, dt, delta, s):
     return Pt + Pq
 
 
+def _pq_split(win_r3, win_so3, u_r3, u_so3, dt_r3, dt_so3, delta, s, r3_first):
+    """Split R3 + SO3 window at ``u + s/dt`` per spline with increments.
+
+    win_r3 [12, M] (x,y,z per knot), win_so3 [16, M] (w,x,y,z per knot);
+    delta [24, M]: the first spline's 12 rows, then the second's. R3 knots
+    move additively, SO3 knots by left ``exp``; the cumulative SO3 window
+    takes the relative knots' log in atan2 form. Returns the 7-tuple (p, q)."""
+    off_r3 = 0 if r3_first else 12
+    off_so3 = 12 if r3_first else 0
+    B = _standard_basis(u_r3 + s / dt_r3)
+    p = tuple(
+        sum(B[j] * (win_r3[3 * j + k] + delta[off_r3 + 3 * j + k]) for j in range(4))
+        for k in range(3)
+    )
+    kq = [
+        _qmul(_so3_exp_quat(tuple(delta[off_so3 + 3 * j + k] for k in range(3))),
+              tuple(win_so3[4 * j + k] for k in range(4)))
+        for j in range(4)
+    ]
+    Bs = _cumulative_basis(u_so3 + s / dt_so3)
+    q = kq[0]
+    for j in (1, 2, 3):
+        w = _logq_vec(_qmul(_qconj(kq[j - 1]), kq[j]))
+        b = Bs[j - 1]
+        q = _qmul(q, _expq_pure((b * w[0], b * w[1], b * w[2])))
+    return p + q
+
+
+def _window_fns(cfg, ins):
+    """``(f_ref, f_obs)``: each ``f(delta [24, M], s [M]) -> (p, q) [7, M]``
+    of one window of the rows (the TPU kernel's ``_tile_prelude``)."""
+    def make(tag):
+        if cfg["kind"] == "se3":
+            win, u, dt = ins[f"win_{tag}"], ins[f"u_{tag}"][0], ins["dts"][0]
+            return lambda d, s: torch.stack(_pq_se3(win, u, dt, d, s))
+        wr, ws = ins[f"win_{tag}_r3"], ins[f"win_{tag}_so3"]
+        ur, us = ins[f"u_{tag}"][0], ins[f"u_{tag}_so3"][0]
+        dt_r3, dt_so3 = ins["dts"][0], ins["dts"][1]
+        return lambda d, s: torch.stack(
+            _pq_split(wr, ws, ur, us, dt_r3, dt_so3, d, s, cfg["r3_first"]))
+
+    return make("ref"), make("obs")
+
+
 def _residual_G(ins, u_ref, u_obs, dsen, drho):
     """Projection residual through the (p, q) bottleneck: u_ref/u_obs are
     7-tuples (p, q), dsen [6, M] (sensor rotation(3), translation(3)),
@@ -266,13 +330,12 @@ def _jvp_seeds(f, primals, seeds):
     return f(*primals), torch.func.vmap(one)(*seeds)
 
 
-def linearize_rows_plain(ins):
+def linearize_rows_plain(cfg, ins):
     """Plain PyTorch B1: rows are the batch dimension, seeds an explicit
     (vmapped) dimension. Returns (r [M,2], J [M,2,61], J_rho [M,2])."""
-    win_ref, win_obs = ins["win_ref"], ins["win_obs"]
-    M = win_ref.shape[1]
-    opts = dict(dtype=win_ref.dtype, device=win_ref.device)
-    dt = ins["dts"][0]
+    M = ins["u_ref"].shape[1]
+    opts = dict(dtype=ins["u_ref"].dtype, device=ins["u_ref"].device)
+    f_ref, f_obs = _window_fns(cfg, ins)
 
     # ---- stage 1: window evaluation over 24 knot seeds + the time shift ----
     eye25 = torch.eye(25, **opts)
@@ -280,14 +343,11 @@ def linearize_rows_plain(ins):
     zeros24 = torch.zeros(24, M, **opts)
     zerosM = torch.zeros(M, **opts)
 
-    def stage1(win, u):
-        return _jvp_seeds(
-            lambda d, s: torch.stack(_pq_se3(win, u, dt, d, s)),
-            (zeros24, zerosM), seeds1,
-        )  # [7, M], [25, 7, M]
+    def stage1(f):
+        return _jvp_seeds(f, (zeros24, zerosM), seeds1)  # [7, M], [25, 7, M]
 
-    pq_ref, Jw_ref = stage1(win_ref, ins["u_ref"][0])
-    pq_obs, Jw_obs = stage1(win_obs, ins["u_obs"][0])
+    pq_ref, Jw_ref = stage1(f_ref)
+    pq_obs, Jw_obs = stage1(f_obs)
 
     # ---- stage 2: the projection residual over 21 seeds ----
     def G(du_ref, du_obs, dsen, drho):
@@ -317,60 +377,134 @@ def linearize_rows_plain(ins):
         dim=1,
     )
     J = torch.cat([J_ref, J_obs, J_sen], dim=1)  # [2, 61, M]
-    return r.T.contiguous(), J.permute(2, 0, 1).contiguous(), JG[20].T.contiguous()
+    J_rho = JG[20]
+    if "valid" in ins:
+        v = ins["valid"][0]
+        r, J, J_rho = r * v, J * v, J_rho * v
+    return r.T.contiguous(), J.permute(2, 0, 1).contiguous(), J_rho.T.contiguous()
 
 
-def _check_inputs(ins):
-    x = ins["win_ref"]
+def cost_rows_plain(cfg, ins):
+    """Plain PyTorch B3 (the TPU kernel's ``_tile_cost``): the camera rows'
+    residuals ``r [M, 2]`` through B1's primal chain at zero increments,
+    times ``valid``."""
+    M = ins["u_ref"].shape[1]
+    opts = dict(dtype=ins["u_ref"].dtype, device=ins["u_ref"].device)
+    f_ref, f_obs = _window_fns(cfg, ins)
+    zeros24, zerosM = torch.zeros(24, M, **opts), torch.zeros(M, **opts)
+    r = _residual_G(ins, tuple(f_ref(zeros24, zerosM)), tuple(f_obs(zeros24, zerosM)),
+                    torch.zeros(6, M, **opts), zerosM)
+    if "valid" in ins:
+        r = r * ins["valid"][0]
+    return r.T.contiguous()
+
+
+def _check_camera_inputs(who, cfg, ins):
+    x = ins["u_ref"]
     if x.dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"linearize_rows: unsupported dtype {x.dtype}")
+        raise TypeError(f"{who}: unsupported dtype {x.dtype}")
+    if cfg["kind"] == "split" and "r3_first" not in cfg:
+        raise ValueError(f"{who}: a split cfg needs r3_first")
     M = x.shape[-1]
-    for name, k in INPUTS:
+    for slot in camera_inputs(cfg):
+        if slot is None:
+            continue
+        name, k = slot
+        if name not in ins:
+            if name == "valid":
+                continue
+            raise ValueError(f"{who}: missing input {name}")
         a = ins[name]
         if a.shape != (k, M) or a.dtype != x.dtype or a.device != x.device:
             raise ValueError(
-                f"linearize_rows: {name} must be [{k}, {M}] {x.dtype} on "
+                f"{who}: {name} must be [{k}, {M}] {x.dtype} on "
                 f"{x.device}, got {tuple(a.shape)} {a.dtype} on {a.device}"
             )
         if not a.is_contiguous():
-            raise ValueError(f"linearize_rows: {name} must be contiguous")
+            raise ValueError(f"{who}: {name} must be contiguous")
     return M
 
 
-def linearize_rows(ins):
-    """B1: (r [M,2], J [M,2,61], J_rho [M,2]) from ``ins`` (dict of [k, M]
-    tensors named as in ``INPUTS``). CPU tensors run the plain version,
-    CUDA tensors the hand-written kernel."""
-    M = _check_inputs(ins)
-    x = ins["win_ref"]
-    if x.device.type == "cpu":
-        return linearize_rows_plain(ins)
-    if x.device.type != "cuda":
-        raise ValueError(f"linearize_rows: unsupported device {x.device}")
+def _camera_flags(cfg):
+    """Flags of the C entry points (bits of ``csrc/linearize_rows.cu``)."""
+    return (1 if cfg["kind"] == "split" else 0) | (2 if cfg.get("r3_first") else 0)
+
+
+def _slot_ptrs(slots, ins):
+    """C array of the inputs' data pointers in slot order (null where a
+    slot or an optional input is absent)."""
+    ptrs = [ins[s[0]].data_ptr() if s is not None and s[0] in ins else None for s in slots]
+    return (ctypes.c_void_p * len(ptrs))(*ptrs)
+
+
+def _launch_camera(who, cfg, ins, outs):
+    """Launch B1 (``outs`` = r, J, J_rho) or B3 (``outs`` = r) on the
+    inputs' card and stream."""
     from .build import load_library
 
+    x = ins["u_ref"]
     lib = load_library()
-    fn = (lib.kontiki_linearize_rows_f64 if x.dtype == torch.float64
-          else lib.kontiki_linearize_rows_f32)
+    suffix = "_f64" if x.dtype == torch.float64 else "_f32"
+    fn = getattr(lib, ("kontiki_linearize_rows" if len(outs) == 3 else "kontiki_cost_rows")
+                 + suffix)
+    ptrs = _slot_ptrs(camera_inputs(cfg), ins)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(ptrs, *[ctypes.c_void_p(o.data_ptr()) for o in outs],
+                 ctypes.c_int(x.shape[-1]), ctypes.c_int(_camera_flags(cfg)),
+                 ctypes.c_void_p(stream))
+    if err:
+        raise RuntimeError(f"{who}: kernel launch failed (CUDA error {err})")
+
+
+def linearize_rows(cfg, ins):
+    """B1: (r [M,2], J [M,2,61], J_rho [M,2]) from ``ins`` (dict of [k, M]
+    tensors named as in ``camera_inputs(cfg)``); ``cfg``: ``kind``
+    ('se3' | 'split') and, split, ``r3_first``. CPU tensors run the plain
+    version, CUDA tensors the hand-written kernel."""
+    M = _check_camera_inputs("linearize_rows", cfg, ins)
+    x = ins["u_ref"]
+    if x.device.type == "cpu":
+        return linearize_rows_plain(cfg, ins)
+    if x.device.type != "cuda":
+        raise ValueError(f"linearize_rows: unsupported device {x.device}")
     r = torch.empty(M, RDIM, dtype=x.dtype, device=x.device)
     J = torch.empty(M, RDIM, C, dtype=x.dtype, device=x.device)
     J_rho = torch.empty(M, RDIM, dtype=x.dtype, device=x.device)
     if M == 0:
         return r, J, J_rho
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(*[ctypes.c_void_p(ins[n].data_ptr()) for n, _ in INPUTS],
-                 ctypes.c_void_p(r.data_ptr()), ctypes.c_void_p(J.data_ptr()),
-                 ctypes.c_void_p(J_rho.data_ptr()), ctypes.c_int(M),
-                 ctypes.c_void_p(stream))
-    if err:
-        raise RuntimeError(f"linearize_rows: kernel launch failed (CUDA error {err})")
+    _launch_camera("linearize_rows", cfg, ins, (r, J, J_rho))
     linearize_rows.launches += 1
+    linearize_rows.split_launches += int(cfg["kind"] == "split")
     return r, J, J_rho
 
 
-#: kernel launches since the count was last reset (CUDA tensors only)
+#: kernel launches since the count was last reset (CUDA tensors only), and
+#: how many of them were on split windows
 linearize_rows.launches = 0
+linearize_rows.split_launches = 0
+
+
+def cost_rows(cfg, ins):
+    """B3: the camera rows' residuals ``r [M, 2]`` only (see
+    ``cost_rows_plain``), from the inputs of ``linearize_rows``. CPU
+    tensors run the plain version, CUDA tensors the hand-written kernel."""
+    M = _check_camera_inputs("cost_rows", cfg, ins)
+    x = ins["u_ref"]
+    if x.device.type == "cpu":
+        return cost_rows_plain(cfg, ins)
+    if x.device.type != "cuda":
+        raise ValueError(f"cost_rows: unsupported device {x.device}")
+    r = torch.empty(M, RDIM, dtype=x.dtype, device=x.device)
+    if M == 0:
+        return r
+    _launch_camera("cost_rows", cfg, ins, (r,))
+    cost_rows.launches += 1
+    return r
+
+
+#: kernel launches since the count was last reset (CUDA tensors only)
+cost_rows.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -570,14 +704,12 @@ imu_rows.cost_launches = 0
 # without a card, and operation counts for the kernels' bounds
 # ---------------------------------------------------------------------------
 
-def _host_args(names, ins):
-    """float64 CPU copies of ``ins`` (absent names -> null) and the C array
-    of their pointers."""
-    keep = [ins[n].detach().to("cpu", torch.float64).contiguous() if n in ins else None
-            for n, _ in names]
-    ptrs = (ctypes.c_void_p * len(keep))(*[a.data_ptr() if a is not None else None
-                                           for a in keep])
-    return keep, ptrs
+def _host_args(slots, ins):
+    """float64 CPU copies of ``ins`` (absent names -> null) in slot order
+    and the C array of their pointers."""
+    keep = {s[0]: ins[s[0]].detach().to("cpu", torch.float64).contiguous()
+            for s in slots if s is not None and s[0] in ins}
+    return keep, _slot_ptrs(slots, keep)
 
 
 def imu_rows_host(cfg, ins, cost_only=False, wide=False):
@@ -607,26 +739,48 @@ def imu_rows_ops(cfg, ins, cost_only=False):
     return load_host_library().kontiki_count_imu_rows(ptrs, M, _imu_flags(cfg, cost_only))
 
 
-def linearize_rows_host(ins, wide=False):
+def linearize_rows_host(cfg, ins, wide=False):
     """B1's CUDA row code compiled for the host, in float64; ``wide`` as
     for ``imu_rows_host``."""
     from .build import load_host_library
 
-    M = _check_inputs(ins)
-    keep, ptrs = _host_args(INPUTS, ins)
+    M = _check_camera_inputs("linearize_rows", cfg, ins)
+    keep, ptrs = _host_args(camera_inputs(cfg), ins)
     r = torch.zeros(M, RDIM, dtype=torch.float64)
     J = torch.zeros(M, RDIM, C, dtype=torch.float64)
     J_rho = torch.zeros(M, RDIM, dtype=torch.float64)
     load_host_library().kontiki_host_linearize_rows_f64(
-        ptrs, r.data_ptr(), J.data_ptr(), J_rho.data_ptr(), M, int(wide))
+        ptrs, r.data_ptr(), J.data_ptr(), J_rho.data_ptr(), M, _camera_flags(cfg),
+        int(wide))
     return r, J, J_rho
 
 
-def linearize_rows_ops(ins):
+def cost_rows_host(cfg, ins):
+    """B3's CUDA row code compiled for the host, in float64."""
+    from .build import load_host_library
+
+    M = _check_camera_inputs("cost_rows", cfg, ins)
+    keep, ptrs = _host_args(camera_inputs(cfg), ins)
+    r = torch.zeros(M, RDIM, dtype=torch.float64)
+    load_host_library().kontiki_host_cost_rows_f64(ptrs, r.data_ptr(), M, _camera_flags(cfg))
+    return r
+
+
+def linearize_rows_ops(cfg, ins):
     """Floating-point operations B1's function needs on ``ins``, counted
     as ``imu_rows_ops`` counts B4's."""
     from .build import load_host_library
 
-    M = _check_inputs(ins)
-    keep, ptrs = _host_args(INPUTS, ins)
-    return load_host_library().kontiki_count_linearize_rows(ptrs, M)
+    M = _check_camera_inputs("linearize_rows", cfg, ins)
+    keep, ptrs = _host_args(camera_inputs(cfg), ins)
+    return load_host_library().kontiki_count_linearize_rows(ptrs, M, _camera_flags(cfg))
+
+
+def cost_rows_ops(cfg, ins):
+    """Floating-point operations B3's function needs on ``ins``: each row's
+    primal chain once, counted as ``imu_rows_ops`` counts B4's."""
+    from .build import load_host_library
+
+    M = _check_camera_inputs("cost_rows", cfg, ins)
+    keep, ptrs = _host_args(camera_inputs(cfg), ins)
+    return load_host_library().kontiki_count_cost_rows(ptrs, M, _camera_flags(cfg))

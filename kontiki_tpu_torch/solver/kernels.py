@@ -1,18 +1,21 @@
 """Batched residual / Jacobian terms, bounds, retraction and the dense
 solver parts (counterpart of ``kontiki_tpu.solver.kernels``, the subset
-BASELINE configs 1, 2 and 4 use).
+BASELINE configs 1-4 use).
 
-- Camera rows (``rs_static``, pinhole, SE3 spline) gather their 4-knot
-  windows and row constants into the transposed ``[k, M]`` layout and run
-  kernel B1 (``ops.linearize_kernels.linearize_rows``).
+- Camera rows (``rs_static``, pinhole, on an SE3 spline or a split R3 + SO3
+  trajectory) gather their 4-knot windows and row constants into the
+  transposed ``[k, M]`` layout and run kernel B1
+  (``ops.linearize_kernels.linearize_rows``); their cost alone runs kernel
+  B3 (``cost_rows``) on the same inputs.
 - Gyro and accel rows on an SO3 spline or a split R3 + SO3 trajectory do
   the same for kernel B4 (``ops.linearize_kernels.imu_rows``), which also
-  has the cost-only form the dense re-cost uses.
+  has the cost-only form the re-cost uses.
 - Gyro and accel rows on the SE3 spline take the generic path: forward mode
   over the per-row tangent increments with
   ``torch.func.vmap(torch.func.jacfwd)``, as the JAX package keeps them on
-  its generic path. Each row's knot window is gathered before the
-  differentiated function, so ``jacfwd`` sees only the deltas.
+  its generic path; their cost alone is the same residual function at zero
+  increments under ``torch.func.vmap``. Each row's knot window is gathered
+  before the differentiated function, so ``jacfwd`` sees only the deltas.
 - Locks are masks over tangent columns, applied after assembly. R3 knots
   retract additively, SO3 knots by left-multiplied ``exp``, SE3 knots by
   right-multiplied ``exp`` (Sophus ``T * exp(x)``), sensor orientations by
@@ -27,7 +30,7 @@ import torch
 from ..constants import GRAVITY
 from ..math import quaternion as quat
 from ..math import se3 as se3m
-from ..ops.linearize_kernels import imu_rows, linearize_rows
+from ..ops.linearize_kernels import cost_rows, imu_rows, linearize_rows
 from ..trajectories import spline_eval as ev
 from .problem import SENSOR_TANGENT_DIM, TANGENT_DIMS
 
@@ -71,30 +74,43 @@ def retract_window(kind, win, delta):
 
 
 # ---------------------------------------------------------------------------
-# camera rows: kernel B1
+# camera rows: kernels B1 and B3
 # ---------------------------------------------------------------------------
 
 def _camera_inputs(spec, runtime, state, data):
-    """Gather + transpose camera rows for B1. Returns ``(ins, (i0_ref,
-    i0_obs))``: the [k, M] input dict and the window base indices."""
-    (sp,) = spec.splines
+    """Gather + transpose camera rows for B1 and B3. Returns ``(cfg, ins,
+    i0s)``: the kernels' configuration, the [k, M] input dict and the
+    window base indices ``{"ref": [per spline], "obs": [per spline]}``.
+
+    SE3 windows are ``win_{tag}`` [28] with ``u_{tag}``; split windows are
+    ``win_{tag}_r3`` [12] with ``u_{tag}`` and ``win_{tag}_so3`` [16] with
+    ``u_{tag}_so3``, each on its own spline's ``t0``/``dt``; ``dts`` holds
+    the SE3 spacing, or the (R3, SO3) spacings whatever the spline order."""
     d = state["d"][data["sid"]]
     row_delta = data["readout"] / data["rows"]
     times = {
         "ref": data["t0_ref"] + d + data["v_ref"] * row_delta,
         "obs": data["t0_obs"] + d + data["v_obs"] * row_delta,
     }
-    t0, dt = runtime["spline_t0"][0], runtime["spline_dt"][0]
-    knots = state[sp.kind]
+    kinds = tuple(sp.kind for sp in spec.splines)
+    se3 = kinds == ("se3",)
+    if not se3 and sorted(kinds) != ["r3", "so3"]:
+        raise NotImplementedError(f"camera rows on splines {list(kinds)}")
     M = d.shape[0]
-    ins, i0s = {}, []
-    for tag, t in times.items():
-        # window base: floor on the primal, clamped to [0, n - 4]
-        i0, u = ev.index_and_u(t, t0, dt, sp.n)
-        ins[f"win_{tag}"] = ev.gather_windows(knots, i0).reshape(M, -1).T.contiguous()
-        ins[f"u_{tag}"] = u[None, :].contiguous()
-        i0s.append(i0)
-    ins["dts"] = torch.full((1, M), dt, dtype=knots.dtype, device=knots.device)
+    opts = dict(dtype=d.dtype, device=d.device)
+    ins, i0s = {}, {"ref": [], "obs": []}
+    for si, sp in enumerate(spec.splines):
+        t0, dt = runtime["spline_t0"][si], runtime["spline_dt"][si]
+        for tag, t in times.items():
+            # window base: floor on the primal, clamped to [0, n - 4]
+            i0, u = ev.index_and_u(t, t0, dt, sp.n)
+            suffix = "" if se3 else f"_{sp.kind}"
+            win = ev.gather_windows(state[sp.kind], i0)
+            ins[f"win_{tag}{suffix}"] = win.reshape(M, -1).T.contiguous()
+            ins[f"u_{tag}" + ("_so3" if sp.kind == "so3" else "")] = u[None, :].contiguous()
+            i0s[tag].append(i0)
+    dts = [runtime["spline_dt"][kinds.index(k)] for k in (("se3",) if se3 else ("r3", "so3"))]
+    ins["dts"] = torch.tensor(dts, **opts)[:, None].expand(len(dts), M).contiguous()
     ins["q_ct"] = state["q_ct"][data["sid"]].T.contiguous()
     ins["p_ct"] = state["p_ct"][data["sid"]].T.contiguous()
     ins["rho"] = state["rho"][data["lid"]][None, :].contiguous()
@@ -102,27 +118,25 @@ def _camera_inputs(spec, runtime, state, data):
     ins["uv_obs"] = data["uv_obs"].T.contiguous()
     ins["weight"] = data["weight"][None, :].contiguous()
     ins["K"] = data["K"].reshape(M, 9).T.contiguous()
-    return ins, i0s
+    cfg = dict(kind="se3" if se3 else "split", r3_first=not se3 and kinds[0] == "r3")
+    return cfg, ins, i0s
 
 
 def _camera_rows(spec, runtime, state, data):
     """(r [M,2], J [M,2,61], cols [M,61], J_rho [M,2]) of the camera rows;
-    columns are [ref window, obs window, sensor] as in the JAX package."""
-    ins, (i0_ref, i0_obs) = _camera_inputs(spec, runtime, state, data)
-    r, J, J_rho = linearize_rows(ins)
-    (sp,) = spec.splines
-    td = TANGENT_DIMS[sp.kind]
-    ar_w = torch.arange(4 * td, device=i0_ref.device)
-    ar_s = torch.arange(SENSOR_TANGENT_DIM, device=i0_ref.device)
-    cols = torch.cat(
-        [
-            sp.tangent_offset + i0_ref[:, None] * td + ar_w,
-            sp.tangent_offset + i0_obs[:, None] * td + ar_w,
-            spec.sensor_offset + data["sid"][:, None] * SENSOR_TANGENT_DIM + ar_s,
-        ],
-        dim=1,
-    )
-    return r, J, cols, J_rho
+    columns are [ref windows, obs windows (each in spline order), sensor] as
+    in the JAX package."""
+    cfg, ins, i0s = _camera_inputs(spec, runtime, state, data)
+    r, J, J_rho = linearize_rows(cfg, ins)
+    sid = data["sid"]
+    cols = [
+        sp.tangent_offset + i0[:, None] * TANGENT_DIMS[sp.kind]
+        + torch.arange(4 * TANGENT_DIMS[sp.kind], device=sid.device)
+        for tag in ("ref", "obs") for sp, i0 in zip(spec.splines, i0s[tag])
+    ]
+    cols.append(spec.sensor_offset + sid[:, None] * SENSOR_TANGENT_DIM
+                + torch.arange(SENSOR_TANGENT_DIM, device=sid.device))
+    return r, J, torch.cat(cols, dim=1), J_rho
 
 
 # ---------------------------------------------------------------------------
@@ -217,9 +231,11 @@ def _imu_residual(kind, t0, dt, gravity):
     return residual
 
 
-def _imu_rows(spec, bspec, runtime, state, data):
+def _imu_rows(spec, bspec, runtime, state, data, cost_only=False):
     """(r [M,3], J [M,3,37], cols [M,37]) of gyro/accel rows over the SE3
-    spline: window tangents (24), then the sensor block (13)."""
+    spline: window tangents (24), then the sensor block (13). With
+    ``cost_only``, ``r`` alone: the residual function at zero increments,
+    with no Jacobian (the JAX ``row_fn`` with ``with_jac=False``)."""
     (sp,) = spec.splines
     (W,) = bspec.windows
     if W != 4:
@@ -234,18 +250,19 @@ def _imu_rows(spec, bspec, runtime, state, data):
     win = ev.gather_windows(knots, i_base)
     gravity = torch.as_tensor(GRAVITY, dtype=knots.dtype, device=knots.device)
     f = _imu_residual(bspec.kind, t0, dt, gravity)
-
-    def row(delta, *args):
-        r = f(delta, *args)
-        return r, r
-
     M = sid.shape[0]
     C = 4 * TANGENT_DIMS[sp.kind] + SENSOR_TANGENT_DIM
     zeros = torch.zeros(M, C, dtype=knots.dtype, device=knots.device)
-    J, r = torch.func.vmap(torch.func.jacfwd(row, has_aux=True))(
-        zeros, win, i_base.to(knots.dtype), data["t"], data["y"], data["weight"], d0,
-        state["abias"][sid], state["gbias"][sid],
-    )
+    args = (zeros, win, i_base.to(knots.dtype), data["t"], data["y"], data["weight"], d0,
+            state["abias"][sid], state["gbias"][sid])
+    if cost_only:
+        return torch.func.vmap(f)(*args)
+
+    def row(delta, *rest):
+        r = f(delta, *rest)
+        return r, r
+
+    J, r = torch.func.vmap(torch.func.jacfwd(row, has_aux=True))(*args)
     td = TANGENT_DIMS[sp.kind]
     cols = torch.cat(
         [
@@ -259,26 +276,24 @@ def _imu_rows(spec, bspec, runtime, state, data):
     return r, J, cols
 
 
-def bucket_terms(spec, bspec, runtime, state, data):
+def bucket_terms(spec, bspec, runtime, state, data, cost_only=False):
     """``(r, J, cols, J_rho or None)`` of one bucket, landmark column split
-    off (the Schur path's form)."""
+    off (the Schur path's form); with ``cost_only``, ``r [M, rdim]`` alone
+    and no Jacobian: camera rows through B3, SO3/split IMU rows through
+    B4's cost-only form, SE3 IMU rows through their residual function at
+    zero increments."""
+    kinds = [sp.kind for sp in spec.splines]
     if bspec.kind == "rs_static":
+        if cost_only:
+            return cost_rows(*_camera_inputs(spec, runtime, state, data)[:2])
         return _camera_rows(spec, runtime, state, data)
     if _fused_imu_enabled(spec, bspec):
-        return (*_imu_rows_fused(spec, bspec, runtime, state, data), None)
-    if bspec.kind in ("gyro", "accel") and [sp.kind for sp in spec.splines] == ["se3"]:
-        return (*_imu_rows(spec, bspec, runtime, state, data), None)
-    raise NotImplementedError(
-        f"bucket kind {bspec.kind!r} on splines {[sp.kind for sp in spec.splines]}"
-    )
-
-
-def bucket_residuals(spec, bspec, runtime, state, data):
-    """Residuals ``r [M, rdim]`` of one bucket: B4's cost-only form where it
-    covers the bucket, else the linearization's residual."""
-    if _fused_imu_enabled(spec, bspec):
-        return _imu_rows_fused(spec, bspec, runtime, state, data, cost_only=True)
-    return bucket_terms(spec, bspec, runtime, state, data)[0]
+        out = _imu_rows_fused(spec, bspec, runtime, state, data, cost_only=cost_only)
+    elif bspec.kind in ("gyro", "accel") and kinds == ["se3"]:
+        out = _imu_rows(spec, bspec, runtime, state, data, cost_only=cost_only)
+    else:
+        raise NotImplementedError(f"bucket kind {bspec.kind!r} on splines {kinds}")
+    return out if cost_only else (*out, None)
 
 
 # ---------------------------------------------------------------------------
@@ -303,6 +318,18 @@ def _bucket_cost(bspec, data, r):
         c = data["huber_c"]
         return 0.5 * torch.sum(_huber(s, c)), _huber_prime(s, c)
     return 0.5 * torch.sum(s), torch.ones_like(s)
+
+
+def total_cost(spec, runtime, state):
+    """The problem's cost at ``state`` from every bucket's residuals alone
+    (``bucket_terms(..., cost_only=True)``): the re-cost of the dense and
+    Schur strategies."""
+    mask = runtime["mask"]
+    cost = torch.zeros((), dtype=mask.dtype, device=mask.device)
+    for bspec, data in zip(spec.buckets, runtime["data"]):
+        r = bucket_terms(spec, bspec, runtime, state, data, cost_only=True)
+        cost = cost + _bucket_cost(bspec, data, r)[0]
+    return cost
 
 
 # ---------------------------------------------------------------------------
@@ -387,13 +414,6 @@ def build_parts(spec):
     P = spec.num_tangent
     L, lo = spec.num_landmarks, spec.landmark_offset
 
-    def total_cost(runtime, state):
-        cost = torch.zeros((), dtype=runtime["mask"].dtype, device=runtime["mask"].device)
-        for bspec, data in zip(spec.buckets, runtime["data"]):
-            r = bucket_residuals(spec, bspec, runtime, state, data)
-            cost = cost + _bucket_cost(bspec, data, r)[0]
-        return cost
-
     def linearize(runtime, state):
         mask = runtime["mask"]
         H = torch.zeros(P, P, dtype=mask.dtype, device=mask.device)
@@ -443,10 +463,11 @@ def build_parts(spec):
         cost, H, g = linearize(runtime, state)
         delta, pred = solve_from_lin(runtime, state, H, g, lam)
         new_state = retract(runtime, state, delta)
-        return cost, new_state, total_cost(runtime, new_state), pred, delta
+        return cost, new_state, total_cost(spec, runtime, new_state), pred, delta
 
-    return dict(total_cost=total_cost, linearize=linearize, retract=retract,
-                solve_from_lin=solve_from_lin, step=step)
+    return dict(total_cost=lambda runtime, state: total_cost(spec, runtime, state),
+                linearize=linearize, retract=retract, solve_from_lin=solve_from_lin,
+                step=step)
 
 
 # ---------------------------------------------------------------------------

@@ -1,25 +1,36 @@
 """Levenberg-Marquardt trust-region loops (counterpart of
-``kontiki_tpu.solver.lm.make_fused_solver``, dense and Schur strategies).
+``kontiki_tpu.solver.lm``, dense and Schur strategies).
 
 The policy follows Ceres's LevenbergMarquardtStrategy: radius ``mu`` with
 damping ``1/mu * diag(JtJ)`` (diagonal clamped to [1e-6, 1e32]), accept
 when the relative decrease exceeds 1e-3, radius update
 ``mu / max(1/3, 1 - (2*rho - 1)^3)`` on success, and division by an
-escalating factor on failure; it is written once, in
-``trust_region_update``. Two loops use it:
+escalating factor on failure. Three loops use it:
 
-- ``trust_region_loop_spec`` (Schur) carries the linearization at the
+- ``solve`` (``TrajectoryEstimator.solve``) runs the three phases Ceres
+  reports (linearize, linear solve, retract + residual-only re-cost) one
+  after another and takes each decision on the host, so iteration callbacks
+  fire and the Summary carries per-phase wall times;
+- ``trust_region_loop_spec`` (Schur, fused) carries the linearization at the
   current state and linearizes each candidate in full, so an accepted
   iteration streams the measurement data once;
-- ``trust_region_loop`` (dense, the classic loop) linearizes, solves and
-  re-costs the candidate with the residual-only pass.
+- ``trust_region_loop`` (dense, fused) linearizes, solves and re-costs the
+  candidate with the residual-only pass.
 
-Each body is branch-free on the device (``torch.where`` selects, as the JAX
-``lax.while_loop`` bodies); the host reads ``done`` once per iteration.
+The fused loops take the policy on the device (``trust_region_update``,
+branch-free ``torch.where`` selects, as the JAX ``lax.while_loop`` bodies)
+and read ``done`` once per iteration; ``solve`` takes it on host floats, as
+the JAX ``solve`` does.
 """
+import contextlib
+import math
+import os
+import time
+
 import torch
 
-from .kernels import build_parts, problem_runtime, problem_spec
+from .._ceres import CallbackReturnType, IterationSummary, Summary, TerminationType
+from .kernels import build_parts, landmark_free_mask, problem_runtime, problem_spec
 from .schur import build_schur_parts
 
 
@@ -30,7 +41,8 @@ def _resolve_strategy(problem, strategy):
     if strategy == "auto":
         strategy = "schur" if len(problem.landmarks) else "dense"
     if strategy not in ("dense", "schur"):
-        raise NotImplementedError(f"strategy {strategy!r} is not ported")
+        raise NotImplementedError(
+            f"strategy {strategy!r} is not ported (ROADMAP.md Queue A 9.3)")
     return strategy
 
 
@@ -135,3 +147,264 @@ def make_fused_solver(problem, max_iterations=50, function_tolerance=1e-6,
         )
 
     return solve
+
+
+# ---------------------------------------------------------------------------
+# the phase-split solve with callbacks (TrajectoryEstimator.solve)
+# ---------------------------------------------------------------------------
+
+def _make_phases(problem, strategy):
+    """Per-phase solver functions, for the Summary's per-phase times
+    (the reference's py_ceres.cc): ``linearize(state) -> (cost, lin_out)``
+    [jacobian evaluation], ``solve(lin_out, lam, state) -> (delta, pred,
+    grad_max)`` [linear solver], and ``retract`` / ``cost`` [residual
+    evaluation]."""
+    strategy = _resolve_strategy(problem, strategy)
+    spec = problem_spec(problem)
+    runtime = problem_runtime(problem)
+    L, lo = spec.num_landmarks, spec.landmark_offset
+
+    if strategy == "schur":
+        parts = build_schur_parts(spec)
+
+        def linearize(state):
+            cost, *lin_out = parts["linearize"](runtime, state)
+            return cost, lin_out
+
+        def solve_phase(lin_out, lam, state):
+            H_cc, g_c, E, D, g_l = lin_out
+            delta, pred = parts["solve_from_lin"](runtime, state, H_cc, g_c, E, D, g_l, lam)
+            grad_max = g_c.abs().max()
+            if L:
+                grad_max = torch.maximum(grad_max, g_l.abs().max())
+            return delta, pred, grad_max
+
+    else:
+        parts = build_parts(spec)
+
+        def linearize(state):
+            cost, H, g = parts["linearize"](runtime, state)
+            return cost, (H, g)
+
+        def solve_phase(lin_out, lam, state):
+            H, g = lin_out
+            delta, pred = parts["solve_from_lin"](runtime, state, H, g, lam)
+            if L:  # the gradient the step sees: frozen landmarks count 0
+                g_l = g[lo:lo + L]
+                g = torch.cat([g[:lo], g_l * landmark_free_mask(state["rho"], g_l,
+                                                                torch.ones_like(g_l)),
+                               g[lo + L:]])
+            return delta, pred, g.abs().max()
+
+    return dict(
+        linearize=linearize,
+        solve=solve_phase,
+        retract=lambda state, delta: parts["retract"](runtime, state, delta),
+        cost=lambda state: parts["total_cost"](runtime, state),
+    )
+
+
+def _profiler(trace_dir, device):
+    """A ``torch.profiler`` context that writes a Chrome trace into
+    ``trace_dir`` when it closes (CPU activity, and the card's when the
+    problem lies on one)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(trace_dir, exist_ok=True)
+
+    def write(prof):
+        prof.export_chrome_trace(os.path.join(trace_dir, f"kontiki_trace_{os.getpid()}.json"))
+
+    return profile(activities=activities, on_trace_ready=write)
+
+
+def solve(
+    problem,
+    max_iterations=50,
+    progress=False,
+    callbacks=(),
+    callback_needs_state=False,
+    function_tolerance=1e-6,
+    gradient_tolerance=1e-10,
+    min_relative_decrease=1e-3,
+    initial_trust_region_radius=1e4,
+    max_trust_region_radius=1e16,
+    min_trust_region_radius=1e-32,
+    strategy="auto",
+    trace_dir=None,
+):
+    """Run LM on a compiled problem, the three phases one after another
+    with the accept/reject decision on the host. Returns (final_state,
+    Summary).
+
+    After each iteration the callbacks get its ``IterationSummary`` (with
+    ``callback_needs_state``, the problem's objects hold the current state
+    first); ``Abort`` ends the solve as ``UserFailure``,
+    ``TerminateSuccessfully`` as ``UserSuccess``. Then, on a successful
+    step, the function tolerance and the gradient tolerance are tested, and
+    last the minimum trust-region radius. Each phase's wall time ends with
+    the host read of its result (``.item()``). ``trace_dir`` records a
+    ``torch.profiler`` trace of the whole solve there, each phase under
+    ``record_function("kontiki/jacobian" | "kontiki/linear_solver" |
+    "kontiki/residual")``."""
+    t_start = time.time()
+    summary = Summary()
+    for name in ("num_parameters", "num_parameter_blocks", "num_parameters_reduced",
+                 "num_parameter_blocks_reduced", "num_residuals", "num_residual_blocks",
+                 "num_residuals_reduced", "num_residual_blocks_reduced"):
+        setattr(summary, name, getattr(problem, name))
+
+    state = problem.state0
+    if problem.num_residual_blocks == 0 or problem.num_parameter_blocks_reduced == 0:
+        # Nothing to optimize; mirror Ceres's trivial convergence.
+        summary.termination_type = TerminationType.Convergence
+        summary.message = "Problem is empty or fully constant."
+        summary.total_time_in_seconds = time.time() - t_start
+        return state, summary
+
+    phases = _make_phases(problem, strategy)
+    t_jacobian = t_linear = t_residual = 0.0
+    trace = _profiler(trace_dir, problem.device) if trace_dir else contextlib.nullcontext()
+
+    def annotate(name):
+        if not trace_dir:
+            return contextlib.nullcontext()
+        return torch.profiler.record_function(name)
+
+    mu = initial_trust_region_radius
+    decrease_factor = 2.0
+
+    def run_callbacks(it_summary):
+        if callback_needs_state:
+            problem.write_back(state)
+        for cb in callbacks:
+            ret = cb(it_summary)
+            if ret == CallbackReturnType.Abort:
+                return TerminationType.UserFailure
+            if ret == CallbackReturnType.TerminateSuccessfully:
+                return TerminationType.UserSuccess
+        return None
+
+    termination = None
+    message = ""
+    cost = None
+    t_min_start = time.time()
+    with trace:
+        for iteration in range(max_iterations):
+            it_t0 = time.time()
+            lam = 1.0 / mu
+
+            # Phase 1: residual + Jacobian evaluation (Ceres jacobian phase).
+            with annotate("kontiki/jacobian"):
+                cost_i, lin_out = phases["linearize"](state)
+                cost_i = cost_i.item()
+            t_jacobian += time.time() - it_t0
+
+            # Phase 2: damped (Schur) linear solve.
+            t1 = time.time()
+            with annotate("kontiki/linear_solver"):
+                delta, pred, grad_max = phases["solve"](lin_out, lam, state)
+                pred_f = pred.item()
+                grad_max_f = grad_max.item()
+                step_norm = torch.linalg.vector_norm(delta).item()
+            t_linear += time.time() - t1
+
+            # Phase 3: retraction + re-cost (Ceres residual phase).
+            t2 = time.time()
+            with annotate("kontiki/residual"):
+                new_state = phases["retract"](state, delta)
+                new_cost_f = phases["cost"](new_state).item()
+            t_residual += time.time() - t2
+
+            if cost is None:
+                cost = cost_i
+                summary.initial_cost = cost_i
+                it0 = IterationSummary(
+                    iteration=0,
+                    cost=cost_i,
+                    cost_change=0.0,
+                    gradient_max_norm=grad_max_f,
+                    trust_region_radius=mu,
+                    iteration_time_in_seconds=0.0,
+                    cumulative_time_in_seconds=time.time() - t_start,
+                )
+                summary.iterations.append(it0)
+                termination = run_callbacks(it0)
+                if termination is not None:
+                    message = "Terminated by user callback."
+                    break
+
+            relative_decrease = (cost_i - new_cost_f) / pred_f if pred_f > 0 else -1.0
+            step_successful = (math.isfinite(new_cost_f)
+                               and relative_decrease > min_relative_decrease)
+            if step_successful:
+                cost_change = cost_i - new_cost_f
+                state = new_state
+                mu = mu / max(1.0 / 3.0, 1.0 - (2.0 * relative_decrease - 1.0) ** 3)
+                mu = min(mu, max_trust_region_radius)
+                decrease_factor = 2.0
+                summary.num_successful_steps += 1
+                cost = new_cost_f
+            else:
+                cost_change = 0.0
+                mu = mu / decrease_factor
+                decrease_factor *= 2.0
+                summary.num_unsuccessful_steps += 1
+
+            it_summary = IterationSummary(
+                iteration=iteration + 1,
+                step_is_valid=math.isfinite(new_cost_f),
+                step_is_successful=step_successful,
+                cost=cost,
+                cost_change=cost_change,
+                gradient_max_norm=grad_max_f,
+                step_norm=step_norm,
+                relative_decrease=relative_decrease,
+                trust_region_radius=mu,
+                iteration_time_in_seconds=time.time() - it_t0,
+                cumulative_time_in_seconds=time.time() - t_start,
+            )
+            summary.iterations.append(it_summary)
+            if progress:
+                print(
+                    f"iter {iteration + 1:3d}  cost {cost:.6e}  "
+                    f"change {cost_change:.3e}  |g| {grad_max_f:.3e}  "
+                    f"tr {mu:.1e}  {'ok' if step_successful else 'reject'}"
+                )
+
+            termination = run_callbacks(it_summary)
+            if termination is not None:
+                message = "Terminated by user callback."
+                break
+            if step_successful:
+                if abs(cost_change) <= function_tolerance * cost_i:
+                    termination = TerminationType.Convergence
+                    message = (
+                        f"Function tolerance reached: |dc| = {abs(cost_change):.3e} "
+                        f"<= {function_tolerance} * {cost_i:.3e}"
+                    )
+                    break
+                if grad_max_f <= gradient_tolerance:
+                    termination = TerminationType.Convergence
+                    message = f"Gradient tolerance reached: {grad_max_f:.3e}"
+                    break
+            if mu < min_trust_region_radius:
+                termination = TerminationType.Convergence
+                message = "Trust region radius below minimum."
+                break
+
+    if termination is None:
+        termination = TerminationType.NoConvergence
+        message = f"Maximum number of iterations reached ({max_iterations})."
+    summary.termination_type = termination
+    summary.message = message
+    summary.final_cost = cost if cost is not None else 0.0
+    summary.minimizer_time_in_seconds = time.time() - t_min_start
+    summary.total_time_in_seconds = time.time() - t_start
+    summary.jacobian_evaluation_time_in_seconds = t_jacobian
+    summary.linear_solver_time_in_seconds = t_linear
+    summary.residual_evaluation_time_in_seconds = t_residual
+    return state, summary

@@ -15,6 +15,9 @@ and moved to ``device`` once, floats as ``dtype`` and indices as int64.
 - **Locks -> masks** over the global tangent vector reproduce
   ``SetParameterBlockConstant``; only knots inside some measurement's span
   are free.
+- **Ceres-style counts** (``num_parameters``, ``num_residual_blocks``, ...)
+  fill the solver's ``Summary``; ``write_back`` copies a state into the
+  trajectory, sensor and landmark objects.
 """
 import math
 from dataclasses import dataclass, field
@@ -39,6 +42,8 @@ from ..trajectories.splines import (
 
 #: tangent dimension per spline kind
 TANGENT_DIMS = {"r3": 3, "so3": 3, "se3": 6}
+#: ambient (stored) dimension of a knot per spline kind
+KNOT_DIMS = {"r3": 3, "so3": 4, "se3": 7}
 
 #: sensor tangent slot layout: q_ct(3), p_ct(3), d(1), abias(3), gbias(3)
 SENSOR_TANGENT_DIM = 13
@@ -77,6 +82,10 @@ class SplineInfo:
     @property
     def tangent_dim(self):
         return TANGENT_DIMS[self.kind]
+
+    @property
+    def knot_dim(self):
+        return KNOT_DIMS[self.kind]
 
 
 @dataclass
@@ -162,6 +171,7 @@ class Problem:
 
         self._layout()
         self._finalize_buckets()
+        self._bookkeeping()
 
     # ------------------------------------------------------------------
     # registration
@@ -340,3 +350,82 @@ class Problem:
                 for sp in self.splines:
                     b.window[sp.kind] = self._window_width(sp, readout=readout)
             b.data = {k: self._tensor(v) for k, v in data.items()}
+
+    # ------------------------------------------------------------------
+    # Ceres-style program counts
+    # ------------------------------------------------------------------
+    def _bookkeeping(self):
+        """Parameter and residual counts as Ceres reports them: a parameter
+        block per active knot, sensor parameter and landmark; a residual
+        block per measurement, reduced when one of its parameters is free."""
+        locked_traj = self.trajectory.locked if self.splines else True
+        blocks = []  # (ambient size, constant)
+        for sp in self.splines:
+            blocks += [(sp.knot_dim, locked_traj)] * int(np.count_nonzero(sp.active))
+        for sensor in self.sensors:
+            blocks.append((4, sensor.relative_orientation_locked))
+            blocks.append((3, sensor.relative_position_locked))
+            blocks.append((1, sensor.time_offset_locked))
+            if isinstance(sensor, ConstantBiasImu):
+                blocks.append((3, sensor.accelerometer_bias_locked))
+                blocks.append((3, sensor.gyroscope_bias_locked))
+        blocks += [(1, lm.locked) for lm in self.landmarks]
+
+        self.num_parameters = sum(n for n, _ in blocks)
+        self.num_parameter_blocks = len(blocks)
+        self.num_parameters_reduced = sum(n for n, const in blocks if not const)
+        self.num_parameter_blocks_reduced = sum(1 for _, const in blocks if not const)
+
+        self.num_residual_blocks = sum(b.M for b in self.buckets.values())
+        self.num_residuals = sum(b.rdim * b.M for b in self.buckets.values())
+        # Trajectory knots enter every residual here, so a free trajectory
+        # keeps every block; otherwise a block needs a free sensor parameter
+        # or a free landmark.
+        any_free_traj = not locked_traj and any(sp.active.any() for sp in self.splines)
+        self.num_residual_blocks_reduced = 0
+        self.num_residuals_reduced = 0
+        for b in self.buckets.values():
+            for entry in b.measurements:
+                sensor = self.sensors[entry[1]]
+                free = any_free_traj or not (
+                    sensor.relative_orientation_locked
+                    and sensor.relative_position_locked
+                    and sensor.time_offset_locked
+                )
+                if isinstance(sensor, ConstantBiasImu):
+                    free = free or not (sensor.accelerometer_bias_locked
+                                        and sensor.gyroscope_bias_locked)
+                if len(entry) == 3:
+                    free = free or not self.landmarks[entry[2]].locked
+                if free:
+                    self.num_residual_blocks_reduced += 1
+                    self.num_residuals_reduced += b.rdim
+
+    # ------------------------------------------------------------------
+    # write-back
+    # ------------------------------------------------------------------
+    def write_back(self, state):
+        """Copy ``state`` (a dict of tensors on any device) into the
+        trajectory, sensor and landmark objects: knots with re-normalised
+        quaternions, relative poses, time offsets clipped to their bounds,
+        IMU biases and inverse depths."""
+        state = {k: v.detach().cpu().numpy() for k, v in state.items()}
+        for sp in self.splines:
+            arr = state[sp.kind]
+            if sp.kind == "so3":
+                arr = arr / np.linalg.norm(arr, axis=-1, keepdims=True)
+            elif sp.kind == "se3":
+                q = arr[:, :4]
+                arr = np.concatenate(
+                    [q / np.linalg.norm(q, axis=-1, keepdims=True), arr[:, 4:]], axis=1)
+            sp.obj.set_knots(arr)
+        for i, sensor in enumerate(self.sensors):
+            q = state["q_ct"][i]
+            sensor.relative_pose = (q / np.linalg.norm(q), state["p_ct"][i])
+            sensor.time_offset = float(
+                np.clip(state["d"][i], -sensor.max_time_offset, sensor.max_time_offset))
+            if isinstance(sensor, ConstantBiasImu):
+                sensor.accelerometer_bias = state["abias"][i]
+                sensor.gyroscope_bias = state["gbias"][i]
+        for li, lm in enumerate(self.landmarks):
+            lm.inverse_depth = float(state["rho"][li])

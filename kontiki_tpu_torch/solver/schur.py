@@ -25,6 +25,7 @@ from .kernels import (
     bucket_terms,
     landmark_free_mask,
     project_delta,
+    total_cost,
 )
 
 
@@ -54,7 +55,8 @@ def whitened_rows(spec, bspec, runtime, state, data, mask_l):
 def build_schur_parts(spec):
     """Solver functions with per-landmark Schur elimination:
     ``linearize(runtime, state) -> (cost, H_cc, g_c, E, D, g_l)``,
-    ``schur_solve``, ``solve_from_lin``, ``retract`` and ``step_spec``."""
+    ``schur_solve``, ``solve_from_lin``, ``retract``, ``step_spec`` and
+    ``total_cost(runtime, state)`` (the residual-only re-cost)."""
     L = spec.num_landmarks
     P = spec.num_tangent
     Pc = P - L
@@ -144,4 +146,5 @@ def build_schur_parts(spec):
         solve_from_lin=solve_from_lin,
         retract=retract,
         step_spec=step_spec,
+        total_cost=lambda runtime, state: total_cost(spec, runtime, state),
     )

@@ -1,7 +1,8 @@
 """Synthetic problem generators (counterpart of ``kontiki_tpu.synthetic``):
 the gyro-only SO3 fit of BASELINE config 1, the IMU fusion on a split
-R3 + SO3 trajectory of config 2 and the SE3 rolling-shutter visual-inertial
-problem of config 4.
+R3 + SO3 trajectory of config 2, the rolling-shutter SfM on a split
+trajectory of config 3 and the SE3 rolling-shutter visual-inertial problem
+of config 4.
 
 Random draws come from ``numpy.random.default_rng(seed)`` in the same order
 as the JAX package, so both packages build the same problem from one seed.
@@ -235,21 +236,23 @@ def make_rsvi_problem(
     perturb_rho=0.0,
     speed=0.3,
     wmag=0.25,
-    trajectory="se3",
+    trajectory="split",
 ):
-    """Rolling-shutter SfM on an SE3 spline, optionally with IMU (BASELINE
-    config 4 is ``nviews=64, nlandmarks=200, imu_rate=200.0, seed=4``).
+    """Rolling-shutter SfM, optionally with IMU, on a split R3 + SO3
+    trajectory (``trajectory="split"``) or a cumulative SE3 spline
+    (``"se3"``). BASELINE config 3 is ``nviews=32, nlandmarks=200,
+    imu_rate=0.0, seed=3`` (split); config 4 is ``nviews=64, nlandmarks=200,
+    imu_rate=200.0, seed=4, trajectory="se3"``.
 
     Camera rows are ``StaticRsCameraMeasurement`` on a pinhole camera; the
     IMU is a ``BasicImu``."""
-    if trajectory != "se3":
-        raise ValueError(f"only trajectory='se3' is ported, got {trajectory!r}")
+    if trajectory not in ("split", "se3"):
+        raise ValueError(f"trajectory must be 'split' or 'se3', got {trajectory!r}")
     rng = np.random.default_rng(seed)
     span = (nviews - 1) / fps
     duration = span + 1.5
-    true_traj = make_se3_trajectory(
-        duration, dt=knot_dt, seed=seed, speed=speed, wmag=wmag
-    )
+    make = make_se3_trajectory if trajectory == "se3" else make_split_trajectory
+    true_traj = make(duration, dt=knot_dt, seed=seed, speed=speed, wmag=wmag)
     camera = make_camera()
     t_first = 0.5
     t0s = t_first + np.arange(nviews) / fps

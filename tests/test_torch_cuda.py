@@ -7,24 +7,28 @@ nor the JAX package, so it runs where only the port is installed:
 
 Tolerances are normwise (max |kernel - plain| / max |plain|): 1e-10 in
 float64; in float32 1e-3 for the camera-row linearization (cancellation in
-the SE3 log / V^-1 coefficients), 1e-4 for the assembly (~1e4-term sums
-whose order the atomics change from run to run) and 1e-4 for the IMU rows
-(each side is ~1e-6 from float64 at config-1/2 inputs; the residual
-y - body cancels)."""
+the SE3 log / V^-1 coefficients), 1e-4 for the camera-row cost, 1e-4 for
+the assembly (~1e4-term sums whose order the atomics change from run to
+run) and 1e-4 for the IMU rows (each side is ~1e-6 from float64 at
+config-1/2 inputs; the residual y - body cancels). B3's residual equals
+B1's on the card to 1e-12 in float64."""
 import numpy as np
 import pytest
 import torch
 
+from kontiki_tpu_torch import TrajectoryEstimator
 from kontiki_tpu_torch.ops import assembly_kernels as ak
 from kontiki_tpu_torch.ops import linearize_kernels as lk
 from kontiki_tpu_torch.solver import kernels
 from kontiki_tpu_torch.solver.lm import make_fused_solver
 from kontiki_tpu_torch.solver.problem import Problem
 from kontiki_tpu_torch.synthetic import make_gyro_problem, make_imu_problem, make_rsvi_problem
+from test_torch_camera_host import regrid
 
 torch.set_num_threads(1)
 pytestmark = pytest.mark.gpu
-SMALL = dict(nviews=8, nlandmarks=24, imu_rate=200.0, seed=4, noise_px=1.0)
+SMALL = dict(nviews=8, nlandmarks=24, imu_rate=200.0, seed=4, noise_px=1.0,
+             trajectory="se3")
 
 
 @pytest.fixture(scope="module")
@@ -52,12 +56,12 @@ def _assert_close(got, want, tol):
 def test_linearize_rows_kernel_matches_plain(problems, dtype, tol):
     problem = problems[2]
     spec, rt = kernels.problem_spec(problem), kernels.problem_runtime(problem)
-    ins, _ = kernels._camera_inputs(spec, rt, problem.state0, rt["data"][0])
+    cfg, ins, _ = kernels._camera_inputs(spec, rt, problem.state0, rt["data"][0])
     x = {k: v.to(dtype).contiguous() for k, v in ins.items()}
     before = lk.linearize_rows.launches
-    got = lk.linearize_rows(x)
+    got = lk.linearize_rows(cfg, x)
     assert lk.linearize_rows.launches == before + 1
-    _assert_close(got, lk.linearize_rows_plain(x), tol)
+    _assert_close(got, lk.linearize_rows_plain(cfg, x), tol)
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-10), (torch.float32, 1e-4)])
@@ -130,3 +134,66 @@ def test_dense_solve_on_cuda_matches_cpu(imu_problems, which):
     np.testing.assert_allclose(c1.item(), c0.item(), rtol=1e-8)
     for k, v in s1.items():
         np.testing.assert_allclose(v.cpu().numpy(), s0[k].numpy(), rtol=0, atol=1e-7)
+
+
+@pytest.fixture(scope="module")
+def camera_rows(cuda, problems):
+    """Gathered camera rows on the card: SE3 (the config-4-shaped problem)
+    and split (config 3's model on distinct R3/SO3 grids)."""
+    gen = make_rsvi_problem(nviews=8, nlandmarks=24, imu_rate=0.0, seed=3, noise_px=1.0)
+    out = {"split": Problem(regrid(gen["trajectory"]), gen["measurements"], device=cuda),
+           "se3": problems[2]}
+    rows = {}
+    for kind, problem in out.items():
+        spec, rt = kernels.problem_spec(problem), kernels.problem_runtime(problem)
+        (i,) = [i for i, b in enumerate(spec.buckets) if b.kind == "rs_static"]
+        rows[kind] = kernels._camera_inputs(spec, rt, problem.state0, rt["data"][i])[:2]
+    return rows
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-10), (torch.float32, 1e-3)])
+def test_linearize_rows_split_kernel_matches_plain(camera_rows, dtype, tol):
+    cfg, ins = camera_rows["split"]
+    x = {k: v.to(dtype).contiguous() for k, v in ins.items()}
+    before = lk.linearize_rows.launches
+    got = lk.linearize_rows(cfg, x)
+    assert lk.linearize_rows.launches == before + 1
+    _assert_close(got, lk.linearize_rows_plain(cfg, x), tol)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-10), (torch.float32, 1e-4)])
+@pytest.mark.parametrize("kind", ["se3", "split"])
+def test_cost_rows_kernel_matches_plain(camera_rows, kind, dtype, tol):
+    cfg, ins = camera_rows[kind]
+    x = {k: v.to(dtype).contiguous() for k, v in ins.items()}
+    M = x["u_ref"].shape[1]
+    xv = dict(x, valid=(torch.arange(M, device=x["u_ref"].device) % 5 != 2).to(dtype)[None, :])
+    for inputs in (x, xv):
+        before = lk.cost_rows.launches
+        got = lk.cost_rows(cfg, inputs)
+        assert lk.cost_rows.launches == before + 1
+        _assert_close((got,), (lk.cost_rows_plain(cfg, inputs),), tol)
+    if dtype == torch.float64:
+        _assert_close((lk.cost_rows(cfg, x),), (lk.linearize_rows(cfg, x)[0],), 1e-12)
+
+
+def test_estimator_on_cuda_matches_cpu(cuda):
+    """``TrajectoryEstimator.solve`` on the card (its default device)
+    equals the CPU run; B3 re-costs each iteration's candidate once."""
+    summaries, launches = {}, {}
+    for device in (None, "cpu"):
+        gen = make_rsvi_problem(nviews=8, nlandmarks=24, imu_rate=0.0, seed=3, noise_px=1.0)
+        estimator = TrajectoryEstimator(gen["trajectory"], device=device)
+        for m in gen["measurements"]:
+            estimator.add_measurement(m)
+        before = lk.cost_rows.launches
+        summaries[device] = estimator.solve(max_iterations=4, progress=False,
+                                            function_tolerance=0.0)
+        launches[device] = lk.cost_rows.launches - before
+    gpu, cpu = summaries[None], summaries["cpu"]
+    assert launches == {None: 4, "cpu": 0}  # one camera bucket, 4 iterations
+    assert [it.step_is_successful for it in gpu.iterations] == [
+        it.step_is_successful for it in cpu.iterations]
+    for g, c in zip(gpu.iterations, cpu.iterations):
+        np.testing.assert_allclose(g.cost, c.cost, rtol=1e-8)
+    assert gpu.num_residual_blocks == cpu.num_residual_blocks

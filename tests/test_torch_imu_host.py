@@ -47,8 +47,8 @@ def test_linearize_row_code_matches_plain(host_library):
     gen = make_rsvi_problem(nviews=3, nlandmarks=6, imu_rate=0.0, seed=4, trajectory="se3")
     problem = Problem(gen["trajectory"], gen["measurements"], device="cpu")
     spec, rt = tk.problem_spec(problem), tk.problem_runtime(problem)
-    ins, _ = tk._camera_inputs(spec, rt, problem.state0, rt["data"][0])
-    want = tlk.linearize_rows_plain(ins)
-    _assert_close(tlk.linearize_rows_host(ins), want)
-    _assert_close(tlk.linearize_rows_host(ins, wide=True), want)
-    assert tlk.linearize_rows_ops(ins) > 0
+    cfg, ins, _ = tk._camera_inputs(spec, rt, problem.state0, rt["data"][0])
+    want = tlk.linearize_rows_plain(cfg, ins)
+    _assert_close(tlk.linearize_rows_host(cfg, ins), want)
+    _assert_close(tlk.linearize_rows_host(cfg, ins, wide=True), want)
+    assert tlk.linearize_rows_ops(cfg, ins) > 0

@@ -19,6 +19,7 @@ from test_torch_problem import problem_pair
 
 torch.set_num_threads(1)
 RTOL = 1e-10
+SE3 = dict(kind="se3", r3_first=False)
 
 
 def _close(got, want, name):
@@ -43,8 +44,9 @@ def camera():
 def test_gather_stage_matches_jax(camera):
     pair = camera["pair"]
     tspec = tk.problem_spec(pair["torch"])
-    tins, _ = tk._camera_inputs(tspec, pair["rt"], pair["state"],
-                                pair["rt"]["data"][camera["ci"]])
+    tcfg, tins, _ = tk._camera_inputs(tspec, pair["rt"], pair["state"],
+                                      pair["rt"]["data"][camera["ci"]])
+    assert tcfg == dict(kind="se3", r3_first=False)
     assert sorted(tins) == sorted(camera["ins"])
     for k, v in tins.items():
         np.testing.assert_array_equal(v.numpy(), np.asarray(camera["ins"][k]), err_msg=k)
@@ -52,7 +54,7 @@ def test_gather_stage_matches_jax(camera):
 
 def test_plain_matches_jax_component_path(camera):
     want = jlk.linearize_rows(camera["cfg"], camera["ins"], backend="xla")
-    got = tlk.linearize_rows_plain(camera["tins"])
+    got = tlk.linearize_rows_plain(SE3, camera["tins"])
     for name, g, w in zip(("r", "J", "J_rho"), got, want):
         _close(g.numpy(), w, name)
 
@@ -80,12 +82,12 @@ def test_camera_rows_match_jax_staged_path(camera):
 
 def test_wrapper_on_cpu_runs_plain_and_checks_inputs(camera):
     tins = camera["tins"]
-    for g, w in zip(tlk.linearize_rows(tins), tlk.linearize_rows_plain(tins)):
+    for g, w in zip(tlk.linearize_rows(SE3, tins), tlk.linearize_rows_plain(SE3, tins)):
         assert torch.equal(g, w)
     bad = dict(tins, rho=tins["rho"][:, :-1])
     with pytest.raises(ValueError):
-        tlk.linearize_rows(bad)
+        tlk.linearize_rows(SE3, bad)
     bad = dict(tins, K=tins["K"].float())
     with pytest.raises(ValueError):
-        tlk.linearize_rows(bad)
+        tlk.linearize_rows(SE3, bad)
 

@@ -13,7 +13,7 @@ def test_import_with_jax_blocked():
     code = (
         "import sys; sys.modules['jax'] = None\n"
         "import kontiki_tpu_torch, kontiki_tpu_torch.synthetic, "
-        "kontiki_tpu_torch.interop\n"
+        "kontiki_tpu_torch.interop, kontiki_tpu_torch.estimator, kontiki_tpu_torch._ceres\n"
         "from kontiki_tpu_torch.solver import lm, schur, kernels\n"
         "from kontiki_tpu_torch.ops import build, linearize_kernels, assembly_kernels\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'kontiki_tpu.')) "
