@@ -10,7 +10,7 @@ Phases, in order; any failure exits non-zero without the final line:
 1. device: a CUDA device must be present; prints its name and power limit;
 2. build: compiles the hand-written kernels (one nvcc per source, sm_90a,
    in parallel), loads them, and builds their row code for the host
-   (operation counts for the bounds);
+   beside them (operation counts for the bounds);
 3. B1 (camera-row linearization) and 4. B2 (Schur assembly): each kernel
    against its plain PyTorch version on the same config-4 inputs on the
    card, in float64 and float32, with errors, median times and bounds;
@@ -44,7 +44,27 @@ Phases, in order; any failure exits non-zero without the final line:
     package's ``lm.solve``, launches per iteration (B3 re-costs, B1/B2
     linearize), the written-back objects holding the final state, and the
     Summary's per-phase times (config 3's and config 4's iteration
-    breakdown).
+    breakdown);
+13. B5 (trajectory-query window evaluation: r3, so3, se3) and B7 (the R3
+    spline at arbitrary times) against their plain versions at user size:
+    the 4,800,000 row times of a 10,000-frame rolling-shutter sequence (30
+    fps, 480 rows, readout 0.02 s) on the SE3 and split trajectories that
+    ``make_big_ba_problem(n_views=10_000)`` sizes (3,352 knots per spline),
+    float64 and float32, with times and bounds; B7 also on the same times
+    shuffled;
+14. read-back through the entry points: the trajectory queries at those
+    4.8 M times on both trajectories (B5, exact launches per query) and B7
+    through ``ops.r3_evaluate_kernel`` in both orders; config 4's built
+    trajectory queried at its 425 gyro times against the JAX package's
+    values; ``trajectory_ate``/``trajectory_aoe`` of config 4's built and
+    written-back trajectories against the truth, against the JAX
+    package's;
+15. pose fit: ``TrajectoryEstimator(trajectory).solve(max_iterations=10,
+    function_tolerance=0.0)`` of a perturbed 60 s split trajectory against
+    6,000 position and 6,000 orientation rows at 100 Hz (motion capture,
+    'auto' -> dense, P = 3,624): Summary costs and counts against the JAX
+    ``lm.solve``, per-phase times, then the solution read back through B5
+    and scored against the truth (ATE, AOE).
 
 Each path's launch counts are set to 0 just before its timed solve and
 read just after. A kernel's bound is the larger of its bytes (each input
@@ -53,8 +73,10 @@ operations its function needs on these inputs over the H100 SXM's float64
 peak, 67 TFLOP/s on its tensor cores (NVIDIA's data sheet). B1's and B4's
 operations are counted by running their row code on the host once per row
 in one full-width jet, with structural zeros and ones free
-(``csrc/host_rows.cpp``), B3's as its scalar chain once per row; B2's
-from the shapes, the upper triangle of the symmetric H only. A kernel's
+(``csrc/host_rows.cpp``), B3's as its scalar chain once per row, B5's and
+B7's as each query's chain once (B5's time derivatives in forward mode, as
+the kernel runs them); B2's from the shapes, the upper triangle of the
+symmetric H only. A kernel's
 ``launches`` in the JSON line is the sum over the main-path runs (the
 timed fused solves and the estimator solves).
 
@@ -67,6 +89,7 @@ import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
@@ -167,7 +190,92 @@ TOL = {
     ("cost_rows", torch.float64): 1e-10,
     ("cost_rows", torch.float32): 1e-4,
     ("cost_rows vs linearize_rows", torch.float64): 1e-12,
+    # query kernels: R3 values are the same basis sums in another order;
+    # the SO3/SE3 chains run forward mode in the time shift against the
+    # plain closed forms (4x4 product rule), so their derivatives differ
+    # by more roundoff; f32: each side rounds at ~1e-6 along a chain of
+    # ~1e2 operations and the derivatives scale by 1/dt and 1/dt^2
+    ("evaluate_windows r3", torch.float64): 1e-12,
+    ("evaluate_windows r3", torch.float32): 1e-4,
+    ("evaluate_windows so3", torch.float64): 1e-10,
+    ("evaluate_windows so3", torch.float32): 1e-4,
+    ("evaluate_windows se3", torch.float64): 1e-10,
+    ("evaluate_windows se3", torch.float32): 1e-4,
+    ("r3_evaluate_kernel", torch.float64): 1e-12,
+    ("r3_evaluate_kernel", torch.float32): 1e-4,
+    # the split trajectory's position query (B5 r3) against B7 at the same
+    # times: two kernels, one spline
+    ("query vs r3_evaluate_kernel", torch.float64): 1e-12,
 }
+
+# Read-back at user size: the row times of a 10,000-frame rolling-shutter
+# sequence (30 fps, 480 rows, readout 0.02 s, first frame at 0.5 s), on
+# trajectories as long as make_big_ba_problem(n_views=10_000) makes them:
+# (10,000 - 1) / 30 + 1.5 s at dt = 0.1 -> 3,352 knots per spline.
+QUERY_FRAMES, QUERY_FPS, QUERY_ROWS, QUERY_READOUT, QUERY_T_FIRST = (
+    10_000, 30.0, 480, 0.02, 0.5)
+QUERY_DURATION = (QUERY_FRAMES - 1) / QUERY_FPS + 1.5
+QUERY_KNOTS = 3352
+#: rows per chunk of the plain versions at user size (bounds their temporaries)
+PLAIN_CHUNK = 1 << 20
+#: where the query phases put their tensors (the trajectories' own queries
+#: use their default device, the card)
+QUERY_DEVICE = "cuda"
+
+# Config 4's trajectory as make_rsvi_problem builds it (the perturbed start),
+# queried by the JAX package in float64 on the CPU at its 425 gyro times:
+# per query the sum of |values| and rows 0, 212 and 424
+# (tools/query_reference.py).
+JAX_CONFIG4_QUERIES = {
+    "position": (206.48975102915387, {
+        0: [0.07247913639886731, -0.13156439144335294, -0.07400531655257328],
+        212: [0.11854261683403457, -0.1347330975722521, -0.17409660841681027],
+        424: [0.2410233640477627, -0.06990281925643788, -0.2579248367472761]}),
+    "velocity": (152.02658175710144, {
+        0: [0.17564885424913998, -0.04111823864924133, -0.20518770010775592],
+        212: [0.10650652871035844, -0.1663058967797454, -0.200881101387169],
+        424: [0.06623407248092364, 0.4645628094594163, -0.053635835486914515]}),
+    "acceleration": (1242.210729269506, {
+        0: [0.5335159369317288, 1.4843318311081886, -0.008429249662631061],
+        212: [1.370519781116684, -0.9036963914666858, -1.1014305620678047],
+        424: [-0.6920805882685989, -0.2623221841298891, 0.1264770574202885]}),
+    "orientation": (477.24424922589355, {
+        0: [0.9975188506823891, 0.03853530093685096, 0.054916713996851114,
+            0.021338407597088122],
+        212: [0.9964720152734402, 0.048582787640121854, 0.06843188235036358,
+              0.0005594640201326878],
+        424: [0.9937303761369487, 0.08277728638994707, 0.014508296741374634,
+              0.0737385226750567]}),
+    "angular_velocity": (117.35273768011226, {
+        0: [-0.017520070610854657, 0.09847216380282968, -0.12420103642050506],
+        212: [-0.08294746912742597, -0.08787321225030453, 0.06726447452864069],
+        424: [0.11295593083636302, -0.1314385774238886, 0.2591805064451883]}),
+}
+QUERY_RTOL = 1e-12
+# trajectory_ate (align False, "se3") and trajectory_aoe (align False) of
+# config 4's built trajectory and of the one the estimator phase writes back
+# (TrajectoryEstimator.solve(max_iterations=10, function_tolerance=0.0))
+# against the truth on [0.5, 0.5 + 63/30), n = 200, from the JAX package
+# (tools/query_reference.py). The written-back trajectory equals the truth
+# up to the gauge (global translation and yaw), so its se3-aligned ATE is
+# the solve's roundoff (1.8e-16 m in the JAX package): it is held to an
+# absolute bound, every other score to SCORE_RTOL.
+JAX_CONFIG4_SCORES = {
+    "built": (0.024373380883095708, 0.02043949062680765, 0.0060516638102657274),
+    "written-back": (0.008950649180413007, 1.7597233040735971e-16, 0.000644692505524337),
+}
+SCORE_RTOL = 1e-6
+ALIGNED_ATE_ABS = 1e-9
+# Pose fit (motion capture): make_split_trajectory(60.0, dt=0.1, seed=6)
+# perturbed with perturb_trajectory(seed=7); make_pose_measurements at
+# 100 Hz on [0, 60) with noise std 0.002 (m, rad) from seed 8. The JAX
+# package's lm.solve(problem, max_iterations=1, function_tolerance=0.0) on
+# the same rows: initial and iteration-1 costs and the Summary's counts
+# (tools/query_reference.py).
+POSE_FIT = dict(duration=60.0, dt=0.1, seed=6, perturb_seed=7, rate=100.0, noise=0.002,
+                noise_seed=8)
+JAX_POSE_FIT = dict(cost0=11.630382382384372, cost1=0.1675783358026372,
+                    counts=(4221, 1206, 4221, 24000, 12000))
 
 
 def fail(msg):
@@ -201,6 +309,7 @@ def bound(nbytes, ops):
 def reset_counts():
     from kontiki_tpu_torch.ops import assembly_kernels as ak
     from kontiki_tpu_torch.ops import linearize_kernels as lk
+    from kontiki_tpu_torch.ops import spline_kernels as sk
 
     lk.linearize_rows.launches = 0
     lk.linearize_rows.split_launches = 0
@@ -208,11 +317,15 @@ def reset_counts():
     ak.assemble_schur_blocks.launches = 0
     lk.imu_rows.launches = 0
     lk.imu_rows.cost_launches = 0
+    for kind in lk.evaluate_windows.launches:
+        lk.evaluate_windows.launches[kind] = 0
+    sk.r3_evaluate_kernel.launches = 0
 
 
 def read_counts():
     from kontiki_tpu_torch.ops import assembly_kernels as ak
     from kontiki_tpu_torch.ops import linearize_kernels as lk
+    from kontiki_tpu_torch.ops import spline_kernels as sk
 
     counts = {
         "linearize_rows": lk.linearize_rows.launches,
@@ -221,6 +334,8 @@ def read_counts():
         "assemble_schur_blocks": ak.assemble_schur_blocks.launches,
         "imu_rows": lk.imu_rows.launches,
         "imu_rows cost-only": lk.imu_rows.cost_launches,
+        **{f"evaluate_windows {k}": n for k, n in lk.evaluate_windows.launches.items()},
+        "r3_evaluate_kernel": sk.r3_evaluate_kernel.launches,
     }
     for name, n in counts.items():
         MAIN_PATH_LAUNCHES[name] = MAIN_PATH_LAUNCHES.get(name, 0) + n
@@ -268,16 +383,18 @@ def phase_build():
     from kontiki_tpu_torch.ops import build
 
     t0 = time.time()
-    so = build.build()
-    build.load_library()
-    print(f"build: {time.time() - t0:.1f} s -> {os.path.relpath(so, ROOT)}", flush=True)
+    # the host row code compiles beside the nvcc processes
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        host = pool.submit(build.load_host_library)
+        so = build.build()
+        build.load_library()
+        print(f"build: {time.time() - t0:.1f} s -> {os.path.relpath(so, ROOT)}", flush=True)
+        host.result()
+    print(f"host row code: ready {time.time() - t0:.1f} s after the build began", flush=True)
     for line in so.with_suffix(".log").read_text().splitlines():
         if ("Compiling entry" in line or "Function properties" in line
                 or "registers" in line or "spill" in line or line.startswith("==")):
             print(f"  ptxas: {line.strip()}", flush=True)
-    t0 = time.time()
-    build.load_host_library()
-    print(f"host row code: {time.time() - t0:.1f} s", flush=True)
 
 
 def phase_problem(name):
@@ -738,10 +855,301 @@ def phase_estimator(name, prob):
     return dict(times, iterations=n)
 
 
+def query_setup():
+    """The user-size query inputs: the SE3 and split trajectories, the
+    4.8 M row times (numpy, frame order) and a seeded permutation of them."""
+    import numpy as np
+
+    from kontiki_tpu_torch import synthetic
+
+    t0 = time.time()
+    se3 = synthetic.make_se3_trajectory(QUERY_DURATION, dt=0.1, seed=5)
+    split = synthetic.make_split_trajectory(QUERY_DURATION, dt=0.1, seed=5, speed=0.3,
+                                            wmag=0.2)
+    sizes = (len(se3), len(split.R3_spline), len(split.SO3_spline))
+    if sizes != (QUERY_KNOTS,) * 3:
+        fail(f"query trajectories have {sizes} knots, expected {QUERY_KNOTS}")
+    frames = QUERY_T_FIRST + np.arange(QUERY_FRAMES) / QUERY_FPS
+    rows = np.arange(QUERY_ROWS) * (QUERY_READOUT / QUERY_ROWS)
+    ts = (frames[:, None] + rows[None, :]).ravel()
+    perm = np.random.default_rng(5).permutation(ts.shape[0])
+    print(f"queries: {ts.shape[0]} row times on [{ts[0]}, {ts[-1]}], trajectories of "
+          f"{QUERY_KNOTS} knots ({time.time() - t0:.1f} s on the host)", flush=True)
+    return dict(se3=se3, split=split, ts=ts, perm=perm)
+
+
+def plain_chunked(fn, *args, n):
+    """``fn`` on consecutive chunks of the ``n`` rows of every tensor
+    argument with ``n`` rows (the plain versions' temporaries at 4.8 M
+    rows; knots pass whole), outputs concatenated."""
+    def chunk(a, i):
+        return a[i:i + PLAIN_CHUNK] if torch.is_tensor(a) and a.shape[0] == n else a
+
+    outs = [fn(*[chunk(a, i) for a in args]) for i in range(0, n, PLAIN_CHUNK)]
+    return tuple(torch.cat(parts) for parts in zip(*outs))
+
+
+def phase_b5(q):
+    """B5 against its plain version on the user-size windows of each kind."""
+    from kontiki_tpu_torch.ops import linearize_kernels as lk
+    from kontiki_tpu_torch.trajectories import spline_eval as ev
+
+    dev = torch.device(QUERY_DEVICE)
+    ts = torch.tensor(q["ts"], device=dev)
+    M = ts.shape[0]
+    splines = {"r3": q["split"].R3_spline, "so3": q["split"].SO3_spline, "se3": q["se3"]}
+    names = {"r3": ("p", "v", "a"), "so3": ("q", "w"), "se3": ("p", "v", "a", "q", "w")}
+    out = {}
+    for kind, sp in splines.items():
+        knots = torch.tensor(sp.knots, device=dev)
+        i0, u = ev.index_and_u(ts, sp.t0, sp.dt, knots.shape[0])
+        win = ev.gather_windows(knots, i0).contiguous()
+        u = u.contiguous()
+        del i0
+        print(f"  evaluate_windows {kind}: windows {tuple(win.shape)}", flush=True)
+        for dtype in (torch.float64, torch.float32):
+            w, uu = win.to(dtype), u.to(dtype)
+            got = lk.evaluate_windows(kind, w, uu, sp.dt)
+            torch.cuda.synchronize()
+            want = plain_chunked(lk.evaluate_windows_plain, kind, w, uu, sp.dt, n=M)
+            err = compare(f"evaluate_windows {kind}", dtype, names[kind], got, want)
+            del got, want
+            if dtype != torch.float64:
+                continue
+            r = dict(max_abs_err=err)
+            r["ms"] = cuda_ms(lambda: lk.evaluate_windows(kind, w, uu, sp.dt))
+            r["plain_ms"] = cuda_ms(
+                lambda: plain_chunked(lk.evaluate_windows_plain, kind, w, uu, sp.dt, n=M),
+                reps=3, warmup=1)
+            n_out = sum(lk.EVAL_OUTPUTS[kind])
+            nbytes = 8 * M * (4 * lk.EVAL_KNOT_DIM[kind] + 1 + n_out)
+            t0 = time.time()
+            ops = lk.evaluate_windows_ops(kind, w, uu, sp.dt)
+            r["bound_ms"], r["bound_by"] = bound(nbytes, ops)
+            r["library_ms"] = None  # no single PyTorch call computes B5
+            print(f"  evaluate_windows {kind} f64 M={M}: kernel {r['ms']:.4f} ms, plain "
+                  f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms by {r['bound_by']} "
+                  f"({nbytes} bytes, {ops} operations, counted in "
+                  f"{time.time() - t0:.1f} s on the host)", flush=True)
+            out[kind] = r
+        del win, u, w, uu
+    return out
+
+
+def phase_b7(q):
+    """B7 against its plain version at the user-size times, in frame order
+    and shuffled; the numbers of the frame order."""
+    from kontiki_tpu_torch.ops import spline_kernels as sk
+
+    dev = torch.device(QUERY_DEVICE)
+    sp = q["split"].R3_spline
+    orders = {"frame order": torch.tensor(q["ts"], device=dev),
+              "shuffled": torch.tensor(q["ts"][q["perm"]], device=dev)}
+    out = None
+    for order, ts in orders.items():
+        M = ts.shape[0]
+        for dtype in (torch.float64, torch.float32):
+            knots = torch.tensor(sp.knots, device=dev, dtype=dtype)
+            t = ts.to(dtype)
+            got = sk.r3_evaluate_kernel(knots, sp.t0, sp.dt, t)
+            torch.cuda.synchronize()
+            want = plain_chunked(sk.r3_evaluate_plain, knots, sp.t0, sp.dt, t, n=M)
+            print(f"  r3_evaluate_kernel {order}:", flush=True)
+            err = compare("r3_evaluate_kernel", dtype, ("p", "v", "a"), got, want)
+            if dtype != torch.float64:
+                continue
+            ms = cuda_ms(lambda: sk.r3_evaluate_kernel(knots, sp.t0, sp.dt, t))
+            plain_ms = cuda_ms(lambda: sk.r3_evaluate_plain(knots, sp.t0, sp.dt, t),
+                               reps=3, warmup=1)
+            nbytes = 8 * (M * (1 + 9) + knots.numel())
+            ops = sk.r3_evaluate_ops(knots, sp.t0, sp.dt, t)
+            b_ms, b_by = bound(nbytes, ops)
+            print(f"  r3_evaluate_kernel f64 {order} M={M}: kernel {ms:.4f} ms, plain "
+                  f"{plain_ms:.3f} ms, bound {b_ms:.4f} ms by {b_by} ({nbytes} bytes, "
+                  f"{ops} operations)", flush=True)
+            out = out or dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                              bound_by=b_by, library_ms=None)  # no single PyTorch call
+    return out
+
+
+def check_launches(what, launches, want):
+    got = {k: launches[k] for k in want}
+    if got != want:
+        fail(f"{what}: launches {got}, expected {want}")
+
+
+def phase_readback(q, built4):
+    """Queries through the entry points: the user-size read-back (B5 via
+    the trajectory API, B7 via ``ops.r3_evaluate_kernel``) and config 4's
+    built trajectory against the JAX package's values."""
+    import numpy as np
+
+    from kontiki_tpu_torch.ops import r3_evaluate_kernel
+
+    ts = q["ts"]
+    M = ts.shape[0]
+    reset_counts()
+    got, times = {}, []
+    for name, traj in (("se3", q["se3"]), ("split", q["split"])):
+        for query in ("position", "orientation"):
+            t0 = time.perf_counter()
+            got[name, query] = getattr(traj, query)(ts)
+            times.append(f"{name} {query} {time.perf_counter() - t0:.3f} s")
+    sp = q["split"].R3_spline
+    knots = torch.tensor(sp.knots, device=QUERY_DEVICE)
+    t_dev = torch.tensor(ts, device=QUERY_DEVICE)
+    t0 = time.perf_counter()
+    p7 = r3_evaluate_kernel(knots, sp.t0, sp.dt, t_dev)[0].cpu().numpy()
+    times.append(f"B7 frame order {time.perf_counter() - t0:.3f} s")
+    perm = q["perm"]
+    t_perm = torch.tensor(ts[perm], device=QUERY_DEVICE)
+    t0 = time.perf_counter()
+    p7s = r3_evaluate_kernel(knots, sp.t0, sp.dt, t_perm)[0].cpu().numpy()
+    times.append(f"B7 shuffled {time.perf_counter() - t0:.3f} s")
+    launches = read_counts()
+    print(f"read-back of {M} row times (host clock per call, transfers included): "
+          + ", ".join(times) + f"; launches {launches}", flush=True)
+    check_launches("user-size read-back", launches, {
+        "evaluate_windows se3": 2, "evaluate_windows r3": 2, "evaluate_windows so3": 2,
+        "r3_evaluate_kernel": 2})
+    for key, v in got.items():
+        width = 3 if key[1] == "position" else 4
+        if v.shape != (M, width) or not np.isfinite(v).all():
+            fail(f"read-back {key}: shape {v.shape} or non-finite values")
+    norms = np.linalg.norm(got["se3", "orientation"], axis=1)
+    print(f"  max | |q| - 1 | over the se3 orientations: {np.abs(norms - 1).max():.2e}",
+          flush=True)
+    if not np.abs(norms - 1).max() <= 1e-12:
+        fail("read-back: se3 orientations are not unit quaternions")
+    inv = np.empty_like(perm)
+    inv[perm] = np.arange(M)
+    compare("query vs r3_evaluate_kernel", torch.float64, ("position", "shuffled"),
+            (torch.from_numpy(got["split", "position"]), torch.from_numpy(p7s[inv])),
+            (torch.from_numpy(p7), torch.from_numpy(p7)))
+
+    gyro_ts = np.array([m.t for m in built4["measurements"] if type(m).__name__ ==
+                        "GyroscopeMeasurement"])
+    traj = built4["trajectory"]
+    reset_counts()
+    values = {name: getattr(traj, name)(gyro_ts) for name in JAX_CONFIG4_QUERIES}
+    launches = read_counts()
+    check_launches("config 4 queries", launches, {"evaluate_windows se3": 5})
+    for name, (checksum, rows) in JAX_CONFIG4_QUERIES.items():
+        v = values[name]
+        if v.shape[0] != 425:
+            fail(f"config 4 {name}: {v.shape[0]} gyro times, expected 425")
+            continue
+        rel_sum = abs(np.abs(v).sum() - checksum) / checksum
+        want = np.array([rows[i] for i in sorted(rows)])
+        rel_rows = np.abs(v[sorted(rows)] - want).max() / np.abs(want).max()
+        print(f"  config 4 {name} at {len(gyro_ts)} gyro times: sum|.| {np.abs(v).sum()!r} "
+              f"(JAX {checksum!r}, rel {rel_sum:.2e}); rows 0/212/424 rel {rel_rows:.2e}",
+              flush=True)
+        if not (rel_sum <= QUERY_RTOL and rel_rows <= QUERY_RTOL):
+            fail(f"config 4 {name}: differs from the JAX package's values")
+
+
+def phase_scores(built_traj, prob4):
+    """ATE/AOE of config 4's built and written-back trajectories against
+    the truth, through the queries on the card, against the JAX package's."""
+    from kontiki_tpu_torch.synthetic import trajectory_aoe, trajectory_ate
+
+    truth, span = prob4["true_trajectory"], (0.5, 0.5 + 63 / 30)
+    reset_counts()
+    for what, traj in (("built", built_traj), ("written-back", prob4["trajectory"])):
+        got = (trajectory_ate(traj, truth, *span), trajectory_ate(traj, truth, *span,
+                                                                 align="se3"),
+               trajectory_aoe(traj, truth, *span, align=False))
+        want = JAX_CONFIG4_SCORES[what]
+        print(f"config 4 {what} trajectory vs truth: ATE {got[0]!r}, ATE(se3) {got[1]!r}, "
+              f"AOE {got[2]!r} (JAX {want})", flush=True)
+        for i, name in enumerate(("ATE", "ATE(se3)", "AOE")):
+            if what == "written-back" and name == "ATE(se3)":
+                ok = got[i] <= ALIGNED_ATE_ABS
+            else:
+                ok = abs(got[i] - want[i]) <= SCORE_RTOL * want[i]
+            if not ok:
+                fail(f"config 4 {what} {name} {got[i]!r} differs from the JAX package's "
+                     f"{want[i]!r}")
+    check_launches("config 4 scores", read_counts(), {"evaluate_windows se3": 12})
+
+
+def phase_pose_fit():
+    """The motion-capture pose fit through ``TrajectoryEstimator`` on the
+    card, against the JAX ``lm.solve``; then the solution's queries."""
+    from kontiki_tpu_torch import TrajectoryEstimator
+    from kontiki_tpu_torch import synthetic
+    from kontiki_tpu_torch.solver.lm import solve as lm_solve
+    from kontiki_tpu_torch.solver.problem import Problem
+
+    c = POSE_FIT
+    t0 = time.time()
+    truth = synthetic.make_split_trajectory(c["duration"], dt=c["dt"], seed=c["seed"])
+    traj = synthetic.perturb_trajectory(truth, seed=c["perturb_seed"])
+    ms = synthetic.make_pose_measurements(truth, 0.0, c["duration"], c["rate"], c["noise"],
+                                          c["noise"], seed=c["noise_seed"])
+    problem = Problem(traj, ms)
+    print(f"pose fit: {len(ms)} rows, {len(traj.R3_spline)} + {len(traj.SO3_spline)} "
+          f"knots, P = {problem.num_tangent} on {problem.device} "
+          f"({time.time() - t0:.1f} s on the host)", flush=True)
+    t0 = time.perf_counter()
+    lm_solve(problem, max_iterations=1, progress=False)
+    torch.cuda.synchronize()
+    print(f"pose fit: warm-up solve {time.perf_counter() - t0:.3f} s", flush=True)
+    estimator = TrajectoryEstimator(traj)
+    for m in ms:
+        estimator.add_measurement(m)
+    reset_counts()
+    t0 = time.perf_counter()
+    summary = estimator.solve(max_iterations=10, progress=False, function_tolerance=0.0)
+    seconds = time.perf_counter() - t0
+    launches = read_counts()
+    n = len(summary.iterations) - 1
+    print(f"pose fit: {summary.BriefReport()}; {n} iterations in {seconds:.3f} s (with "
+          f"problem build and write-back); launches {launches}", flush=True)
+    print("pose fit per-phase times (host clock, each phase ended by its result's host "
+          "read), per iteration: "
+          f"jacobian {1e3 * summary.jacobian_evaluation_time_in_seconds / max(n, 1):.3f} ms, "
+          f"linear solver {1e3 * summary.linear_solver_time_in_seconds / max(n, 1):.3f} ms, "
+          f"residual {1e3 * summary.residual_evaluation_time_in_seconds / max(n, 1):.3f} ms; "
+          f"minimizer {summary.minimizer_time_in_seconds:.3f} s, total "
+          f"{summary.total_time_in_seconds:.3f} s", flush=True)
+    ref = JAX_POSE_FIT
+    for what, got, want in (("initial", summary.initial_cost, ref["cost0"]),
+                            ("iteration-1", summary.iterations[1].cost, ref["cost1"])):
+        rel = abs(got - want) / want
+        print(f"pose fit: {what} cost {got!r} (JAX lm.solve {want!r}, rel {rel:.2e})",
+              flush=True)
+        if not rel <= COST_RTOL:
+            fail(f"pose fit: {what} cost differs from the JAX package by {rel:.2e}")
+    counts = tuple(getattr(summary, k) for k in SUMMARY_COUNTS)
+    if counts != ref["counts"]:
+        fail(f"pose fit: Summary counts {counts} != JAX {ref['counts']}")
+    if summary.termination_type.name not in ("NoConvergence", "Convergence") or n < 2:
+        fail(f"pose fit: {summary.termination_type.name} after {n} iterations")
+
+    span = (0.0, c["duration"] - 1.0 / c["rate"])
+    start = synthetic.perturb_trajectory(truth, seed=c["perturb_seed"])
+    reset_counts()
+    scores = {what: (synthetic.trajectory_ate(t, truth, *span, n=6000),
+                     synthetic.trajectory_aoe(t, truth, *span, n=6000, align=False))
+              for what, t in (("start", start), ("solution", traj))}
+    check_launches("pose fit scores", read_counts(),
+                   {"evaluate_windows r3": 8, "evaluate_windows so3": 8})
+    print(f"pose fit vs truth at 6,000 times: start ATE {scores['start'][0]:.6e} m, AOE "
+          f"{scores['start'][1]:.6e} rad; solution ATE {scores['solution'][0]:.6e} m, AOE "
+          f"{scores['solution'][1]:.6e} rad", flush=True)
+    if not (scores["solution"][0] < scores["start"][0]
+            and scores["solution"][1] < scores["start"][1]):
+        fail("pose fit: the solution is not closer to the truth than the start")
+    return summary
+
+
 def main():
     phase_device()
     phase_build()
     prob4, problem4 = phase_problem("config 4")
+    built4 = dict(trajectory=prob4["trajectory"].clone(), measurements=prob4["measurements"])
     b1 = phase_b1(problem4)
     b2 = phase_b2(problem4)
     phase_solve("config 4", problem4)
@@ -756,6 +1164,12 @@ def main():
     phase_breakdown(imu["config 2"])
     for name, prob in (("config 3", prob3), ("config 4", prob4)):
         phase_estimator(name, prob)
+    queries = query_setup()
+    b5 = phase_b5(queries)
+    b7 = phase_b7(queries)
+    phase_readback(queries, built4)
+    phase_scores(built4["trajectory"], prob4)
+    phase_pose_fit()
     n = MAIN_PATH_LAUNCHES
     print(f"main-path launches: {n}", flush=True)
     b1_source = dict(route="cuda", source="kontiki_tpu_torch/csrc/linearize_rows.cu")
@@ -777,7 +1191,19 @@ def main():
              source="kontiki_tpu_torch/csrc/imu_rows.cu",
              replaces="kontiki_tpu/ops/linearize_kernels.py:1601",
              launches=n["imu_rows"], **b4),
+        *[dict(name=f"evaluate_windows ({kind})", route="cuda",
+               source="kontiki_tpu_torch/csrc/eval_windows.cu",
+               replaces="kontiki_tpu/ops/linearize_kernels.py:1368",
+               launches=n[f"evaluate_windows {kind}"], **b5[kind])
+          for kind in ("r3", "so3", "se3")],
+        dict(name="r3_evaluate_kernel", route="cuda",
+             source="kontiki_tpu_torch/csrc/r3_evaluate.cu",
+             replaces="kontiki_tpu/ops/spline_kernels.py:147",
+             launches=n["r3_evaluate_kernel"], **b7),
     ]
+    for k in kernels:
+        if not k["launches"] > 0:
+            fail(f"{k['name']} was not launched on the main path")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

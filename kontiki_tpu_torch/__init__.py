@@ -3,17 +3,18 @@
 Mirrors the JAX package's module paths and names. It imports torch and never
 jax; the JAX package stays beside it as the reference the port is tested
 against. Users call ``TrajectoryEstimator(trajectory).solve()`` as with the
-reference. The hot kernels of the camera solves of configs 3 and 4
-(camera-row linearization and cost, Schur assembly) and of the IMU-fusion
-solves of configs 1 and 2 (gyro and accel rows) are hand-written CUDA C++
-for Hopper (``csrc/``), each beside a plain PyTorch version that runs for
-CPU tensors.
+reference and read the trajectory back through its queries. The hot kernels
+of the camera solves of configs 3 and 4 (camera-row linearization and cost,
+Schur assembly), of the IMU-fusion solves of configs 1 and 2 (gyro and
+accel rows) and of the trajectory queries (window evaluation, the R3 spline
+at arbitrary times) are hand-written CUDA C++ for Hopper (``csrc/``), each
+beside a plain PyTorch version that runs for CPU tensors.
 """
 from . import config  # noqa: F401
 
 __version__ = "0.1.0"
 
-from . import constants, math, rotations  # noqa: F401,E402
+from . import constants, math, rotations, utils  # noqa: F401,E402
 from .trajectories import (  # noqa: F401,E402
     SplitTrajectory,
     UniformR3SplineTrajectory,
@@ -21,6 +22,7 @@ from .trajectories import (  # noqa: F401,E402
     UniformSO3SplineTrajectory,
 )
 from . import measurements, sensors, sfm  # noqa: F401,E402
+from .measurements import OrientationMeasurement, PositionMeasurement  # noqa: F401,E402
 from . import _ceres  # noqa: F401,E402
 from ._ceres import (  # noqa: F401,E402
     CallbackReturnType,

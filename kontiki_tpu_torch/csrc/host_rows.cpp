@@ -1,6 +1,6 @@
 // The row kernels' per-row code (linearize_rows.cu: B1 and B3; imu_rows.cu:
-// B4), compiled
-// for the host with a plain C++ compiler. Two uses:
+// B4; eval_windows.cu: B5; r3_evaluate.cu: B7), compiled for the host with
+// a plain C++ compiler. Two uses:
 //   - on double, the same row functions the CUDA kernels run, to check the
 //     row math against the plain PyTorch versions without a card;
 //   - on Counted, a double that counts its floating-point operations, to
@@ -10,20 +10,24 @@
 //   - each row runs once with one jet as wide as all its seeds, so the
 //     primal chain is counted once and not once per seed chunk (B1's
 //     separate primal stage, which its jets recompute, is subtracted);
-//     B3 runs the primal chain on the scalar alone;
+//     B3 runs the primal chain on the scalar alone; B5 and B7 run each
+//     query once as the kernels do;
 //   - a constant 0 or 1 in the code (a jet lane no seed reaches, a seed's
 //     unit tangent, an identity) is structural: adding or multiplying by it,
 //     and anything computed only from zeros, counts nothing;
 //   - each +, -, *, / of two other values counts one; each sqrt, sin, cos,
-//     atan and atan2 counts one too, which undercounts them; sign flips and
-//     fabs count nothing. So the bound stays a lower bound.
+//     atan and atan2 counts one too, which undercounts them; sign flips,
+//     fabs and B7's floor of the knot index count nothing. So the bound
+//     stays a lower bound.
+// The count is per thread (thread_local), so callers may count chunks of
+// the rows in parallel threads and add the counts.
 // Built by kontiki_tpu_torch/ops/build.py build_host():
 //   c++ -std=c++17 -O2 -shared -fPIC -o libkontiki_host.so host_rows.cpp
 #include <cmath>
 #include <vector>
 
 namespace {
-long long g_ops = 0;
+__attribute__((tls_model("initial-exec"))) thread_local long long g_ops = 0;
 }
 
 struct Counted {
@@ -76,14 +80,17 @@ inline Counted kt_sin(Counted a) { return a.kind == Counted::kZero ? a : counted
 inline Counted kt_cos(Counted a) { return a.kind == Counted::kZero ? Counted(1.0) : counted(std::cos(a.x)); }
 inline Counted kt_atan(Counted a) { return a.kind == Counted::kZero ? a : counted(std::atan(a.x)); }
 inline Counted kt_atan2(Counted a, Counted b) { return counted(std::atan2(a.x, b.x)); }
+inline double kt_floor(Counted a) { return std::floor(a.x); }
 inline Counted kt_abs(Counted a) {
   Counted r = Counted::value(std::fabs(a.x));
   r.kind = a.kind;
   return r;
 }
 
+#include "eval_windows.cu"
 #include "imu_rows.cu"
 #include "linearize_rows.cu"
+#include "r3_evaluate.cu"
 
 namespace {
 
@@ -246,6 +253,50 @@ long long kontiki_count_cost_rows(const double* const* ins, int M, int flags) {
   const Inputs<Counted> in = make_inputs<Counted>(
       reinterpret_cast<const void* const*>(c.ptrs.data()), M, flags);
   return (flags & kCamSplit) ? count_cost<true>(in) : count_cost<false>(in);
+}
+
+// B5 row code on double: kind 0 r3 / 1 so3 / 2 se3 (kEval*), win [M, 4, D],
+// u [M]; outs the kind's outputs as for kontiki_eval_windows_f64.
+void kontiki_host_eval_windows_f64(int kind, const double* win, const double* u,
+                                   double dt, double* const* outs, int M) {
+  const int n = 4 * eval_knot_dim(kind);
+  for (int m = 0; m < M; ++m) eval_row<double>(kind, win + static_cast<size_t>(m) * n, u[m], dt, outs, m);
+}
+
+// Operations of B5's function on these queries: each query once.
+long long kontiki_count_eval_windows(int kind, const double* win, const double* u,
+                                     double dt, int M) {
+  const int n = 4 * eval_knot_dim(kind);
+  Counted w[28], o[5][4];
+  Counted* outs[5] = {o[0], o[1], o[2], o[3], o[4]};
+  g_ops = 0;
+  for (int m = 0; m < M; ++m) {
+    for (int k = 0; k < n; ++k) w[k] = Counted::value(win[static_cast<size_t>(m) * n + k]);
+    eval_row<Counted>(kind, w, Counted::value(u[m]), Counted::value(dt), outs, 0);
+  }
+  return g_ops;
+}
+
+// B7 row code on double: knots [N, 3], ts [B]; p, v, a [B, 3].
+void kontiki_host_r3_evaluate_f64(const double* knots, int N, double t0, double dt,
+                                  const double* ts, double* p, double* v, double* a,
+                                  int B) {
+  for (int b = 0; b < B; ++b) r3_evaluate_row<double>(knots, N, t0, dt, ts, b, p, v, a);
+}
+
+// Operations of B7's function on these times: each time once.
+long long kontiki_count_r3_evaluate(const double* knots, int N, double t0, double dt,
+                                    const double* ts, int B) {
+  std::vector<Counted> k(static_cast<size_t>(N) * 3);
+  for (size_t i = 0; i < k.size(); ++i) k[i] = Counted::value(knots[i]);
+  Counted p[3], v[3], a[3];
+  g_ops = 0;
+  for (int b = 0; b < B; ++b) {
+    const Counted t = Counted::value(ts[b]);
+    r3_evaluate_row<Counted>(k.data(), N, Counted::value(t0), Counted::value(dt), &t, 0,
+                             p, v, a);
+  }
+  return g_ops;
 }
 
 }  // extern "C"

@@ -171,6 +171,8 @@ KT_HD float kt_atan(float x) { return atanf(x); }
 KT_HD double kt_atan(double x) { return atan(x); }
 KT_HD float kt_atan2(float y, float x) { return atan2f(y, x); }
 KT_HD double kt_atan2(double y, double x) { return atan2(y, x); }
+KT_HD float kt_floor(float x) { return floorf(x); }
+KT_HD double kt_floor(double x) { return floor(x); }
 KT_HD float kt_abs(float x) { return fabsf(x); }
 KT_HD double kt_abs(double x) { return fabs(x); }
 
@@ -221,5 +223,120 @@ KT_HD Jet<T, N> kt_atan2(const Jet<T, N>& y, const Jet<T, N>& x) {
   const T d = T(1) / (x.a * x.a + y.a * y.a);
 #pragma unroll
   for (int i = 0; i < N; ++i) r.v[i] = (x.a * y.v[i] - y.a * x.v[i]) * d;
+  return r;
+}
+
+// ---- second-order Taylor numbers in one direction ----------------------
+//
+// Taylor2<T> carries f(s) = a + d s + e s^2 / 2 as (a, d = f'(0),
+// e = f''(0)): the value and the first two derivatives along one seed, the
+// nested forward mode the TPU kernels take as jvp(jvp(f)). The query
+// kernel (eval_windows.cu) seeds the time shift s with it.
+
+template <typename T>
+struct Taylor2 {
+  T a, d, e;
+  KT_HD Taylor2() {}
+  KT_HD explicit Taylor2(T x) : a(x), d(T(0)), e(T(0)) {}
+  KT_HD Taylor2(T x, T dx, T ex) : a(x), d(dx), e(ex) {}
+};
+
+template <typename T>
+struct BaseT<Taylor2<T>> { using type = T; };
+
+template <typename T>
+KT_HD T val(const Taylor2<T>& x) { return x.a; }
+
+template <typename T>
+KT_HD Taylor2<T> operator+(const Taylor2<T>& x, const Taylor2<T>& y) {
+  return {x.a + y.a, x.d + y.d, x.e + y.e};
+}
+
+template <typename T>
+KT_HD Taylor2<T> operator-(const Taylor2<T>& x, const Taylor2<T>& y) {
+  return {x.a - y.a, x.d - y.d, x.e - y.e};
+}
+
+template <typename T>
+KT_HD Taylor2<T> operator-(const Taylor2<T>& x) { return {-x.a, -x.d, -x.e}; }
+
+template <typename T>
+KT_HD Taylor2<T> operator*(const Taylor2<T>& x, const Taylor2<T>& y) {
+  return {x.a * y.a, x.d * y.a + x.a * y.d,
+          x.e * y.a + T(2) * (x.d * y.d) + x.a * y.e};
+}
+
+template <typename T>
+KT_HD Taylor2<T> operator/(const Taylor2<T>& x, const Taylor2<T>& y) {
+  Taylor2<T> r;
+  r.a = x.a / y.a;
+  r.d = (x.d - r.a * y.d) / y.a;
+  r.e = (x.e - T(2) * (r.d * y.d) - r.a * y.e) / y.a;
+  return r;
+}
+
+template <typename T>
+KT_HD Taylor2<T> operator+(const Taylor2<T>& x, T y) { return {x.a + y, x.d, x.e}; }
+template <typename T>
+KT_HD Taylor2<T> operator+(T x, const Taylor2<T>& y) { return {x + y.a, y.d, y.e}; }
+template <typename T>
+KT_HD Taylor2<T> operator-(const Taylor2<T>& x, T y) { return {x.a - y, x.d, x.e}; }
+template <typename T>
+KT_HD Taylor2<T> operator-(T x, const Taylor2<T>& y) { return {x - y.a, -y.d, -y.e}; }
+template <typename T>
+KT_HD Taylor2<T> operator*(const Taylor2<T>& x, T y) { return {x.a * y, x.d * y, x.e * y}; }
+template <typename T>
+KT_HD Taylor2<T> operator*(T x, const Taylor2<T>& y) { return {x * y.a, x * y.d, x * y.e}; }
+template <typename T>
+KT_HD Taylor2<T> operator/(const Taylor2<T>& x, T y) { return {x.a / y, x.d / y, x.e / y}; }
+
+template <typename T>
+KT_HD Taylor2<T> operator/(T x, const Taylor2<T>& y) {
+  Taylor2<T> r;
+  r.a = x / y.a;
+  r.d = -(r.a * y.d) / y.a;
+  r.e = -(T(2) * (r.d * y.d) + r.a * y.e) / y.a;
+  return r;
+}
+
+// f(x) for f with derivatives f1 = f'(x.a), f2 = f''(x.a)
+template <typename T>
+KT_HD Taylor2<T> chain2(T fa, T f1, T f2, const Taylor2<T>& x) {
+  return {fa, f1 * x.d, f2 * (x.d * x.d) + f1 * x.e};
+}
+
+template <typename T>
+KT_HD Taylor2<T> kt_sqrt(const Taylor2<T>& x) {
+  const T r = kt_sqrt(x.a);
+  const T f1 = T(0.5) / r;
+  return chain2(r, f1, -f1 / (T(2) * x.a), x);
+}
+
+template <typename T>
+KT_HD Taylor2<T> kt_sin(const Taylor2<T>& x) {
+  const T s = kt_sin(x.a);
+  return chain2(s, kt_cos(x.a), -s, x);
+}
+
+template <typename T>
+KT_HD Taylor2<T> kt_cos(const Taylor2<T>& x) {
+  const T c = kt_cos(x.a);
+  return chain2(c, -kt_sin(x.a), -c, x);
+}
+
+template <typename T>
+KT_HD Taylor2<T> kt_atan(const Taylor2<T>& x) {
+  const T f1 = T(1) / (T(1) + x.a * x.a);
+  return chain2(kt_atan(x.a), f1, -T(2) * x.a * (f1 * f1), x);
+}
+
+template <typename T>
+KT_HD Taylor2<T> kt_atan2(const Taylor2<T>& y, const Taylor2<T>& x) {
+  Taylor2<T> r;
+  const T n = x.a * x.a + y.a * y.a;
+  r.a = kt_atan2(y.a, x.a);
+  r.d = (x.a * y.d - y.a * x.d) / n;
+  const T dn = T(2) * (x.a * x.d + y.a * y.d);
+  r.e = (x.a * y.e - y.a * x.e - r.d * dn) / n;
   return r;
 }

@@ -47,7 +47,6 @@
 
 namespace {
 
-constexpr double kPi = 3.14159265358979323846;
 constexpr int kC = 61;            // Jacobian columns: 24 ref | 24 obs | 13 sensor
 constexpr int kN1 = 5;            // stage-1 seed chunk (25 = 5 x 5)
 constexpr int kN2 = 7;            // stage-2 seed chunk (21 = 3 x 7)
@@ -55,114 +54,6 @@ constexpr int kN2 = 7;            // stage-2 seed chunk (21 = 3 x 7)
 // flags of the C entry points
 constexpr int kCamSplit = 1;      // split R3 + SO3 windows (else SE3)
 constexpr int kCamR3First = 2;    // split: the R3 spline comes first
-
-// unit quaternion -> minimal rotation vector (Sophus SO3::log branches)
-template <typename S>
-KT_HD V3<S> so3_log(const Q4<S>& q) {
-  using T = typename BaseT<S>::type;
-  const S n2 = q.x * q.x + q.y * q.y + q.z * q.z;
-  const T w = val(q.w);
-  S k;
-  if (val(n2) <= T(kEps3)) {
-    const S ws = (kt_abs(w) <= T(kEps3)) ? S(T(1)) : q.w;
-    k = T(2) / ws - T(2.0 / 3.0) * n2 / (ws * ws * ws);
-  } else {
-    const S n = kt_sqrt(n2);
-    if (kt_abs(w) <= T(1e-10)) {
-      k = (w >= T(0) ? T(kPi) : T(-kPi)) / n;
-    } else {
-      k = T(2) * kt_atan(n / q.w) / n;
-    }
-  }
-  return {k * q.x, k * q.y, k * q.z};
-}
-
-// V(omega) u = u + a w x u + b w x (w x u)
-template <typename S>
-KT_HD V3<S> V_apply(const V3<S>& o, const V3<S>& u) {
-  using T = typename BaseT<S>::type;
-  const S theta2 = o.x * o.x + o.y * o.y + o.z * o.z;
-  S a, b;
-  if (val(theta2) <= T(kEps3)) {
-    a = T(0.5) - theta2 / T(24);
-    b = T(1.0 / 6.0) - theta2 / T(120);
-  } else {
-    const S theta = kt_sqrt(theta2);
-    a = (T(1) - kt_cos(theta)) / theta2;
-    b = (theta - kt_sin(theta)) / (theta2 * theta);
-  }
-  const V3<S> c1 = cross(o, u);
-  const V3<S> c2 = cross(o, c1);
-  return {u.x + a * c1.x + b * c2.x, u.y + a * c1.y + b * c2.y,
-          u.z + a * c1.z + b * c2.z};
-}
-
-// V^{-1}(omega) t = t - w x t / 2 + c w x (w x t)
-template <typename S>
-KT_HD V3<S> Vinv_apply(const V3<S>& o, const V3<S>& t) {
-  using T = typename BaseT<S>::type;
-  const S theta2 = o.x * o.x + o.y * o.y + o.z * o.z;
-  S c;
-  if (val(theta2) <= T(kEps3)) {
-    c = T(1.0 / 12.0) + theta2 / T(720);
-  } else {
-    const S theta = kt_sqrt(theta2);
-    const S sin_t = kt_sin(theta);
-    const S safe = (kt_abs(val(sin_t)) <= T(kEps3)) ? S(T(1)) : T(2) * theta * sin_t;
-    c = T(1) / theta2 - (T(1) + kt_cos(theta)) / safe;
-  }
-  const V3<S> c1 = cross(o, t);
-  const V3<S> c2 = cross(o, c1);
-  return {t.x - T(0.5) * c1.x + c * c2.x, t.y - T(0.5) * c1.y + c * c2.y,
-          t.z - T(0.5) * c1.z + c * c2.z};
-}
-
-// Cumulative SE3 window (p, q) at u + s/dt with right increments
-// (q exp(w), t + R(q) V(w) v) on the 4 knots; delta rows 6j+0..2 are
-// translation, 6j+3..5 rotation.
-template <typename T, typename S>
-KT_HD void pq_se3(const T* win, T u, T dt, const S* delta, const S& s, S* out) {
-  Q4<S> kq[4];
-  V3<S> kt[4];
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const Q4<S> qj = {S(win[7 * j]), S(win[7 * j + 1]), S(win[7 * j + 2]),
-                      S(win[7 * j + 3])};
-    const V3<S> dv = {delta[6 * j], delta[6 * j + 1], delta[6 * j + 2]};
-    const V3<S> dw = {delta[6 * j + 3], delta[6 * j + 4], delta[6 * j + 5]};
-    const V3<S> rt = qrotate(qj, V_apply(dw, dv));
-    kq[j] = qmul(qj, so3_exp_quat(dw));
-    kt[j] = {win[7 * j + 4] + rt.x, win[7 * j + 5] + rt.y, win[7 * j + 6] + rt.z};
-  }
-
-  const S ue = u + s / dt;
-  const S u2 = ue * ue;
-  const S u3 = u2 * ue;
-  const S B[3] = {(T(5) + T(3) * ue - T(3) * u2 + u3) / T(6),
-                  (T(1) + T(3) * ue + T(3) * u2 - T(2) * u3) / T(6),
-                  u3 / T(6)};
-
-  Q4<S> Pq = kq[0];
-  V3<S> Pt = kt[0];
-#pragma unroll
-  for (int j = 1; j < 4; ++j) {
-    const Q4<S> qi = qconj(kq[j - 1]);
-    const V3<S> ti = qrotate(qi, kt[j - 1]);
-    const Q4<S> q_rel = qmul(qi, kq[j]);
-    const V3<S> rt = qrotate(qi, kt[j]);
-    const V3<S> t_rel = {rt.x + -ti.x, rt.y + -ti.y, rt.z + -ti.z};
-    const V3<S> omega = so3_log(q_rel);
-    const V3<S> ups = Vinv_apply(omega, t_rel);
-    const S b = B[j - 1];
-    const V3<S> bo = {b * omega.x, b * omega.y, b * omega.z};
-    const V3<S> bu = {b * ups.x, b * ups.y, b * ups.z};
-    const V3<S> rt2 = qrotate(Pq, V_apply(bo, bu));
-    Pt = {Pt.x + rt2.x, Pt.y + rt2.y, Pt.z + rt2.z};
-    Pq = qmul(Pq, so3_exp_quat(bo));
-  }
-  out[0] = Pt.x; out[1] = Pt.y; out[2] = Pt.z;
-  out[3] = Pq.w; out[4] = Pq.x; out[5] = Pq.y; out[6] = Pq.z;
-}
 
 // Split window (p, q): the R3 spline at u_r3 + s/dt_r3 (win[0..11], knots
 // additive) and the cumulative SO3 spline at u_so3 + s/dt_so3 (win[12..27],

@@ -6,11 +6,25 @@ jax): ``state_from_numpy({k: np.asarray(v) for k, v in problem.state0.items()},
 ...)``. Every key is carried as it is, so SE3, R3, SO3 and split states and
 the IMU biases all come across. Floats become ``dtype``, integer index arrays
 int64. ``device=None`` means the CUDA card (``config.resolve_device``).
+
+``trajectory_from_numpy`` and ``split_trajectory_from_numpy`` carry a
+trajectory's knots across: the JAX package's stored knot rows (R3 xyz, SO3
+wxyz, SE3 packed q wxyz + t; ``np.asarray(traj.knots)``) become a port
+trajectory with the same ``dt``, ``t0`` and rows, bit for bit.
 """
 import numpy as np
 import torch
 
-from .config import default_dtype, resolve_device
+from .config import default_dtype, host_dtype, resolve_device
+from .trajectories import (
+    SplitTrajectory,
+    UniformR3SplineTrajectory,
+    UniformSE3SplineTrajectory,
+    UniformSO3SplineTrajectory,
+)
+
+_SPLINES = {"r3": UniformR3SplineTrajectory, "so3": UniformSO3SplineTrajectory,
+            "se3": UniformSE3SplineTrajectory}
 
 
 def _tensor(a, device, dtype):
@@ -40,3 +54,26 @@ def runtime_from_numpy(runtime, device=None, dtype=default_dtype):
             for data in runtime["data"]
         ],
     }
+
+
+def trajectory_from_numpy(kind, knots, dt, t0, device=None):
+    """A port spline of ``kind`` ('r3' | 'so3' | 'se3') holding the stored
+    knot rows ``knots`` [n, D] as they are (no re-validation or
+    re-conversion); its queries run on ``device`` (None: the CUDA card)."""
+    traj = _SPLINES[kind](dt, t0, device=device)
+    knots = np.array(knots, dtype=host_dtype).reshape(-1, traj._KNOT_DIM)
+    if len(knots):
+        traj._knots = knots
+        traj._n = len(knots)
+    return traj
+
+
+def split_trajectory_from_numpy(r3_knots, so3_knots, r3_dt, so3_dt, r3_t0, so3_t0,
+                                device=None):
+    """A port ``SplitTrajectory`` from the R3 and SO3 splines' stored knot
+    rows, spacings and start times."""
+    return SplitTrajectory(
+        trajectory_from_numpy("r3", r3_knots, r3_dt, r3_t0, device),
+        trajectory_from_numpy("so3", so3_knots, so3_dt, so3_t0, device),
+        device=device,
+    )

@@ -1,11 +1,16 @@
 """Measurement (residual) definitions (counterpart of
-``kontiki_tpu.measurements``): the kinds BASELINE config 4 uses.
+``kontiki_tpu.measurements``): the pose kinds and the kinds BASELINE
+configs 1-4 use.
 
 Each class carries its data and sensors and exposes ``measure(trajectory)``
 / ``error(trajectory)`` like the reference bindings
 (measurement_helper.h:13-27), through the host object API. The solver-side
 struct-of-arrays compilation lives in ``kontiki_tpu_torch.solver.problem``.
 
+- PositionMeasurement: ``p - p_hat(t)`` (3,), unit weight
+  (position_measurement.h:17-82).
+- OrientationMeasurement: angular distance ``angle(q, q_hat(t))`` (1,)
+  (orientation_measurement.h:119-137).
 - Gyroscope/Accelerometer: ``w * (meas - imu.f(traj, t))`` (3,)
   (gyroscope_measurement.h / accelerometer_measurement.h).
 - StaticRsCameraMeasurement: ``w * (uv - reproject(...))`` with Huber c=5
@@ -15,13 +20,47 @@ struct-of-arrays compilation lives in ``kontiki_tpu_torch.solver.problem``.
 import numpy as np
 
 from ..config import host_dtype
-from ..rotations import quat_conj, quat_to_rotation_matrix
+from ..rotations import quat_conj, quat_mult, quat_to_rotation_matrix
 
 __all__ = [
+    "PositionMeasurement",
+    "OrientationMeasurement",
     "GyroscopeMeasurement",
     "AccelerometerMeasurement",
     "StaticRsCameraMeasurement",
 ]
+
+
+class PositionMeasurement:
+    """World-position measurement at time t (reference position_measurement.h)."""
+
+    def __init__(self, t, p):
+        self.t = float(t)
+        self.p = np.asarray(p, dtype=host_dtype).reshape(3)
+
+    def measure(self, trajectory):
+        return trajectory.position(self.t)
+
+    def error(self, trajectory):
+        return self.p - self.measure(trajectory)
+
+
+class OrientationMeasurement:
+    """Orientation measurement; scalar angular-distance residual
+    (reference orientation_measurement.h)."""
+
+    def __init__(self, t, q):
+        self.t = float(t)
+        self.q = np.asarray(q, dtype=host_dtype).reshape(4)
+
+    def measure(self, trajectory):
+        return trajectory.orientation(self.t)
+
+    def error(self, trajectory):
+        qhat = self.measure(trajectory)
+        # Eigen angularDistance: 2 atan2(|vec(d)|, |w(d)|), d = q^-1 qhat
+        d = quat_mult(quat_conj(self.q), qhat)
+        return 2.0 * np.arctan2(np.linalg.norm(d[1:]), abs(d[0]))
 
 
 class GyroscopeMeasurement:

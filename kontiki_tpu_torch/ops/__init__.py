@@ -1,5 +1,8 @@
 """Hand-written Hopper kernels of the port, each beside its plain PyTorch
-version: ``linearize_kernels.linearize_rows`` (camera-row linearization)
-and ``assembly_kernels.assemble_schur_blocks`` (Gauss-Newton and
-landmark-elimination assembly). Sources live in ``../csrc``; they are built
-with ``nvcc`` at first use on a CUDA tensor (``ops/build.py``)."""
+version: ``linearize_kernels`` (camera-row linearization and cost, IMU
+rows, the trajectory queries' window evaluation), ``assembly_kernels``
+(Gauss-Newton and landmark-elimination assembly) and ``spline_kernels``
+(``r3_evaluate_kernel``, the R3 spline at arbitrary times). Sources live in
+``../csrc``; they are built with ``nvcc`` at first use on a CUDA tensor
+(``ops/build.py``)."""
+from .spline_kernels import r3_evaluate_kernel  # noqa: F401

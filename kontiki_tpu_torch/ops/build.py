@@ -31,12 +31,15 @@ NVCC_FLAGS = (
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_D = ctypes.c_double
 #: C entry points: name -> argument types (every entry returns cudaError_t)
 _ENTRIES = {
     "kontiki_linearize_rows": [_P, _P, _P, _P, _I, _I, _P],
     "kontiki_cost_rows": [_P, _P, _I, _I, _P],
     "kontiki_assemble_schur": [_P] * 10 + [_I] * 6 + [_P],
     "kontiki_imu_rows": [_P] * 10 + [_P, _P, _I, _I, _P],
+    "kontiki_eval_windows": [_I, _P, _P, _D, _P, _I, _P],
+    "kontiki_r3_evaluate": [_P, _I, _D, _D, _P, _P, _P, _P, _I, _P],
 }
 HOST_FLAGS = ("-std=c++17", "-O2", "-shared", "-fPIC")
 #: host entry points: name -> (argument types, return type)
@@ -47,6 +50,10 @@ _HOST_ENTRIES = {
     "kontiki_count_linearize_rows": ([_P, _I, _I], ctypes.c_longlong),
     "kontiki_host_cost_rows_f64": ([_P, _P, _I, _I], None),
     "kontiki_count_cost_rows": ([_P, _I, _I], ctypes.c_longlong),
+    "kontiki_host_eval_windows_f64": ([_I, _P, _P, _D, _P, _I], None),
+    "kontiki_count_eval_windows": ([_I, _P, _P, _D, _I], ctypes.c_longlong),
+    "kontiki_host_r3_evaluate_f64": ([_P, _I, _D, _D, _P, _P, _P, _P, _I], None),
+    "kontiki_count_r3_evaluate": ([_P, _I, _D, _D, _P, _I], ctypes.c_longlong),
 }
 
 

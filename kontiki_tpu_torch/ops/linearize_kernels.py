@@ -5,7 +5,9 @@ of ``kontiki_tpu.ops.linearize_kernels``):
 - B3 ``cost_rows``: camera-row residuals only (B1's primal chain, no
   seeds), in the same CUDA source;
 - B4 ``imu_rows``: gyro/accel rows on SO3 or split R3 + SO3 splines, CUDA
-  kernel ``csrc/imu_rows.cu`` (described at ``imu_rows_plain``).
+  kernel ``csrc/imu_rows.cu`` (described at ``imu_rows_plain``);
+- B5 ``evaluate_windows``: the trajectory queries' window evaluation
+  (values and time derivatives), CUDA kernel ``csrc/eval_windows.cu``.
 
 B1, camera rows:
 
@@ -32,6 +34,8 @@ gathered, transposed ``[k, M]`` rows of ``solver.kernels._camera_inputs``
 version; a CUDA tensor launches the kernel.
 """
 import ctypes
+import os
+from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
@@ -39,6 +43,7 @@ from ..constants import GRAVITY
 from ..math.quaternion import EPS as _EPS
 from ..math.se3 import _EPS as _EPS3
 from ..sensors.camera_models import pinhole_project
+from ..trajectories import spline_eval as ev
 
 RDIM = 2
 C = 61
@@ -700,6 +705,79 @@ imu_rows.cost_launches = 0
 
 
 # ---------------------------------------------------------------------------
+# B5: batched spline-window evaluation (the trajectory queries)
+# ---------------------------------------------------------------------------
+
+#: window knot width D and output widths per kind, in output order
+EVAL_KNOT_DIM = {"r3": 3, "so3": 4, "se3": 7}
+EVAL_OUTPUTS = {"r3": (3, 3, 3), "so3": (4, 3), "se3": (3, 3, 3, 4, 3)}
+_EVAL_KIND = {"r3": 0, "so3": 1, "se3": 2}  # kEval* of csrc/eval_windows.cu
+_WINDOW_FNS = {"r3": ev.r3_window, "so3": ev.so3_window, "se3": ev.se3_window}
+
+
+def evaluate_windows_plain(kind, windows, u, dt):
+    """Plain PyTorch B5: the window functions of ``trajectories.spline_eval``
+    (``r3_window``, ``so3_window``, ``se3_window``) with the queries as the
+    batch dimension. windows [M, 4, D], u [M] -> r3 ``(p, v, a)``, so3
+    ``(q, w)``, se3 ``(p, v, a, q, w)``, each [M, k]."""
+    return _WINDOW_FNS[kind](windows, u, dt)
+
+
+def _check_eval_inputs(kind, windows, u):
+    if kind not in EVAL_KNOT_DIM:
+        raise ValueError(f"evaluate_windows: unsupported kind {kind!r}")
+    if windows.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"evaluate_windows: unsupported dtype {windows.dtype}")
+    M = windows.shape[0]
+    if windows.shape != (M, 4, EVAL_KNOT_DIM[kind]):
+        raise ValueError(f"evaluate_windows: {kind} windows must be [M, 4, "
+                         f"{EVAL_KNOT_DIM[kind]}], got {tuple(windows.shape)}")
+    if u.shape != (M,) or u.dtype != windows.dtype or u.device != windows.device:
+        raise ValueError(f"evaluate_windows: u must be [{M}] {windows.dtype} on "
+                         f"{windows.device}, got {tuple(u.shape)} {u.dtype} on {u.device}")
+    if not (windows.is_contiguous() and u.is_contiguous()):
+        raise ValueError("evaluate_windows: windows and u must be contiguous")
+    return M
+
+
+def evaluate_windows(kind, windows, u, dt):
+    """B5 (the JAX package's ``evaluate_windows`` signature): spline windows
+    [M, 4, D] (D = 3 r3, 4 so3 wxyz, 7 se3 packed q + t) at interpolation
+    amounts u [M] with knot spacing ``dt`` -> r3 ``(p, v, a)``, so3
+    ``(q, w)``, se3 ``(p, v, a, q, w)``, each [M, k]. v and a are the first
+    and second time derivatives, w the world angular velocity; SE3's a is
+    the translation of P'' as in the reference. CPU tensors run the plain
+    version, CUDA tensors the hand-written kernel."""
+    M = _check_eval_inputs(kind, windows, u)
+    if windows.device.type == "cpu":
+        return evaluate_windows_plain(kind, windows, u, dt)
+    if windows.device.type != "cuda":
+        raise ValueError(f"evaluate_windows: unsupported device {windows.device}")
+    from .build import load_library
+
+    outs = tuple(torch.empty(M, k, dtype=windows.dtype, device=windows.device)
+                 for k in EVAL_OUTPUTS[kind])
+    if M == 0:
+        return outs
+    lib = load_library()
+    fn = (lib.kontiki_eval_windows_f64 if windows.dtype == torch.float64
+          else lib.kontiki_eval_windows_f32)
+    ptrs = (ctypes.c_void_p * len(outs))(*[o.data_ptr() for o in outs])
+    with torch.cuda.device(windows.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(_EVAL_KIND[kind], windows.data_ptr(), u.data_ptr(), float(dt), ptrs, M,
+                 ctypes.c_void_p(stream))
+    if err:
+        raise RuntimeError(f"evaluate_windows: kernel launch failed (CUDA error {err})")
+    evaluate_windows.launches[kind] += 1
+    return outs
+
+
+#: kernel launches per kind since the counts were last reset (CUDA tensors only)
+evaluate_windows.launches = {"r3": 0, "so3": 0, "se3": 0}
+
+
+# ---------------------------------------------------------------------------
 # the kernels' per-row code on the host (csrc/host_rows.cpp): row checks
 # without a card, and operation counts for the kernels' bounds
 # ---------------------------------------------------------------------------
@@ -784,3 +862,45 @@ def cost_rows_ops(cfg, ins):
     M = _check_camera_inputs("cost_rows", cfg, ins)
     keep, ptrs = _host_args(camera_inputs(cfg), ins)
     return load_host_library().kontiki_count_cost_rows(ptrs, M, _camera_flags(cfg))
+
+
+def _host_f64(x):
+    return x.detach().to("cpu", torch.float64).contiguous()
+
+
+def evaluate_windows_host(kind, windows, u, dt):
+    """B5's CUDA row code compiled for the host, in float64: the same
+    outputs as ``evaluate_windows`` (CPU tensors)."""
+    from .build import load_host_library
+
+    M = _check_eval_inputs(kind, windows, u)
+    w, uu = _host_f64(windows), _host_f64(u)
+    outs = tuple(torch.zeros(M, k, dtype=torch.float64) for k in EVAL_OUTPUTS[kind])
+    ptrs = (ctypes.c_void_p * len(outs))(*[o.data_ptr() for o in outs])
+    load_host_library().kontiki_host_eval_windows_f64(
+        _EVAL_KIND[kind], w.data_ptr(), uu.data_ptr(), float(dt), ptrs, M)
+    return outs
+
+
+def count_in_chunks(count, n, chunk=1 << 16):
+    """Sum of ``count(start, stop)`` over chunks of ``range(n)``, run in
+    parallel threads (the host library's counter is per thread and ctypes
+    releases the GIL during the call)."""
+    spans = [(i, min(i + chunk, n)) for i in range(0, n, chunk)]
+    with ThreadPoolExecutor(max_workers=os.cpu_count() or 1) as pool:
+        return sum(pool.map(lambda s: count(*s), spans))
+
+
+def evaluate_windows_ops(kind, windows, u, dt):
+    """Floating-point operations B5's function needs on these queries,
+    counted by running its row code on the host once per query
+    (``csrc/host_rows.cpp``)."""
+    from .build import load_host_library
+
+    _check_eval_inputs(kind, windows, u)
+    w, uu = _host_f64(windows), _host_f64(u)
+    fn = load_host_library().kontiki_count_eval_windows
+    n = 4 * EVAL_KNOT_DIM[kind]
+    return count_in_chunks(
+        lambda a, b: fn(_EVAL_KIND[kind], w.data_ptr() + 8 * n * a, uu.data_ptr() + 8 * a,
+                        float(dt), b - a), w.shape[0])

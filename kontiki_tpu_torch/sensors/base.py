@@ -11,6 +11,7 @@ import numbers
 import numpy as np
 
 from ..config import host_dtype
+from ..rotations import quat_conj, quat_mult, quat_to_rotation_matrix
 
 
 class Sensor:
@@ -80,3 +81,21 @@ class Sensor:
     @max_time_offset.setter
     def max_time_offset(self, m):
         self._max_time_offset = float(m)
+
+    # -- frame transforms ---------------------------------------------------
+    def from_trajectory(self, X_trajectory):
+        "Move point from the trajectory to the sensor coordinate frame"
+        R = quat_to_rotation_matrix(self._q_ct)
+        return R @ np.asarray(X_trajectory, dtype=host_dtype) + self._p_ct
+
+    def to_trajectory(self, X_sensor):
+        "Move point from the sensor to the trajectory coordinate frame"
+        R = quat_to_rotation_matrix(self._q_ct)
+        return R.T @ (np.asarray(X_sensor, dtype=host_dtype) - self._p_ct)
+
+    def _rotate_to_sensor(self, q_traj_world, v_world):
+        """Rotate a world vector into the body/trajectory frame: q* v q."""
+        return quat_mult(
+            quat_conj(q_traj_world),
+            quat_mult(np.concatenate([[0.0], v_world]), q_traj_world),
+        )[1:]

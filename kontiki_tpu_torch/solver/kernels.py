@@ -10,12 +10,13 @@ BASELINE configs 1-4 use).
 - Gyro and accel rows on an SO3 spline or a split R3 + SO3 trajectory do
   the same for kernel B4 (``ops.linearize_kernels.imu_rows``), which also
   has the cost-only form the re-cost uses.
-- Gyro and accel rows on the SE3 spline take the generic path: forward mode
-  over the per-row tangent increments with
-  ``torch.func.vmap(torch.func.jacfwd)``, as the JAX package keeps them on
-  its generic path; their cost alone is the same residual function at zero
-  increments under ``torch.func.vmap``. Each row's knot window is gathered
-  before the differentiated function, so ``jacfwd`` sees only the deltas.
+- Gyro and accel rows on the SE3 spline, and position and orientation rows
+  on every spline kind, take the generic path: forward mode over the
+  per-row tangent increments with ``torch.func.vmap(torch.func.jacfwd)``,
+  as the JAX package keeps them on its generic path; their cost alone is
+  the same residual function at zero increments under ``torch.func.vmap``.
+  Each row's knot window is gathered before the differentiated function,
+  so ``jacfwd`` sees only the deltas.
 - Locks are masks over tangent columns, applied after assembly. R3 knots
   retract additively, SO3 knots by left-multiplied ``exp``, SE3 knots by
   right-multiplied ``exp`` (Sophus ``T * exp(x)``), sensor orientations by
@@ -42,7 +43,7 @@ class SplineSpec(NamedTuple):
 
 
 class BucketSpec(NamedTuple):
-    kind: str  # 'gyro' | 'accel' | 'rs_static'
+    kind: str  # 'position' | 'orientation' | 'gyro' | 'accel' | 'rs_static'
     camera: str  # '' | 'PinholeCamera'
     M: int
     rdim: int
@@ -276,18 +277,97 @@ def _imu_rows(spec, bspec, runtime, state, data, cost_only=False):
     return r, J, cols
 
 
+# ---------------------------------------------------------------------------
+# position and orientation rows: generic forward mode
+# ---------------------------------------------------------------------------
+
+def _angular_distance(q_meas, q_hat):
+    """Eigen's angularDistance of wxyz quaternions: 2 atan2(|vec d|, |w d|),
+    d = q_meas^-1 q_hat, with |vec d| kept off 0 for its derivative."""
+    d = quat.qmul(quat.qconj(q_meas), q_hat)
+    v2 = torch.sum(d[..., 1:] * d[..., 1:], dim=-1)
+    vn = torch.sqrt(torch.where(v2 < 1e-300, 1e-300, v2))
+    return 2.0 * torch.atan2(vn, torch.abs(d[..., 0]))
+
+
+def _pose_residual(kind, kinds, t0s, dts):
+    """residual(delta, wins, i_bases, t, y) -> r [rdim] for one position
+    (``y - p``) or orientation (``angular_distance(y, q)``) row.
+
+    ``delta`` holds each spline's window tangent increments in spline
+    order; ``wins`` the 4-knot windows and ``i_bases`` their base indices
+    (as floats). A trajectory without an R3 or SE3 spline has position 0,
+    one without an SO3 or SE3 spline the identity orientation."""
+
+    def residual(delta, wins, i_bases, t, y):
+        p = torch.zeros(3, dtype=delta.dtype, device=delta.device)
+        q = torch.tensor([1.0, 0.0, 0.0, 0.0], dtype=delta.dtype, device=delta.device)
+        off = 0
+        for k, win, i_base, t0, dt in zip(kinds, wins, i_bases, t0s, dts):
+            td = TANGENT_DIMS[k]
+            sub = retract_window(k, win, delta[off:off + 4 * td].reshape(4, td))
+            off += 4 * td
+            u = (t - t0) / dt - i_base
+            if k == "r3":
+                p = ev.r3_window(sub, u, dt)[0]
+            elif k == "so3":
+                q = ev.so3_window(sub, u, dt)[0]
+            else:
+                p, _, _, q, _ = ev.se3_window(sub, u, dt)
+        if kind == "position":
+            return y - p
+        return _angular_distance(y, q)[None]
+
+    return residual
+
+
+def _pose_rows(spec, bspec, runtime, state, data, cost_only=False):
+    """(r [M, rdim], J [M, rdim, C], cols [M, C]) of position (rdim 3) or
+    orientation (rdim 1) rows: the window tangents of every spline in
+    spline order (C = sum of 4 td); ``r`` alone with ``cost_only``."""
+    t = data["t"]
+    kinds = tuple(sp.kind for sp in spec.splines)
+    wins, i_bases, cols = [], [], []
+    for si, sp in enumerate(spec.splines):
+        W = bspec.windows[si]
+        if W != 4:
+            raise NotImplementedError(f"pose rows need 4-knot windows, got {W}")
+        t0, dt = runtime["spline_t0"][si], runtime["spline_dt"][si]
+        td = TANGENT_DIMS[sp.kind]
+        i_base = torch.clamp(torch.floor((t - t0) / dt).long(), 0, sp.n - W)
+        wins.append(ev.gather_windows(state[sp.kind], i_base))
+        i_bases.append(i_base.to(t.dtype))
+        cols.append(sp.tangent_offset + i_base[:, None] * td
+                    + torch.arange(4 * td, device=t.device))
+    f = _pose_residual(bspec.kind, kinds, runtime["spline_t0"], runtime["spline_dt"])
+    C = sum(4 * TANGENT_DIMS[k] for k in kinds)
+    args = (torch.zeros(t.shape[0], C, dtype=t.dtype, device=t.device), tuple(wins),
+            tuple(i_bases), t, data["y"])
+    if cost_only:
+        return torch.func.vmap(f)(*args)
+
+    def row(delta, *rest):
+        r = f(delta, *rest)
+        return r, r
+
+    J, r = torch.func.vmap(torch.func.jacfwd(row, has_aux=True))(*args)
+    return r, J, torch.cat(cols, dim=1)
+
+
 def bucket_terms(spec, bspec, runtime, state, data, cost_only=False):
     """``(r, J, cols, J_rho or None)`` of one bucket, landmark column split
     off (the Schur path's form); with ``cost_only``, ``r [M, rdim]`` alone
     and no Jacobian: camera rows through B3, SO3/split IMU rows through
-    B4's cost-only form, SE3 IMU rows through their residual function at
-    zero increments."""
+    B4's cost-only form, SE3 IMU rows and pose rows through their residual
+    function at zero increments."""
     kinds = [sp.kind for sp in spec.splines]
     if bspec.kind == "rs_static":
         if cost_only:
             return cost_rows(*_camera_inputs(spec, runtime, state, data)[:2])
         return _camera_rows(spec, runtime, state, data)
-    if _fused_imu_enabled(spec, bspec):
+    if bspec.kind in ("position", "orientation"):
+        out = _pose_rows(spec, bspec, runtime, state, data, cost_only=cost_only)
+    elif _fused_imu_enabled(spec, bspec):
         out = _imu_rows_fused(spec, bspec, runtime, state, data, cost_only=cost_only)
     elif bspec.kind in ("gyro", "accel") and kinds == ["se3"]:
         out = _imu_rows(spec, bspec, runtime, state, data, cost_only=cost_only)

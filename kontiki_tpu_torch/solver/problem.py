@@ -30,6 +30,8 @@ from ..config import default_dtype, resolve_device
 from ..measurements import (
     AccelerometerMeasurement,
     GyroscopeMeasurement,
+    OrientationMeasurement,
+    PositionMeasurement,
     StaticRsCameraMeasurement,
 )
 from ..sensors import ConstantBiasImu, PinholeCamera
@@ -215,7 +217,13 @@ class Problem:
         ]
 
     def _add(self, m):
-        if isinstance(m, (GyroscopeMeasurement, AccelerometerMeasurement)):
+        if isinstance(m, PositionMeasurement):
+            self._activate([(m.t, m.t)])
+            self._bucket("position", 3).measurements.append(m)
+        elif isinstance(m, OrientationMeasurement):
+            self._activate([(m.t, m.t)])
+            self._bucket("orientation", 1).measurements.append(m)
+        elif isinstance(m, (GyroscopeMeasurement, AccelerometerMeasurement)):
             imu = m.imu
             s = self._sensor_id(imu)
             if imu.time_offset_locked:
@@ -319,7 +327,13 @@ class Problem:
         for key, b in self.buckets.items():
             kind = key.split(":")[0]
             data = {}
-            if kind in ("gyro", "accel"):
+            if kind in ("position", "orientation"):
+                ms = b.measurements
+                data["t"] = np.array([m.t for m in ms])
+                data["y"] = np.stack([m.p if kind == "position" else m.q for m in ms])
+                for sp in self.splines:
+                    b.window[sp.kind] = self._window_width(sp)
+            elif kind in ("gyro", "accel"):
                 ms = [m for m, _ in b.measurements]
                 val = "w" if kind == "gyro" else "a"
                 data["t"] = np.array([m.t for m in ms])
@@ -380,23 +394,25 @@ class Problem:
         self.num_residuals = sum(b.rdim * b.M for b in self.buckets.values())
         # Trajectory knots enter every residual here, so a free trajectory
         # keeps every block; otherwise a block needs a free sensor parameter
-        # or a free landmark.
+        # or a free landmark (pose rows have neither).
         any_free_traj = not locked_traj and any(sp.active.any() for sp in self.splines)
         self.num_residual_blocks_reduced = 0
         self.num_residuals_reduced = 0
         for b in self.buckets.values():
             for entry in b.measurements:
-                sensor = self.sensors[entry[1]]
-                free = any_free_traj or not (
-                    sensor.relative_orientation_locked
-                    and sensor.relative_position_locked
-                    and sensor.time_offset_locked
-                )
-                if isinstance(sensor, ConstantBiasImu):
-                    free = free or not (sensor.accelerometer_bias_locked
-                                        and sensor.gyroscope_bias_locked)
-                if len(entry) == 3:
-                    free = free or not self.landmarks[entry[2]].locked
+                free = any_free_traj
+                if isinstance(entry, tuple):
+                    sensor = self.sensors[entry[1]]
+                    free = free or not (
+                        sensor.relative_orientation_locked
+                        and sensor.relative_position_locked
+                        and sensor.time_offset_locked
+                    )
+                    if isinstance(sensor, ConstantBiasImu):
+                        free = free or not (sensor.accelerometer_bias_locked
+                                            and sensor.gyroscope_bias_locked)
+                    if len(entry) == 3:
+                        free = free or not self.landmarks[entry[2]].locked
                 if free:
                     self.num_residual_blocks_reduced += 1
                     self.num_residuals_reduced += b.rdim

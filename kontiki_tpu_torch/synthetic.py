@@ -6,8 +6,12 @@ of config 4.
 
 Random draws come from ``numpy.random.default_rng(seed)`` in the same order
 as the JAX package, so both packages build the same problem from one seed.
-Trajectory evaluation runs through the port's torch spline kernels on the
-CPU in float64; the solver runs wherever ``Problem`` puts the arrays.
+Problem generation evaluates trajectories on the host CPU in float64
+(``device="cpu"``, as the JAX package's ``_host_generation`` pins it); the
+generated trajectories keep the default device (the CUDA card) for their
+users' queries, and the solver runs wherever ``Problem`` puts the arrays.
+``trajectory_ate`` and ``trajectory_aoe`` score a trajectory against
+another, evaluating each on its own device.
 """
 import numpy as np
 import torch
@@ -18,9 +22,11 @@ from .math import quaternion as quat
 from .measurements import (
     AccelerometerMeasurement,
     GyroscopeMeasurement,
+    OrientationMeasurement,
+    PositionMeasurement,
     StaticRsCameraMeasurement,
 )
-from .rotations import axis_angle_to_quat, quat_mult, quat_to_rotation_matrix
+from .rotations import axis_angle_to_quat, quat_conj, quat_mult, quat_to_rotation_matrix
 from .sensors import BasicImu, ConstantBiasImu, PinholeCamera
 from .sfm import Landmark, View
 from .trajectories import (
@@ -124,7 +130,7 @@ def perturb_trajectory(traj, sigma_p=0.05, sigma_q=0.02, seed=1):
 
 def _body_imu(traj, ts):
     """Batched ideal body-frame gyro/accel samples at times ts."""
-    res = traj._eval(np.asarray(ts, dtype=host_dtype))
+    res = traj._eval(np.asarray(ts, dtype=host_dtype), device="cpu")
     q_conj = quat.qconj(torch.from_numpy(res["orientation"]))
     w = torch.from_numpy(res["angular_velocity"])
     a = torch.from_numpy(res["acceleration"])
@@ -150,6 +156,24 @@ def make_imu_measurements(traj, imu, t1, t2, rate, noise=0.0, seed=0, gyro=True,
     if accel:
         ms += [AccelerometerMeasurement(imu, t, ai + ab) for t, ai in zip(ts, a)]
     return ms
+
+
+def make_pose_measurements(traj, t1, t2, rate, noise_p=0.0, noise_q=0.0, seed=0):
+    """Position then orientation measurements of ``traj`` at ``rate`` on
+    [t1, t2) (motion-capture style), with white position noise of std
+    ``noise_p`` and a left rotation by a random rotation vector of std
+    ``noise_q`` (radians, per axis) on each orientation."""
+    rng = np.random.default_rng(seed)
+    ts = np.arange(t1, t2, 1.0 / rate)
+    res = traj._eval(ts, device="cpu")
+    p = res["position"] + rng.normal(scale=noise_p, size=(len(ts), 3))
+    r = rng.normal(scale=noise_q, size=(len(ts), 3))
+    theta = np.linalg.norm(r, axis=1, keepdims=True)
+    axis = r / np.where(theta > 0, theta, 1.0)
+    dq = np.concatenate([np.cos(theta / 2), np.sin(theta / 2) * axis], axis=1)
+    q = _qmul_rows(dq, res["orientation"])
+    return ([PositionMeasurement(t, pi) for t, pi in zip(ts, p)]
+            + [OrientationMeasurement(t, qi) for t, qi in zip(ts, q)])
 
 
 def make_gyro_problem(duration=5.0, rate=200.0, knot_dt=0.1, seed=0, noise=0.0,
@@ -206,7 +230,7 @@ def _rs_fixed_point(traj, camera, X_world, t0s, iters=25):
     uv = torch.zeros((L, V, 2), dtype=torch.float64)
     for _ in range(iters):
         t = t0 + v * ro / rows
-        res = traj._eval(t.numpy().ravel())
+        res = traj._eval(t.numpy().ravel(), device="cpu")
         q = torch.from_numpy(res["orientation"]).reshape(L, V, 4)
         p = torch.from_numpy(res["position"]).reshape(L, V, 3)
         X_traj = quat.qrotate(quat.qconj(q), X - p)
@@ -270,7 +294,7 @@ def make_rsvi_problem(
     z_ref = rng.uniform(2.0, 20.0, nlandmarks)
 
     t_ref = t0s[ref_idx] + uv_ref[:, 1] * camera.readout / camera.rows
-    res = true_traj._eval(t_ref)
+    res = true_traj._eval(t_ref, device="cpu")
     q_t = torch.from_numpy(res["orientation"])
     p_t = torch.from_numpy(res["position"])
     yh = np.stack([camera.unproject(uv) for uv in uv_ref])
@@ -322,3 +346,62 @@ def make_rsvi_problem(
         landmarks=landmarks,
         measurements=measurements,
     )
+
+
+def trajectory_ate(traj_a, traj_b, t1, t2, n=200, align=False):
+    """RMS position error between two trajectories on [t1, t2), at ``n``
+    evenly spaced times.
+
+    ``align`` removes the estimation gauge first (the standard ATE
+    convention): ``"se3"``/True removes the best rotation + translation
+    (visual-inertial: global translation and yaw are unobservable);
+    ``"sim3"`` additionally removes scale (pure visual estimation with
+    inverse-depth landmarks leaves scale free)."""
+    ts = np.linspace(t1, t2, n, endpoint=False)
+    pa = traj_a._eval(ts)["position"]
+    pb = traj_b._eval(ts)["position"]
+    if align:
+        ca, cb = pa.mean(axis=0), pb.mean(axis=0)
+        A, B = pa - ca, pb - cb
+        U, S, Vt = np.linalg.svd(B.T @ A)
+        d = np.sign(np.linalg.det(U @ Vt))
+        D = np.diag([1.0, 1.0, d])
+        R = U @ D @ Vt
+        s = 1.0
+        if align == "sim3":
+            varA = np.sum(A * A)
+            s = np.sum(np.diag(D) * S) / np.where(varA == 0, 1.0, varA)
+        pa = s * (R @ A.T).T
+        pb = B
+    return float(np.sqrt(np.mean(np.sum((pa - pb) ** 2, axis=-1))))
+
+
+def _qmul_rows(a, b):
+    """Hamilton products of [n, 4] wxyz rows."""
+    w1, x1, y1, z1 = a.T
+    w2, x2, y2, z2 = b.T
+    return np.stack([w1 * w2 - x1 * x2 - y1 * y2 - z1 * z2,
+                     w1 * x2 + x1 * w2 + y1 * z2 - z1 * y2,
+                     w1 * y2 - x1 * z2 + y1 * w2 + z1 * x2,
+                     w1 * z2 + x1 * y2 - y1 * x2 + z1 * w2], axis=1)
+
+
+def trajectory_aoe(traj_a, traj_b, t1, t2, n=200, align=True):
+    """RMS orientation error (radians) between two trajectories on
+    [t1, t2).
+
+    With ``align=True`` the best-fit constant left rotation is removed
+    first (Markley quaternion average of q_b q_a^-1): gyro-only estimation
+    determines orientation only up to a global rotation."""
+    ts = np.linspace(t1, t2, n, endpoint=False)
+    qa = traj_a._eval(ts)["orientation"]
+    qb = traj_b._eval(ts)["orientation"]
+    qe = _qmul_rows(qb, qa * np.array([1.0, -1.0, -1.0, -1.0]))
+    if align:
+        qe_s = np.where(qe[:, :1] < 0, -qe, qe)
+        w, V = np.linalg.eigh(qe_s.T @ qe_s)
+        q_off = V[:, -1]
+        qe = _qmul_rows(np.broadcast_to(quat_conj(q_off), qe.shape), qe)
+    vn = np.linalg.norm(qe[:, 1:], axis=1)
+    ang = 2.0 * np.arctan2(vn, np.abs(qe[:, 0]))
+    return float(np.sqrt(np.mean(ang**2)))

@@ -2,9 +2,14 @@
 ``kontiki_tpu.trajectories.splines``): the R3, SO3 and SE3 splines and the
 split R3 + SO3 trajectory.
 
-Knots are stored on the host as a numpy array that grows by doubling;
-queries evaluate through the batched torch kernels of ``spline_eval`` on
-the CPU in float64 and return numpy arrays. Every query accepts a scalar or
+Knots are stored on the host as a numpy array that grows by doubling.
+Queries (``position`` ... ``angular_velocity``, ``from_world``,
+``to_world``, SE3 ``evaluate``) place the knots and times on the
+trajectory's ``device`` in float64 and evaluate there, through kernel B5
+(``spline_eval``) on the CUDA card; they return numpy arrays. ``device``
+is fixed at construction: ``None`` means the CUDA card, resolved at query
+time (``config.resolve_device``, which raises without one); the CPU is
+used only when named (``device="cpu"``). Every query accepts a scalar or
 an array of times; the valid span is ``[t0, t0 + (n-3) dt)``.
 """
 import copy
@@ -13,7 +18,7 @@ import numbers
 import numpy as np
 import torch
 
-from ..config import host_dtype
+from ..config import host_dtype, resolve_device
 from ..math import quaternion as quat
 from . import spline_eval as ev
 
@@ -25,17 +30,36 @@ __all__ = [
 ]
 
 
-def _torch(a):
-    return torch.as_tensor(np.asarray(a, dtype=host_dtype))
+def _torch(a, device):
+    return torch.as_tensor(np.asarray(a, dtype=host_dtype), device=device)
+
+
+def _numpy(t):
+    return t.detach().cpu().numpy()
 
 
 class _TrajectoryBase:
     """Shared query interface: evaluation + world-frame transforms."""
 
-    def _eval(self, ts):
+    _device = None
+
+    @property
+    def device(self):
+        """The device queries run on (None: the CUDA card)."""
+        return self._device
+
+    def _resolve(self, device):
+        return resolve_device(self._device if device is None else device)
+
+    def _eval_t(self, ts, device=None):
         """dict of position/velocity/acceleration [B,3], orientation [B,4]
-        wxyz and angular_velocity [B,3] for times ts [B]."""
+        wxyz and angular_velocity [B,3] tensors on ``device`` (default: the
+        trajectory's) for times ts [B]."""
         raise NotImplementedError
+
+    def _eval(self, ts, device=None):
+        """``_eval_t`` as numpy arrays."""
+        return {k: _numpy(v) for k, v in self._eval_t(ts, device).items()}
 
     @property
     def min_time(self):
@@ -65,6 +89,18 @@ class _TrajectoryBase:
         out = self._eval(ts)[key]
         return out[0] if scalar else out
 
+    def _frame_query(self, t, X, to_world):
+        ts, scalar = self._times(t)
+        res = self._eval_t(ts)
+        q, p = res["orientation"], res["position"]
+        X = torch.as_tensor(np.asarray(X, dtype=host_dtype), device=p.device)
+        if to_world:
+            out = quat.qrotate(q, X.expand_as(p)) + p
+        else:
+            out = quat.qrotate(quat.qconj(q), X - p)
+        out = _numpy(out)
+        return out[0] if scalar else out
+
     def position(self, t):
         "Position in the world coordinate frame"
         return self._query(t, "position")
@@ -85,19 +121,29 @@ class _TrajectoryBase:
         "Angular velocity in the world coordinate frame"
         return self._query(t, "angular_velocity")
 
+    def from_world(self, Xw, t):
+        "Move point from the world to the trajectory coordinate frame"
+        return self._frame_query(t, Xw, to_world=False)
+
+    def to_world(self, Xt, t):
+        "Move point from the trajectory to the world coordinate frame"
+        return self._frame_query(t, Xt, to_world=True)
+
 
 class _UniformSplineTrajectory(_TrajectoryBase):
     """Uniform cubic B-spline knot container (reference spline_base.h):
-    ``n >= 4`` knots for evaluation, negative indexing."""
+    ``n >= 4`` knots for evaluation, negative indexing; ``extend_to``
+    appends fill knots until ``max_time > t`` (spline_base.h:351-359)."""
 
     _KNOT_DIM = None
 
-    def __init__(self, dt=1.0, t0=0.0):
+    def __init__(self, dt=1.0, t0=0.0, device=None):
         self._dt = float(dt)
         self._t0 = float(t0)
         self._n = 0
         self._knots = np.zeros((8, self._KNOT_DIM), dtype=host_dtype)
         self._locked = False
+        self._device = device
 
     @property
     def dt(self):
@@ -126,12 +172,23 @@ class _UniformSplineTrajectory(_TrajectoryBase):
     def __getitem__(self, i):
         return self._convert_out(self._knots[self._index(i)])
 
+    def __setitem__(self, i, cp):
+        self._knots[self._index(i)] = self._validate_and_convert(cp)
+
     def append_knot(self, cp):
         row = self._validate_and_convert(cp)
         if self._n == self._knots.shape[0]:
             self._knots = np.concatenate([self._knots, np.zeros_like(self._knots)])
         self._knots[self._n] = row
         self._n += 1
+
+    def extend_to(self, t, fill_value):
+        while self._n < 4 or self.max_time < t:
+            self.append_knot(fill_value)
+
+    def _knots_on(self, device):
+        self._validate_size()
+        return _torch(self.knots, device)
 
     def _validate_size(self):
         if self._n < 4:
@@ -189,18 +246,18 @@ class UniformR3SplineTrajectory(_UniformSplineTrajectory):
     def _convert_out(self, row):
         return row.copy()
 
-    def _eval(self, ts):
-        self._validate_size()
-        p, v, a = ev.r3_evaluate(_torch(self.knots), self._t0, self._dt, _torch(ts))
-        B = p.shape[0]
-        identity = np.zeros((B, 4), dtype=host_dtype)
+    def _eval_t(self, ts, device=None):
+        device = self._resolve(device)
+        p, v, a = ev.r3_evaluate(self._knots_on(device), self._t0, self._dt,
+                                 _torch(ts, device))
+        identity = torch.zeros(p.shape[0], 4, dtype=p.dtype, device=device)
         identity[:, 0] = 1.0
         return {
-            "position": p.numpy(),
-            "velocity": v.numpy(),
-            "acceleration": a.numpy(),
+            "position": p,
+            "velocity": v,
+            "acceleration": a,
             "orientation": identity,
-            "angular_velocity": np.zeros((B, 3), dtype=host_dtype),
+            "angular_velocity": torch.zeros_like(p),
         }
 
 
@@ -223,16 +280,17 @@ class UniformSO3SplineTrajectory(_UniformSplineTrajectory):
     def _convert_out(self, row):
         return row.copy()
 
-    def _eval(self, ts):
-        self._validate_size()
-        q, w = ev.so3_evaluate(_torch(self.knots), self._t0, self._dt, _torch(ts))
-        zeros = np.zeros((q.shape[0], 3), dtype=host_dtype)
+    def _eval_t(self, ts, device=None):
+        device = self._resolve(device)
+        q, w = ev.so3_evaluate(self._knots_on(device), self._t0, self._dt,
+                               _torch(ts, device))
+        zeros = torch.zeros_like(w)
         return {
             "position": zeros,
             "velocity": zeros,
             "acceleration": zeros,
-            "orientation": q.numpy(),
-            "angular_velocity": w.numpy(),
+            "orientation": q,
+            "angular_velocity": w,
         }
 
 
@@ -261,32 +319,49 @@ class UniformSE3SplineTrajectory(_UniformSplineTrajectory):
         T[:3, 3] = row[4:]
         return T
 
-    def _eval(self, ts):
-        self._validate_size()
-        p, v, a, q, w = ev.se3_evaluate(_torch(self.knots), self._t0, self._dt,
-                                        _torch(ts))
+    def _eval_t(self, ts, device=None):
+        device = self._resolve(device)
+        p, v, a, q, w = ev.se3_evaluate(self._knots_on(device), self._t0, self._dt,
+                                        _torch(ts, device))
         return {
-            "position": p.numpy(),
-            "velocity": v.numpy(),
-            "acceleration": a.numpy(),
-            "orientation": q.numpy(),
-            "angular_velocity": w.numpy(),
+            "position": p,
+            "velocity": v,
+            "acceleration": a,
+            "orientation": q,
+            "angular_velocity": w,
         }
+
+    def evaluate(self, t):
+        """Full spline evaluation: (P, P', P'') 4x4 matrices (the reference's
+        extra SE3 binding, py_uniform_se3_spline_trajectory.cc ``evaluate``;
+        plain torch on the trajectory's device, as the JAX package has no
+        kernel for it)."""
+        ts, scalar = self._times(t)
+        device = self._resolve(None)
+        knots, tt = self._knots_on(device), _torch(ts, device)
+        i0, u = ev.index_and_u(tt, self._t0, self._dt, knots.shape[0])
+        out = tuple(_numpy(m) for m in
+                    ev.se3_window_matrices(ev.gather_windows(knots, i0), u, self._dt))
+        return tuple(o[0] for o in out) if scalar else out
 
 
 class SplitTrajectory(_TrajectoryBase):
     """Independent R3 and SO3 splines (reference split_trajectory.h): linear
     queries go to the R3 spline, rotational ones to the SO3 spline. The
-    valid span is the intersection of both; both must share a lock state."""
+    valid span is the intersection of both; both must share a lock state.
+    Built from spacings, both splines take ``device``; built from two
+    splines, queries run on ``device`` if one is named, else on each
+    spline's own."""
 
-    def __init__(self, r3_arg=1.0, so3_arg=1.0, r3_t0=0.0, so3_t0=0.0):
+    def __init__(self, r3_arg=1.0, so3_arg=1.0, r3_t0=0.0, so3_t0=0.0, device=None):
+        self._device = device
         if isinstance(r3_arg, UniformR3SplineTrajectory):
             if not isinstance(so3_arg, UniformSO3SplineTrajectory):
                 raise TypeError("Expected UniformSO3SplineTrajectory")
             self._r3, self._so3 = r3_arg, so3_arg
         else:
-            self._r3 = UniformR3SplineTrajectory(float(r3_arg), float(r3_t0))
-            self._so3 = UniformSO3SplineTrajectory(float(so3_arg), float(so3_t0))
+            self._r3 = UniformR3SplineTrajectory(float(r3_arg), float(r3_t0), device)
+            self._so3 = UniformSO3SplineTrajectory(float(so3_arg), float(so3_t0), device)
 
     @property
     def R3_spline(self):
@@ -318,9 +393,10 @@ class SplitTrajectory(_TrajectoryBase):
     def clone(self):
         return copy.deepcopy(self)
 
-    def _eval(self, ts):
-        r3 = self._r3._eval(ts)
-        so3 = self._so3._eval(ts)
+    def _eval_t(self, ts, device=None):
+        device = self._device if device is None else device
+        r3 = self._r3._eval_t(ts, device)
+        so3 = self._so3._eval_t(ts, device)
         return {
             "position": r3["position"],
             "velocity": r3["velocity"],

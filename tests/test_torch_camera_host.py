@@ -34,7 +34,7 @@ def regrid(traj, grids=GRIDS):
                             (dq, tq, "orientation", out.SO3_spline)):
         n = int(np.ceil((tmax - t0) / dt)) + 3
         ts = np.clip(t0 + (np.arange(n) - 1) * dt, tmin, tmax - 1e-9)
-        for row in traj._eval(ts)[key]:
+        for row in traj._eval(ts, device="cpu")[key]:
             sp.append_knot(row / np.linalg.norm(row) if key == "orientation" else row)
     return out
 

@@ -11,14 +11,20 @@ the SE3 log / V^-1 coefficients), 1e-4 for the camera-row cost, 1e-4 for
 the assembly (~1e4-term sums whose order the atomics change from run to
 run) and 1e-4 for the IMU rows (each side is ~1e-6 from float64 at
 config-1/2 inputs; the residual y - body cancels). B3's residual equals
-B1's on the card to 1e-12 in float64."""
+B1's on the card to 1e-12 in float64. The query kernels B5 and B7 take
+1e-12 in float64 for R3 values (the same basis sums in another order) and
+1e-10 for the SO3/SE3 chains (forward mode in the time shift against the
+plain closed forms), 1e-4 in float32 (each side rounds at ~1e-6 along a
+chain of ~10^2 operations; the derivatives scale by 1/dt^2)."""
 import numpy as np
 import pytest
 import torch
 
-from kontiki_tpu_torch import TrajectoryEstimator
+from kontiki_tpu_torch import TrajectoryEstimator, synthetic
 from kontiki_tpu_torch.ops import assembly_kernels as ak
 from kontiki_tpu_torch.ops import linearize_kernels as lk
+from kontiki_tpu_torch.ops import spline_kernels as sk
+from kontiki_tpu_torch.trajectories import SplitTrajectory, spline_eval
 from kontiki_tpu_torch.solver import kernels
 from kontiki_tpu_torch.solver.lm import make_fused_solver
 from kontiki_tpu_torch.solver.problem import Problem
@@ -197,3 +203,100 @@ def test_estimator_on_cuda_matches_cpu(cuda):
     for g, c in zip(gpu.iterations, cpu.iterations):
         np.testing.assert_allclose(g.cost, c.cost, rtol=1e-8)
     assert gpu.num_residual_blocks == cpu.num_residual_blocks
+
+
+def _query_windows(kind, cuda, M=5000, seed=0):
+    """Windows and u of M row times on a generated trajectory, on the card."""
+    rng = np.random.default_rng(seed)
+    if kind == "se3":
+        knots = synthetic.make_se3_trajectory(20.0, seed=5).knots
+    else:
+        traj = synthetic.make_split_trajectory(20.0, seed=5)
+        knots = (traj.R3_spline if kind == "r3" else traj.SO3_spline).knots
+    k = torch.tensor(knots, device=cuda)
+    ts = torch.tensor(rng.uniform(0.0, 20.0, M), device=cuda)
+    i0, u = spline_eval.index_and_u(ts, 0.0, 0.1, k.shape[0])
+    return spline_eval.gather_windows(k, i0).contiguous(), u.contiguous()
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("kind", ["r3", "so3", "se3"])
+def test_evaluate_windows_kernel_matches_plain(cuda, kind, dtype):
+    win, u = _query_windows(kind, cuda)
+    win, u = win.to(dtype), u.to(dtype)
+    before = dict(lk.evaluate_windows.launches)
+    got = lk.evaluate_windows(kind, win, u, 0.1)
+    assert lk.evaluate_windows.launches[kind] == before[kind] + 1
+    tol = 1e-4 if dtype == torch.float32 else 1e-12 if kind == "r3" else 1e-10
+    _assert_close(got, lk.evaluate_windows_plain(kind, win, u, 0.1), tol)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12), (torch.float32, 1e-4)])
+@pytest.mark.parametrize("case", ["shuffled", "wide span"])
+def test_r3_evaluate_kernel_matches_plain(cuda, case, dtype, tol):
+    rng = np.random.default_rng(11)
+    n = 2000
+    knots = torch.tensor(rng.normal(size=(n, 3)), dtype=dtype, device=cuda)
+    if case == "shuffled":
+        ts = rng.permutation(np.linspace(-0.5, n - 3 + 0.5, 100_000))
+    else:  # each 256 consecutive times span far more than 512 knots
+        ts = np.linspace(0.0, (n - 3) - 1e-3, 1024)
+    ts = torch.tensor(ts, dtype=dtype, device=cuda)
+    before = sk.r3_evaluate_kernel.launches
+    got = sk.r3_evaluate_kernel(knots, 0.0, 1.0, ts)
+    assert sk.r3_evaluate_kernel.launches == before + 1
+    _assert_close(got, sk.r3_evaluate_plain(knots, 0.0, 1.0, ts), tol)
+    empty = sk.r3_evaluate_kernel(knots, 0.0, 1.0, ts[:0])
+    assert empty[0].shape == (0, 3) and sk.r3_evaluate_kernel.launches == before + 1
+
+
+def test_cuda_calls_launch_and_never_take_the_plain_path(cuda, monkeypatch):
+    def forbidden(*args, **kwargs):
+        raise AssertionError("the plain version ran for a CUDA tensor")
+
+    monkeypatch.setattr(lk, "evaluate_windows_plain", forbidden)
+    monkeypatch.setattr(sk, "r3_evaluate_plain", forbidden)
+    win, u = _query_windows("se3", cuda, M=300)
+    before = lk.evaluate_windows.launches["se3"]
+    lk.evaluate_windows("se3", win, u, 0.1)
+    assert lk.evaluate_windows.launches["se3"] == before + 1
+    knots = torch.zeros(10, 3, dtype=torch.float64, device=cuda)
+    before = sk.r3_evaluate_kernel.launches
+    sk.r3_evaluate_kernel(knots, 0.0, 1.0, torch.rand(7, dtype=torch.float64, device=cuda))
+    assert sk.r3_evaluate_kernel.launches == before + 1
+
+
+def test_default_device_queries_run_on_the_card(cuda):
+    """Trajectories built with ``device=None`` query through B5 on the card
+    (split: one r3 and one so3 launch per query) and equal the CPU
+    queries."""
+    traj = synthetic.make_split_trajectory(5.0, seed=5)
+    se3 = synthetic.make_se3_trajectory(5.0, seed=5)
+    ts = np.linspace(0.0, 5.0, 101, endpoint=False)
+    cpu = SplitTrajectory(traj.R3_spline, traj.SO3_spline, device="cpu")
+    for q in ("position", "angular_velocity"):
+        before = dict(lk.evaluate_windows.launches)
+        got = getattr(traj, q)(ts)
+        after = lk.evaluate_windows.launches
+        assert (after["r3"] - before["r3"], after["so3"] - before["so3"]) == (1, 1)
+        np.testing.assert_allclose(got, getattr(cpu, q)(ts), rtol=1e-10, atol=1e-12)
+    before = lk.evaluate_windows.launches["se3"]
+    X = np.ones(3)
+    np.testing.assert_allclose(se3.to_world(se3.from_world(X, ts), ts), np.tile(X, (101, 1)),
+                               atol=1e-12)
+    assert lk.evaluate_windows.launches["se3"] == before + 2
+
+
+def test_pose_estimator_on_cuda_matches_cpu(cuda):
+    truth = synthetic.make_split_trajectory(2.0, dt=0.1, seed=6)
+    ms = synthetic.make_pose_measurements(truth, 0.0, 2.0, 50.0, 0.002, 0.002, seed=8)
+    summaries = {}
+    for device in (None, "cpu"):
+        estimator = TrajectoryEstimator(synthetic.perturb_trajectory(truth, seed=7),
+                                        device=device)
+        for m in ms:
+            estimator.add_measurement(m)
+        summaries[device] = estimator.solve(max_iterations=3, progress=False,
+                                            function_tolerance=0.0)
+    for g, c in zip(summaries[None].iterations, summaries["cpu"].iterations):
+        np.testing.assert_allclose(g.cost, c.cost, rtol=1e-8)

@@ -12,10 +12,15 @@ PKG = ROOT / "kontiki_tpu_torch"
 def test_import_with_jax_blocked():
     code = (
         "import sys; sys.modules['jax'] = None\n"
-        "import kontiki_tpu_torch, kontiki_tpu_torch.synthetic, "
+        "import kontiki_tpu_torch, kontiki_tpu_torch.synthetic, kontiki_tpu_torch.utils, "
         "kontiki_tpu_torch.interop, kontiki_tpu_torch.estimator, kontiki_tpu_torch._ceres\n"
         "from kontiki_tpu_torch.solver import lm, schur, kernels\n"
-        "from kontiki_tpu_torch.ops import build, linearize_kernels, assembly_kernels\n"
+        "from kontiki_tpu_torch.ops import build, linearize_kernels, assembly_kernels, "
+        "spline_kernels, r3_evaluate_kernel\n"
+        "from kontiki_tpu_torch.trajectories import spline_eval, splines\n"
+        "from kontiki_tpu_torch.measurements import PositionMeasurement, "
+        "OrientationMeasurement\n"
+        "from kontiki_tpu_torch.interop import trajectory_from_numpy\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'kontiki_tpu.')) "
         "for m in sys.modules if sys.modules[m] is not None)\n"
     )

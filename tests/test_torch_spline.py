@@ -66,7 +66,7 @@ def test_se3_evaluate_and_index_rule_match_jax():
 
 def test_trajectory_container_matches_jax():
     rng = np.random.default_rng(7)
-    jt, tt = JTraj(0.2, 0.1), TTraj(0.2, 0.1)
+    jt, tt = JTraj(0.2, 0.1), TTraj(0.2, 0.1, device="cpu")
     for row in _knots(7, seed=9, wmag=0.4):
         T = np.eye(4)
         T[:3, :3] = quat_to_rotation_matrix(row[:4])

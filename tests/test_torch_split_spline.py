@@ -84,7 +84,7 @@ def test_so3_evaluate_matches_jax():
 
 
 def _r3_pair(n=7):
-    jt, tt = jtr.UniformR3SplineTrajectory(0.25, 0.3), ttr.UniformR3SplineTrajectory(0.25, 0.3)
+    jt, tt = jtr.UniformR3SplineTrajectory(0.25, 0.3), ttr.UniformR3SplineTrajectory(0.25, 0.3, device="cpu")
     for p in np.random.default_rng(5).normal(size=(n, 3)):
         jt.append_knot(p)
         tt.append_knot(p)
@@ -92,7 +92,7 @@ def _r3_pair(n=7):
 
 
 def _so3_pair(n=7):
-    jt, tt = jtr.UniformSO3SplineTrajectory(0.2, 0.1), ttr.UniformSO3SplineTrajectory(0.2, 0.1)
+    jt, tt = jtr.UniformSO3SplineTrajectory(0.2, 0.1), ttr.UniformSO3SplineTrajectory(0.2, 0.1, device="cpu")
     for q in _quats(n, seed=6, wmag=0.4):
         jt.append_knot(q)
         tt.append_knot(q)
