@@ -64,7 +64,25 @@ Phases, in order; any failure exits non-zero without the final line:
     6,000 position and 6,000 orientation rows at 100 Hz (motion capture,
     'auto' -> dense, P = 3,624): Summary costs and counts against the JAX
     ``lm.solve``, per-phase times, then the solution read back through B5
-    and scored against the truth (ATE, AOE).
+    and scored against the truth (ATE, AOE);
+16. config 5 built through the entry points on the card
+    (``make_big_ba_problem(n_views=10_000, n_landmarks=100_000,
+    obs_per_landmark=5, seed=5)``, a ``RawProblem`` of 500,000 camera
+    rows), host seconds of generation and layout, structure against the
+    JAX package's;
+17. B1 (split) and B3 against their plain versions at config 5's rows;
+    B6 (one-hot row expansion) against its plain version on config 5's
+    rows at ``state0`` (and a random case with duplicates, ids -1 and WB,
+    and a row count that is not a multiple of a block's rows; and no
+    rows), float64 and float32, exact; the count of in-range Jacobian
+    entries it would drop (must be 0); times beside ``scatter_add_``;
+18. config 5 through ``parallel.segments_ba``: the cost at ``state0``, the
+    ``total_cost`` of ``make_segment_ba_step`` (B3) and the 1-iteration
+    cost against the JAX package's, an untimed warm-up, then the timed
+    6-iteration ``make_segment_ba_solver`` (exact B1/B6 launches, final
+    cost against the JAX package's, iterations per second, peak device
+    memory), one iteration's breakdown, and the solution's ATE through B5
+    against the JAX package's.
 
 Each path's launch counts are set to 0 just before its timed solve and
 read just after. A kernel's bound is the larger of its bytes (each input
@@ -164,6 +182,35 @@ IMU_CONFIGS = {
                      cost0=JAX_COST_CONFIG2_0, cost1=JAX_COST_CONFIG2_1, final_ratio=1e-10),
 }
 
+# BASELINE config 5 (bench.py config5): banded segment BA on one device.
+CONFIG5 = dict(n_views=10_000, n_landmarks=100_000, obs_per_landmark=5, seed=5)
+CONFIG5_ITERATIONS = 6
+# The JAX package's values in float64 on the CPU (tools/config5_reference.py):
+# the structure, the cost at state0 (the speculative loop's linearization,
+# max_iterations=0, and make_segment_ba_step's total_cost), the final cost of
+# make_segment_ba_solver(problem, mesh of 1, max_iterations=1 and 6,
+# function_tolerance=0.0, mode="banded") and the iterations it ran, and the
+# unaligned ATE (n = 200 on [t1, t2]) of the start and of the 6-iteration
+# solution against the truth.
+JAX_CONFIG5 = dict(
+    shape=dict(rows=500000, weight=499989.0, knots=3352, seg=3360, G=8, nbloc=420,
+               Lb=100000, LaMax=251, Ma=[1255]),
+    cost0=784576.9477794562,
+    total_cost0=784576.9477794562,
+    cost1=330.01275275253386,
+    cost6=1.0437217947864471e-4,
+    iterations6=6,
+    ate_start=0.01210908571174575,
+    ate6=0.0015382327687632653,
+)
+# The 6-iteration cost is 1.3e-10 of the initial one: roundoff of the
+# 784,577-cost linearizations (rel ~1e-15, i.e. ~1e-9 absolute in the cost,
+# ~1e-5 of the final value) decides its last digits, so it is held to 1e-4.
+CONFIG5_FINAL_RTOL = 1e-4
+# ATE is a function of the state, which agrees far better than the tiny
+# final cost: the start to the queries' roundoff, the solution to 1e-6.
+CONFIG5_ATE_RTOL = {"ate_start": 1e-12, "ate6": 1e-6}
+
 # Peak rates of one H100 SXM at 700 W (NVIDIA's data sheet): HBM3, and
 # float64 on the tensor cores. B1's and B4's row chains cannot use the
 # tensor cores (34 TFLOP/s outside them), so their bounds are lower still
@@ -206,6 +253,10 @@ TOL = {
     # the split trajectory's position query (B5 r3) against B7 at the same
     # times: two kernels, one spline
     ("query vs r3_evaluate_kernel", torch.float64): 1e-12,
+    # one-hot expansion: each output sums at most two entries, so it equals
+    # its plain version exactly; the gate allows the last bit
+    ("onehot_expand_rows", torch.float64): 1e-14,
+    ("onehot_expand_rows", torch.float32): 1e-14,
 }
 
 # Read-back at user size: the row times of a 10,000-frame rolling-shutter
@@ -320,6 +371,7 @@ def reset_counts():
     for kind in lk.evaluate_windows.launches:
         lk.evaluate_windows.launches[kind] = 0
     sk.r3_evaluate_kernel.launches = 0
+    lk.onehot_expand_rows.launches = 0
 
 
 def read_counts():
@@ -336,6 +388,7 @@ def read_counts():
         "imu_rows cost-only": lk.imu_rows.cost_launches,
         **{f"evaluate_windows {k}": n for k, n in lk.evaluate_windows.launches.items()},
         "r3_evaluate_kernel": sk.r3_evaluate_kernel.launches,
+        "onehot_expand_rows": lk.onehot_expand_rows.launches,
     }
     for name, n in counts.items():
         MAIN_PATH_LAUNCHES[name] = MAIN_PATH_LAUNCHES.get(name, 0) + n
@@ -1145,6 +1198,256 @@ def phase_pose_fit():
     return summary
 
 
+def config5_problem():
+    """Config 5 through ``make_big_ba_problem`` on the card, with its layout
+    and structure against the JAX package's."""
+    from kontiki_tpu_torch.parallel.segments_ba import segment_ba_layout
+    from kontiki_tpu_torch.synthetic import make_big_ba_problem
+
+    t0 = time.time()
+    big = make_big_ba_problem(**CONFIG5)
+    gen_s = time.time() - t0
+    problem = big["problem"]
+    if problem.device.type != "cuda":
+        fail(f"config 5: RawProblem built on {problem.device}, not on the card")
+    t0 = time.time()
+    _, _, _, lay = segment_ba_layout(problem, 1)
+    layout_s = time.time() - t0
+    cam = problem.buckets["rs_static:PinholeCamera"]
+    shape = dict(rows=cam.M, weight=cam.data["weight"].sum().item(),
+                 knots=problem.splines[0].n, seg=lay["seg"], G=lay["G"], nbloc=lay["nbloc"],
+                 Lb=lay["Lb"], LaMax=lay["LaMax"], Ma=[t["Ma"] for t in lay["banded_tables"]])
+    print(f"config 5: {shape}; generation {gen_s:.1f} s, layout {layout_s:.2f} s on the host",
+          flush=True)
+    if shape != JAX_CONFIG5["shape"]:
+        fail(f"config 5 structure {shape} != {JAX_CONFIG5['shape']}")
+    return big
+
+
+def phase_config5_rows(problem):
+    """B1 (split) and B3 against their plain versions at config 5's 500,000
+    camera rows in the segment layout (padded knots, window bases clamped
+    at the real knot count, the ``valid`` input), float64 and float32."""
+    from kontiki_tpu_torch.ops import linearize_kernels as lk
+    from kontiki_tpu_torch.parallel.segments_ba import _build_segment_ba
+    from kontiki_tpu_torch.solver import kernels
+
+    b = _build_segment_ba(problem, 1, "banded")
+    rt = b["runtime"]
+    cfg, ins, _ = kernels._camera_inputs(b["spec_local"], rt, b["to_sharded"](problem.state0),
+                                         rt["data"][0])
+    if "valid" not in ins:
+        fail("config 5 camera rows: the kernels' inputs lack the rows' valid flags")
+    M = ins["u_ref"].shape[1]
+    for dtype in (torch.float64, torch.float32):
+        x = {k: v.to(dtype).contiguous() for k, v in ins.items()}
+        got = lk.linearize_rows(cfg, x)
+        got_c = lk.cost_rows(cfg, x)
+        torch.cuda.synchronize()
+        compare("linearize_rows", dtype, ("r", "J", "J_rho"), got, lk.linearize_rows_plain(cfg, x))
+        compare("cost_rows", dtype, ("r",), (got_c,), (lk.cost_rows_plain(cfg, x),))
+        if dtype == torch.float64:
+            ms = cuda_ms(lambda: lk.linearize_rows(cfg, x))
+            ms_c = cuda_ms(lambda: lk.cost_rows(cfg, x))
+            print(f"  config 5 camera rows M={M} f64: linearize_rows split {ms:.3f} ms, "
+                  f"cost_rows {ms_c:.4f} ms", flush=True)
+        del got, got_c, x
+
+
+def phase_b6(problem):
+    """B6 against its plain version on config 5's camera rows at state0,
+    on a random case and on no rows; times beside ``scatter_add_``."""
+    from kontiki_tpu_torch.ops import linearize_kernels as lk
+    from kontiki_tpu_torch.parallel.segments_ba import _build_segment_ba
+
+    b = _build_segment_ba(problem, 1, "banded")
+    _, blocks, _ = b["whitened_blocks"](b["to_sharded"](problem.state0))
+    (blk,), (layout,) = blocks, b["layouts"]
+    WB = b["WB"]
+    rel = b["colrel"](blk, layout)
+    Jw = blk["Jw"].contiguous()
+    del blocks, blk
+    M, rdim, C = Jw.shape
+    weight = b["runtime"]["data"][0]["weight"]
+    outside = (rel < 0) | (rel >= WB)
+    dropped = (outside & (Jw != 0).any(1) & (weight > 0)[:, None]).sum().item()
+    print(f"  config 5 rows M={M} rdim={rdim} C={C} WB={WB}: {outside.sum().item()} ids "
+          f"outside [0, WB), {dropped} of them non-zero on rows of weight > 0", flush=True)
+    if dropped:
+        fail(f"onehot_expand_rows: config 5 would drop {dropped} in-range Jacobian entries")
+    # random rows: ids drawn from [-1, WB] with each id at most twice per
+    # row (as in camera rows), M not a multiple of a block's rows
+    dev = Jw.device
+    g = torch.Generator(device=dev).manual_seed(6)
+    Mr = 100_003
+    pool = torch.rand(Mr, 2 * (WB + 2), device=dev, generator=g).argsort(dim=1)[:, :C]
+    cases = {"config 5": (Jw, rel),
+             "random": (torch.randn(Mr, rdim, C, device=dev, dtype=torch.float64,
+                                    generator=g), pool // 2 - 1),
+             "no rows": (Jw[:0], rel[:0])}
+    out = {}
+    for case, (J, r) in cases.items():
+        for dtype in (torch.float64, torch.float32):
+            x = J.to(dtype)
+            before = lk.onehot_expand_rows.launches
+            got = lk.onehot_expand_rows(x, r, WB)
+            torch.cuda.synchronize()
+            if lk.onehot_expand_rows.launches != before + (x.shape[0] > 0):
+                fail(f"onehot_expand_rows {case}: launched {lk.onehot_expand_rows.launches - before} times")
+            want = lk.onehot_expand_rows_plain(x, r, WB)
+            print(f"  onehot_expand_rows {case} M={x.shape[0]} {str(dtype)[6:]}: "
+                  f"{'equal' if torch.equal(got, want) else 'NOT equal'} to the plain version",
+                  flush=True)
+            err = compare("onehot_expand_rows", dtype, ("Jd",), (got,), (want,))
+            del got, want
+            if case == "config 5" and dtype == torch.float64:
+                out["max_abs_err"] = err
+    out["ms"] = cuda_ms(lambda: lk.onehot_expand_rows(Jw, rel, WB))
+    out["plain_ms"] = cuda_ms(lambda: lk.onehot_expand_rows_plain(Jw, rel, WB), reps=3, warmup=1)
+    # the yardstick: scatter_add_ along the columns into a zeroed Jd (the
+    # zero fill outside the timing), ids outside [0, WB) masked to a 0 entry
+    idx = torch.where(outside, 0, rel)[:, None, :].expand(M, rdim, C).contiguous()
+    src = torch.where(outside[:, None, :], 0.0, Jw)
+    Jd = torch.zeros(M, rdim, WB, dtype=Jw.dtype, device=Jw.device)
+    out["library_ms"] = cuda_ms(lambda: Jd.scatter_add_(2, idx, src))
+    del idx, src, Jd
+    nbytes = 8 * (Jw.numel() + rel.numel() + M * rdim * WB)
+    ops = rdim * int((~outside).sum().item())  # one addition per in-range entry
+    out["bound_ms"], out["bound_by"] = bound(nbytes, ops)
+    print(f"  onehot_expand_rows f64 M={M}: kernel {out['ms']:.4f} ms, plain "
+          f"{out['plain_ms']:.3f} ms, scatter_add_ {out['library_ms']:.4f} ms, bound "
+          f"{out['bound_ms']:.4f} ms by {out['bound_by']} ({nbytes} bytes, {ops} operations)",
+          flush=True)
+    return out
+
+
+def phase_config5(big):
+    """Config 5 through ``parallel.segments_ba`` on the card against the JAX
+    package's values; the timed 6-iteration solve, its breakdown and the
+    solution's ATE."""
+    from kontiki_tpu_torch import interop
+    from kontiki_tpu_torch.ops import linearize_kernels as lk
+    from kontiki_tpu_torch.parallel.segments_ba import (
+        _build_segment_ba,
+        make_segment_ba_solver,
+        make_segment_ba_step,
+    )
+    from kontiki_tpu_torch.solver import kernels
+    from kontiki_tpu_torch.synthetic import trajectory_ate
+
+    ref = JAX_CONFIG5
+    problem = big["problem"]
+    s0 = problem.state0
+    cost0 = make_segment_ba_solver(problem, max_iterations=0, function_tolerance=0.0)(s0)[1]
+    _, total_cost = make_segment_ba_step(problem)
+    reset_counts()
+    total0 = total_cost(s0).item()
+    check_launches("config 5 total_cost", read_counts(),
+                   {"cost_rows": 1, "linearize_rows": 0, "onehot_expand_rows": 0})
+    cost1 = make_segment_ba_solver(problem, max_iterations=1, function_tolerance=0.0)(s0)[1]
+    for what, got, want in (("cost at state0", cost0.item(), ref["cost0"]),
+                            ("total_cost at state0", total0, ref["total_cost0"]),
+                            ("1-iteration cost", cost1.item(), ref["cost1"])):
+        rel = abs(got - want) / want
+        print(f"config 5: {what} {got!r} (JAX {want!r}, rel {rel:.2e})", flush=True)
+        if not rel <= COST_RTOL:
+            fail(f"config 5: {what} differs from the JAX package by {rel:.2e}")
+
+    solve = make_segment_ba_solver(problem, max_iterations=CONFIG5_ITERATIONS,
+                                   function_tolerance=0.0)
+    t0 = time.perf_counter()
+    solve(s0)
+    torch.cuda.synchronize()
+    print(f"config 5: warm-up solve {time.perf_counter() - t0:.3f} s", flush=True)
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state, cost, iters = solve(s0)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    cost = cost.item()
+    rel = abs(cost - ref["cost6"]) / ref["cost6"]
+    print(f"config 5: {iters} iterations in {seconds:.3f} s = {iters / seconds:.3f} it/s; "
+          f"final cost {cost!r} (JAX {ref['cost6']!r} after {ref['iterations6']}, rel "
+          f"{rel:.2e}, tol {CONFIG5_FINAL_RTOL:.0e}); peak device memory "
+          f"{peak / 2**30:.2f} GiB; launches {launches}", flush=True)
+    for k, v in state.items():
+        if v.shape != s0[k].shape or not torch.isfinite(v).all():
+            fail(f"config 5: final state {k}: bad shape or non-finite values")
+    if iters != ref["iterations6"]:
+        fail(f"config 5: ran {iters} iterations, the JAX package {ref['iterations6']}")
+    if not rel <= CONFIG5_FINAL_RTOL:
+        fail(f"config 5: final cost differs from the JAX package's by {rel:.2e}")
+    # the speculative loop linearizes state0 and each iteration's candidate
+    check_launches("config 5 solve", launches, {
+        "linearize_rows split": iters + 1, "onehot_expand_rows": iters + 1,
+        "cost_rows": 0, "imu_rows": 0})
+
+    # one iteration by part (host clock, synchronize after each, median of 3)
+    b = _build_segment_ba(problem, 1, "banded")
+    st = b["to_sharded"](s0)
+    spec_l, rt = b["spec_local"], b["runtime"]
+    cfg, ins, _ = kernels._camera_inputs(spec_l, rt, st, rt["data"][0])
+    lam = torch.tensor(1e-4, dtype=problem.dtype, device=problem.device)
+    c, blocks, ml = b["whitened_blocks"](st)
+    blk, layout = blocks[0], b["layouts"][0]
+    rel_ids = b["colrel"](blk, layout)
+    Jw = blk["Jw"].contiguous()
+    asm = b["assemble_band"](blocks)
+    ctx = b["eliminate"](asm, ml, lam, st)
+    sol = b["band_solve"](ctx)
+    xb, xs = b["sensor_solve"](ctx, sol, lam)
+    dc, dl, _, _ = b["back_substitute"](ctx, xb, xs, st)
+    nb, d = ctx["Dd"].shape[:2]
+    table = [
+        ("one iteration (solve from the carried assembly, retract, linearize and assemble "
+         "the candidate)", host_ms(lambda: b["step_spec_local"](st, (c, asm, ml), lam), reps=3)),
+        ("- linearize (whitened rows)", host_ms(lambda: b["whitened_blocks"](st), reps=3)),
+        ("-- camera-row gather", host_ms(
+            lambda: kernels._camera_inputs(spec_l, rt, st, rt["data"][0]), reps=3)),
+        ("-- B1 split", host_ms(lambda: lk.linearize_rows(cfg, ins), reps=3)),
+        ("- band assembly (_colrel + B6 + batched products)",
+         host_ms(lambda: b["assemble_band"](blocks), reps=3)),
+        ("-- _colrel + B6", host_ms(lambda: b["dense_rows"](blk, layout), reps=3)),
+        ("--- B6", host_ms(lambda: lk.onehot_expand_rows(Jw, rel_ids, b["WB"]), reps=3)),
+        ("- landmark elimination and fold into the band",
+         host_ms(lambda: b["eliminate"](asm, ml, lam, st), reps=3)),
+        (f"- block_tridiag_solve ({nb} blocks of {d})", host_ms(lambda: b["band_solve"](ctx),
+                                                              reps=3)),
+        ("- sensor solve", host_ms(lambda: b["sensor_solve"](ctx, sol, lam), reps=3)),
+        ("- landmark back-substitution and pred",
+         host_ms(lambda: b["back_substitute"](ctx, xb, xs, st), reps=3)),
+        ("- retract", host_ms(lambda: b["retract_local"](st, dc, dl), reps=3)),
+    ]
+    print("config 5 iteration breakdown (host ms, synchronize after each part, median of 3):",
+          flush=True)
+    for name, ms in table:
+        print(f"  {name}: {ms:.3f} ms", flush=True)
+    del b, blocks, asm, ctx, sol, Jw, rel_ids
+
+    # the solution read back through B5 and scored against the truth
+    sp_r3, sp_so3 = problem.splines
+    solved = interop.split_trajectory_from_numpy(
+        state["r3"].cpu().numpy(), state["so3"].cpu().numpy(), sp_r3.dt, sp_so3.dt,
+        sp_r3.t0, sp_so3.t0)
+    truth, t1, t2 = big["true_trajectory"], big["t1"], big["t2"]
+    reset_counts()
+    ates = {"ate_start": trajectory_ate(big["trajectory"], truth, t1, t2),
+            "ate6": trajectory_ate(solved, truth, t1, t2)}
+    check_launches("config 5 scores", read_counts(),
+                   {"evaluate_windows r3": 4, "evaluate_windows so3": 4})
+    for k, got in ates.items():
+        want = ref[k]
+        rel = abs(got - want) / want
+        print(f"config 5: ATE vs truth on [{t1}, {t2}], {k}: {got!r} (JAX {want!r}, rel "
+              f"{rel:.2e}, tol {CONFIG5_ATE_RTOL[k]:.0e})", flush=True)
+        if not rel <= CONFIG5_ATE_RTOL[k]:
+            fail(f"config 5: {k} differs from the JAX package's by {rel:.2e}")
+    return launches
+
+
 def main():
     phase_device()
     phase_build()
@@ -1170,6 +1473,10 @@ def main():
     phase_readback(queries, built4)
     phase_scores(built4["trajectory"], prob4)
     phase_pose_fit()
+    big5 = config5_problem()
+    phase_config5_rows(big5["problem"])
+    b6 = phase_b6(big5["problem"])
+    phase_config5(big5)
     n = MAIN_PATH_LAUNCHES
     print(f"main-path launches: {n}", flush=True)
     b1_source = dict(route="cuda", source="kontiki_tpu_torch/csrc/linearize_rows.cu")
@@ -1200,6 +1507,10 @@ def main():
              source="kontiki_tpu_torch/csrc/r3_evaluate.cu",
              replaces="kontiki_tpu/ops/spline_kernels.py:147",
              launches=n["r3_evaluate_kernel"], **b7),
+        dict(name="onehot_expand_rows", route="cuda",
+             source="kontiki_tpu_torch/csrc/onehot_expand.cu",
+             replaces="kontiki_tpu/ops/linearize_kernels.py:1148",
+             launches=n["onehot_expand_rows"], **b6),
     ]
     for k in kernels:
         if not k["launches"] > 0:

@@ -11,6 +11,11 @@ int64. ``device=None`` means the CUDA card (``config.resolve_device``).
 trajectory's knots across: the JAX package's stored knot rows (R3 xyz, SO3
 wxyz, SE3 packed q wxyz + t; ``np.asarray(traj.knots)``) become a port
 trajectory with the same ``dt``, ``t0`` and rows, bit for bit.
+
+``raw_problem_arrays`` reads either package's ``RawProblem`` into numpy
+(splines, bucket data, sensors, rho, masks); ``raw_problem_from_numpy``
+builds the port's ``RawProblem`` from them, so both packages compute on
+the same array-level problem (BASELINE config 5).
 """
 import numpy as np
 import torch
@@ -77,3 +82,48 @@ def split_trajectory_from_numpy(r3_knots, so3_knots, r3_dt, so3_dt, r3_t0, so3_t
         trajectory_from_numpy("so3", so3_knots, so3_dt, so3_t0, device),
         device=device,
     )
+
+
+def raw_problem_arrays(problem):
+    """The arrays of a ``RawProblem`` of either package as numpy: the
+    keyword arguments of ``raw_problem_from_numpy``. Buckets become dicts of
+    ``rdim``, ``window``, ``data`` and ``camera`` (the camera class's name
+    or None)."""
+    def arr(a):
+        return a.detach().cpu().numpy() if torch.is_tensor(a) else np.asarray(a)
+
+    state = {k: arr(v) for k, v in problem.state0.items()}
+    mask = arr(problem.mask)
+    S, L = len(problem.sensors), len(problem.landmarks)
+    so, lo = problem.sensor_offset, problem.landmark_offset
+    sensors = {k: state[k] for k in ("q_ct", "p_ct", "d", "abias", "gbias")}
+    sensors["mask"] = mask[so: so + 13 * S].reshape(S, 13)
+    sensors["d_max"] = arr(problem.d_max)
+    return dict(
+        splines=[(sp.kind, state[sp.kind], sp.t0, sp.dt) for sp in problem.splines],
+        buckets={key: dict(rdim=b.rdim, window=dict(b.window),
+                           data={k: arr(v) for k, v in b.data.items()},
+                           camera=b.camera_cls.__name__ if b.camera_cls else None)
+                 for key, b in problem.buckets.items()},
+        sensors=sensors,
+        rho=state["rho"],
+        landmark_mask=mask[lo: lo + L],
+    )
+
+
+def raw_problem_from_numpy(splines, buckets, sensors, rho, landmark_mask=None,
+                           device=None, dtype=default_dtype):
+    """The port's ``solver.problem.RawProblem`` on ``device`` (None: the CUDA
+    card) from numpy arrays in ``raw_problem_arrays``'s form; a bucket's
+    ``camera`` names a camera class of ``kontiki_tpu_torch.sensors``."""
+    from . import sensors as sensor_classes
+    from .solver.problem import RawBucket, RawProblem
+
+    raw = {}
+    for key, b in buckets.items():
+        cam = getattr(sensor_classes, b["camera"]) if b.get("camera") else None
+        M = int(next(iter(b["data"].values())).shape[0]) if b["data"] else 0
+        raw[key] = RawBucket(kind=key, M=M, rdim=int(b["rdim"]), data=dict(b["data"]),
+                             window=dict(b["window"]), camera_cls=cam)
+    return RawProblem(splines, raw, sensors, rho, landmark_mask=landmark_mask,
+                      device=device, dtype=dtype)

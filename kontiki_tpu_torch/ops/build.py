@@ -40,6 +40,7 @@ _ENTRIES = {
     "kontiki_imu_rows": [_P] * 10 + [_P, _P, _I, _I, _P],
     "kontiki_eval_windows": [_I, _P, _P, _D, _P, _I, _P],
     "kontiki_r3_evaluate": [_P, _I, _D, _D, _P, _P, _P, _P, _I, _P],
+    "kontiki_onehot_expand": [_P, _P, _P, _I, _I, _I, _I, _P],
 }
 HOST_FLAGS = ("-std=c++17", "-O2", "-shared", "-fPIC")
 #: host entry points: name -> (argument types, return type)

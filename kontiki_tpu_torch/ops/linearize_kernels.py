@@ -7,7 +7,10 @@ of ``kontiki_tpu.ops.linearize_kernels``):
 - B4 ``imu_rows``: gyro/accel rows on SO3 or split R3 + SO3 splines, CUDA
   kernel ``csrc/imu_rows.cu`` (described at ``imu_rows_plain``);
 - B5 ``evaluate_windows``: the trajectory queries' window evaluation
-  (values and time derivatives), CUDA kernel ``csrc/eval_windows.cu``.
+  (values and time derivatives), CUDA kernel ``csrc/eval_windows.cu``;
+- B6 ``onehot_expand_rows``: compressed row Jacobians expanded to dense
+  pair-window rows for the banded segment-BA assembly, CUDA kernel
+  ``csrc/onehot_expand.cu``.
 
 B1, camera rows:
 
@@ -775,6 +778,67 @@ def evaluate_windows(kind, windows, u, dt):
 
 #: kernel launches per kind since the counts were last reset (CUDA tensors only)
 evaluate_windows.launches = {"r3": 0, "so3": 0, "se3": 0}
+
+
+# ---------------------------------------------------------------------------
+# B6: one-hot row expansion (the banded segment-BA assembly)
+# ---------------------------------------------------------------------------
+
+def onehot_expand_rows_plain(Jw, rel, WB, chunk=4096):
+    """Plain PyTorch B6, the JAX package's non-TPU formula
+    (``parallel/segments_ba.py`` ``_dense_rows``): per chunk of rows, a
+    one-hot ``[chunk, C, WB]`` of ``rel`` against ``arange(WB)`` and one
+    batched product with ``Jw``. Duplicate ids add; ids outside [0, WB)
+    match no column."""
+    M, rdim, C = Jw.shape
+    iota = torch.arange(WB, dtype=rel.dtype, device=rel.device)
+    out = torch.empty(M, rdim, WB, dtype=Jw.dtype, device=Jw.device)
+    for i in range(0, M, chunk):
+        oh = (rel[i:i + chunk, :, None] == iota).to(Jw.dtype)
+        out[i:i + chunk] = torch.einsum("mrc,mcw->mrw", Jw[i:i + chunk], oh)
+    return out
+
+
+def onehot_expand_rows(Jw, rel, WB):
+    """B6 (the JAX package's ``onehot_expand_rows``): ``Jd [M, rdim, WB]``
+    with ``Jd[m, r, rel[m, c]] += Jw[m, r, c]`` from ``Jw [M, rdim, C]``
+    (float32/float64) and ``rel [M, C]`` (int64); ids outside [0, WB) are
+    dropped. CPU tensors run the plain version, CUDA tensors the
+    hand-written kernel."""
+    if Jw.dim() != 3 or Jw.dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"onehot_expand_rows: Jw must be [M, rdim, C] float, "
+                         f"got {tuple(Jw.shape)} {Jw.dtype}")
+    M, rdim, C = Jw.shape
+    if rel.shape != (M, C) or rel.dtype != torch.int64 or rel.device != Jw.device:
+        raise ValueError(f"onehot_expand_rows: rel must be [{M}, {C}] int64 on "
+                         f"{Jw.device}, got {tuple(rel.shape)} {rel.dtype} on {rel.device}")
+    if Jw.device.type == "cpu":
+        return onehot_expand_rows_plain(Jw, rel, WB)
+    if Jw.device.type != "cuda":
+        raise ValueError(f"onehot_expand_rows: unsupported device {Jw.device}")
+    if not (Jw.is_contiguous() and rel.is_contiguous()):
+        raise ValueError("onehot_expand_rows: Jw and rel must be contiguous")
+    from .build import load_library
+
+    out = torch.empty(M, rdim, WB, dtype=Jw.dtype, device=Jw.device)
+    if M == 0:
+        return out
+    lib = load_library()
+    fn = (lib.kontiki_onehot_expand_f64 if Jw.dtype == torch.float64
+          else lib.kontiki_onehot_expand_f32)
+    with torch.cuda.device(Jw.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(ctypes.c_void_p(Jw.data_ptr()), ctypes.c_void_p(rel.data_ptr()),
+                 ctypes.c_void_p(out.data_ptr()), M, rdim, C, int(WB),
+                 ctypes.c_void_p(stream))
+    if err:
+        raise RuntimeError(f"onehot_expand_rows: kernel launch failed (CUDA error {err})")
+    onehot_expand_rows.launches += 1
+    return out
+
+
+#: kernel launches since the count was last reset (CUDA tensors only)
+onehot_expand_rows.launches = 0
 
 
 # ---------------------------------------------------------------------------

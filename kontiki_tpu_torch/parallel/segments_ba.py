@@ -1,0 +1,777 @@
+"""Knot-segment x landmark-block bundle adjustment, banded direct solve
+(counterpart of ``kontiki_tpu.parallel.segments_ba``; BASELINE config 5).
+
+The layout (``segment_ba_layout``, host numpy, any number of shards) cuts
+the knot axis into contiguous segments of ``seg`` knots and gives every
+landmark, with all of its rows, to the segment that owns its reference
+window. Superblocks of ``G`` knots are wide enough that each row and each
+landmark touches at most two consecutive superblocks, so the reduced
+system (knots and sensors, landmarks eliminated) is block-tridiagonal in
+superblocks with a dense sensor border.
+
+One LM iteration of the banded mode, on one device:
+
+1. linearize: each bucket's compressed rows ``J [M, rdim, C]`` (camera rows
+   through kernel B1, IMU rows through B4), robust-whitened, columns in the
+   segment's local layout (``_whitened_blocks``);
+2. assemble: each row's columns become pair-window ids relative to its
+   anchor superblock (``_colrel``), kernel B6
+   (``ops.linearize_kernels.onehot_expand_rows``) expands the rows to dense
+   pair-window rows ``Jd [M, rdim, WB]``, ``WB = 2 G BD + ns``, and batched
+   products per anchor give the pair blocks ``Pa [nbloc, WB, WB]``, ``ga``
+   and the landmark-slot blocks ``Ea``, ``Da``, ``gla``; lock masks apply
+   after assembly (``_assemble_band``);
+3. solve: damping from the pair blocks' diagonals, landmark elimination in
+   slot space, the block-tridiagonal Cholesky
+   (``solver.banded.block_tridiag_solve``) with the sensor border as extra
+   right-hand sides, the 13 x 13-per-sensor Schur solve, landmark
+   back-substitution, and the predicted decrease from the same blocks;
+4. retract and re-linearize the candidate: its cost is the re-cost
+   (``make_segment_ba_solver`` runs ``lm.trust_region_loop_spec`` on the
+   carried ``(cost, assembly, mask_l)``).
+
+Only one shard is ported: there the halos are empty (``Hl = Hr = 0``), the
+knot and landmark arrays are the whole problem padded to ``seg`` knots, and
+the JAX package's permutes and reductions over the mesh are identities.
+``n_shards > 1`` (torch.distributed), the matrix-free ``mode="pcg"`` and
+Newton, lifting, position and orientation buckets raise
+``NotImplementedError`` (ROADMAP.md Queue A 9.5).
+"""
+import math
+from typing import NamedTuple, Tuple
+
+import numpy as np
+import torch
+
+from ..math import quaternion as quat
+from ..math import se3 as se3m
+from ..ops.linearize_kernels import onehot_expand_rows
+from ..solver.banded import block_tridiag_solve
+from ..solver.kernels import (
+    _bucket_cost,
+    bucket_terms,
+    problem_runtime,
+    problem_spec,
+    retract_window,
+)
+from ..solver.lm import trust_region_loop_spec
+from ..solver.problem import SENSOR_TANGENT_DIM, TANGENT_DIMS, as_tensor
+
+__all__ = ["make_segment_ba_step", "make_segment_ba_solver", "segment_ba_layout"]
+
+_SINGLE_WINDOW = ("position", "orientation", "gyro", "accel")
+_ROADMAP = "ROADMAP.md Queue A 9.5"
+
+#: bucket kinds whose rows carry their sensor's 13 tangent columns
+_SENSOR_KINDS = ("rs_static", "gyro", "accel")
+
+
+class _BucketLayout(NamedTuple):
+    """C-axis layout of one bucket's ``J [M, rdim, C]`` (the JAX package's
+    ``solver.iterative._BucketLayout``): for each (tag, spline) window a
+    ``(col_offset, spline_index, W, td)`` entry, then the sensor slot offset
+    (or -1)."""
+    windows: Tuple[Tuple[int, int, int, int], ...]
+    sensor_off: int
+    C: int
+
+
+def _bucket_layout(spec, bspec) -> _BucketLayout:
+    """Camera rows have a ref and an obs window per spline, each the 4-knot
+    window B1 differentiates (C = 61 on a split trajectory); IMU and pose
+    rows one window per spline of the bucket's width. The columns follow
+    ``solver.kernels.bucket_terms``."""
+    camera = bspec.kind == "rs_static"
+    off = 0
+    wins = []
+    for _ in ("ref", "obs") if camera else ("t",):
+        for si, sp in enumerate(spec.splines):
+            W = 4 if camera else bspec.windows[si]
+            td = TANGENT_DIMS[sp.kind]
+            wins.append((off, si, W, td))
+            off += W * td
+    sensor_off = -1
+    if bspec.kind in _SENSOR_KINDS:
+        sensor_off = off
+        off += SENSOR_TANGENT_DIM
+    return _BucketLayout(tuple(wins), sensor_off, off)
+
+
+def _numpy(a):
+    return a.detach().cpu().numpy() if torch.is_tensor(a) else np.asarray(a)
+
+
+def _rank_in_groups(keys):
+    """Rank of each entry among the entries with the same key, in index
+    order (a running count per key)."""
+    order = np.argsort(keys, kind="stable")
+    sk = keys[order]
+    first = np.ones(len(sk), dtype=bool)
+    first[1:] = sk[1:] != sk[:-1]
+    starts = np.maximum.accumulate(np.where(first, np.arange(len(sk)), 0))
+    rank = np.empty(len(keys), dtype=np.int64)
+    rank[order] = np.arange(len(sk)) - starts
+    return rank
+
+
+def segment_ba_layout(problem, n_shards):
+    """Static layout of the composed sharding, host numpy.
+
+    Returns ``(spec, spec_local, runtime, lay)``: the global spec, the
+    per-shard spec (splines ``Hl + seg + Hr`` knots long, ``Lb`` landmark
+    slots), the runtime whose bucket data are reordered by owning shard
+    (padded per shard, ``valid`` 0 on pad rows; landmark ids rewritten to
+    per-shard slots; ``anchor`` and, on camera rows, ``lrel`` added; on the
+    problem's device) and ``lay``, the sizes and tables (numpy)."""
+    spec = problem_spec(problem)
+    runtime = problem_runtime(problem)
+    kinds = [b.kind.split(":")[0] for b in spec.buckets]
+    for k in kinds:
+        if k not in _SINGLE_WINDOW + ("rs_static", "rs_newton", "rs_lifting"):
+            raise ValueError(
+                f"segment BA sharding supports rs_static/rs_newton/"
+                f"rs_lifting + trajectory/IMU buckets; got {k}"
+            )
+    mask = _numpy(problem.mask)
+    d0 = np.array([s.time_offset if hasattr(s, "time_offset") else 0.0
+                   for s in problem.sensors])
+    S_n = len(problem.sensors)
+    d_unlocked = np.array([
+        mask[problem.sensor_offset + i * SENSOR_TANGENT_DIM + 6] != 0.0
+        for i in range(S_n)
+    ], dtype=bool)
+    d_max_s = _numpy(problem.d_max).reshape(-1)[: max(S_n, 1)]
+    # an unlocked time offset moves a row's window over t -+ d_max, a locked
+    # one keeps it at d0: ownership and anchors come from the lower bound,
+    # halos and superblocks cover the whole range
+    if S_n:
+        t_add_lo = np.where(d_unlocked, -d_max_s[:S_n], d0)
+        t_add_hi = np.where(d_unlocked, d_max_s[:S_n], d0)
+    else:
+        t_add_lo = t_add_hi = d0
+    grids = {(sp.n, round(float(problem.splines[i].t0), 12),
+              round(float(problem.splines[i].dt), 12))
+             for i, sp in enumerate(spec.splines)}
+    if len(grids) != 1:
+        raise ValueError("segment BA sharding requires all splines on one grid")
+    nk = spec.splines[0].n
+    t0 = float(problem.splines[0].t0)
+    dt = float(problem.splines[0].dt)
+    W_max = max(max(b.windows) for b in spec.buckets)
+    n = n_shards
+    data_np = [{k: _numpy(v) for k, v in data.items()} for data in runtime["data"]]
+
+    # --- row ownership + halo sizing: rows' window-base knots as the
+    # linearization computes them (frame-start times for camera rows,
+    # clipped to n - W)
+    i_refs, i_obs_list, i_ref_hi_list, i_obs_hi_list = [], [], [], []
+    max_dpos = 0  # max rightward column reach beyond the anchor (knots)
+    max_dneg = 0  # max leftward column reach before the anchor (knots)
+    for bspec, d in zip(spec.buckets, data_np):
+        W_b = max(bspec.windows)
+
+        def _idx(t):
+            return np.clip(np.floor((t - t0) / dt).astype(np.int64), 0, nk - W_b)
+
+        i_obs = i_obs_hi = None
+        if bspec.kind.startswith("rs_"):
+            lo_add = t_add_lo[d["sid"]]
+            hi_add = t_add_hi[d["sid"]]
+            i_ref = _idx(d["t0_ref"] + lo_add)
+            i_ref_hi = _idx(d["t0_ref"] + hi_add)
+            i_obs = _idx(d["t0_obs"] + lo_add)
+            i_obs_hi = _idx(d["t0_obs"] + hi_add)
+            if len(i_ref):
+                right = np.maximum(i_obs_hi, i_ref_hi) - i_ref
+                left = np.maximum(i_ref - i_obs, 0)
+                max_dpos = max(max_dpos, int(right.max()))
+                max_dneg = max(max_dneg, int(left.max()))
+        else:
+            if "sid" in d:
+                lo_add = t_add_lo[d["sid"]]
+                hi_add = t_add_hi[d["sid"]]
+            else:
+                lo_add = hi_add = np.zeros(len(d["t"]))
+            i_ref = _idx(d["t"] + lo_add)
+            i_ref_hi = _idx(d["t"] + hi_add)
+            if len(i_ref):
+                max_dpos = max(max_dpos, int((i_ref_hi - i_ref).max()))
+        i_refs.append(i_ref)
+        i_obs_list.append(i_obs)
+        i_ref_hi_list.append(i_ref_hi)
+        i_obs_hi_list.append(i_obs_hi)
+
+    # per-landmark knot-column support [lm_lo, lm_hi + W_max): all of a
+    # landmark's rows anchor at its block, so G must hold the landmark's
+    # whole support in two superblocks
+    L = spec.num_landmarks
+    lm_lo = np.full(max(L, 1), 10**9, dtype=np.int64)
+    lm_hi = np.full(max(L, 1), -1, dtype=np.int64)
+    for bspec, d, i_ref, i_obs, i_ref_hi, i_obs_hi in zip(
+        spec.buckets, data_np, i_refs, i_obs_list, i_ref_hi_list, i_obs_hi_list
+    ):
+        if not bspec.kind.startswith("rs_"):
+            continue
+        np.minimum.at(lm_lo, d["lid"], np.minimum(i_ref, i_obs))
+        np.maximum.at(lm_hi, d["lid"], np.maximum(i_ref_hi, i_obs_hi))
+
+    # superblock size: every row / landmark touches at most two
+    # consecutive G-blocks, so the reduced system is block-tridiagonal
+    G = max(max_dpos + max_dneg + W_max, 2)
+    seen_lm = lm_hi >= 0
+    if seen_lm.any():
+        span = lm_hi[seen_lm] - lm_lo[seen_lm] + W_max
+        G = max(G, int(span.max()))
+        assert (
+            lm_hi[seen_lm] + W_max - 1 - (lm_lo[seen_lm] // G) * G < 2 * G
+        ).all(), "landmark column support exceeds two G-superblocks"
+    if n == 1:
+        Hl = Hr = 0
+        # one extra pad block so the (anchor, anchor+1) pair always exists
+        seg = (int(math.ceil(nk / G)) + 1) * G
+    else:
+        Hl = int(math.ceil((max_dneg + W_max) / G)) * G
+        Hr = int(math.ceil((max_dpos + W_max) / G)) * G
+        # one-hop halos must fit in a neighbour's segment, and a distributed
+        # band solve needs >= 2 superblocks per shard
+        seg = max(int(math.ceil(nk / n)), W_max, Hl, Hr, 2 * G)
+        seg = int(math.ceil(seg / G)) * G
+    nk_pad = seg * n
+    owners = [np.minimum(i_ref // seg, n - 1) for i_ref in i_refs]
+
+    # --- landmark blocks: owner = owner of the landmark's rows ----------
+    lm_owner = np.zeros(L, dtype=np.int64)
+    seen = np.zeros(L, dtype=bool)
+    for bspec, d, owner in zip(spec.buckets, data_np, owners):
+        if not bspec.kind.startswith("rs_"):
+            continue
+        lid = d["lid"]
+        lm_owner[lid] = np.where(seen[lid], lm_owner[lid], owner)
+        seen[lid] = True
+        if np.any(lm_owner[lid] != owner):
+            raise ValueError("landmark observed from rows on multiple shards")
+    lm_owner[~seen] = 0
+    counts_l = np.bincount(lm_owner, minlength=n)
+    Lb = max(int(counts_l.max()), 1)
+    # global landmark id -> (owner, slot), slots in id order
+    slot = _rank_in_groups(lm_owner)
+    lid_to_padded = lm_owner * Lb + slot  # [L] -> index into [n*Lb]
+
+    # --- banded-block bookkeeping ------------------------------------------
+    sbG = seg // G
+    hl_b, hr_b = Hl // G, Hr // G
+    nbloc = hl_b + sbG + hr_b
+    lm_imin = lm_lo  # per-landmark minimum window knot
+
+    # landmark anchor block (local ids) + per-(shard, anchor) slot layout
+    la_of_lm = np.zeros(max(L, 1), dtype=np.int64)
+    if L:
+        la_of_lm = np.where(seen, lm_imin[:L] // G - lm_owner * sbG + hl_b, 0)
+        if seen.any():
+            chk = la_of_lm[seen]
+            assert chk.min() >= 0 and chk.max() <= nbloc - 2, (
+                chk.min(), chk.max(), nbloc)
+    slot_in_anchor = np.zeros(max(L, 1), dtype=np.int64)
+    LaMax = 1
+    lid_of_slot = np.zeros((n, nbloc, 1), dtype=np.int64)
+    smask = np.zeros((n, nbloc, 1))
+    if L:
+        # running count per (shard, anchor) in landmark id order
+        slot_in_anchor = _rank_in_groups(lm_owner * nbloc + la_of_lm)
+        LaMax = max(int(slot_in_anchor.max()) + 1, 1)
+        lid_of_slot = np.zeros((n, nbloc, LaMax), dtype=np.int64)
+        smask = np.zeros((n, nbloc, LaMax))
+        lid_of_slot[lm_owner, la_of_lm, slot_in_anchor] = slot
+        smask[lm_owner, la_of_lm, slot_in_anchor] = 1.0
+
+    # --- reindex rows per shard ------------------------------------------
+    new_data = []
+    new_buckets = []
+    banded_tables = []
+    for bspec, d, owner, i_ref in zip(spec.buckets, data_np, owners, i_refs):
+        cam = bspec.kind.startswith("rs_")
+        counts = np.bincount(owner, minlength=n)
+        M_per = max(int(counts.max()), 1)
+        idx = np.zeros(n * M_per, dtype=np.int64)
+        valid = np.zeros(n * M_per)
+        for s in range(n):
+            rows = np.nonzero(owner == s)[0]
+            idx[s * M_per: s * M_per + len(rows)] = rows
+            valid[s * M_per: s * M_per + len(rows)] = 1.0
+        owner_row = np.arange(n * M_per) // M_per
+        # anchor block of each (reordered) row, a local block id: camera
+        # rows anchor at their landmark's block, so one grouping serves both
+        # the H and the landmark-elimination passes
+        if cam:
+            anchor = lm_imin[d["lid"][idx]] // G - owner_row * sbG + hl_b
+            lrel = slot_in_anchor[d["lid"][idx]]
+        else:
+            anchor = i_ref[idx] // G - owner_row * sbG + hl_b
+            lrel = None
+        d = {k: v[idx] for k, v in d.items()}
+        seg_start_t = t0 + (np.arange(n * M_per) // M_per) * seg * dt
+        pin_t = seg_start_t + min(W_max + 1, max(seg - 4, 1)) * dt
+        # pad rows: pinned inside the owning segment, anchored from the
+        # pinned time (valid = 0 zeroes their contributions)
+        i_pin = np.clip(((pin_t - t0) / dt).astype(np.int64), 0, nk_pad - 4)
+        a_pin = np.clip(i_pin // G - owner_row * sbG + hl_b, 0, nbloc - 2)
+        anchor = np.where(valid > 0, anchor, a_pin)
+        assert anchor.min() >= 0 and anchor.max() <= nbloc - 2, (
+            anchor.min(), anchor.max(), nbloc)
+        if cam:
+            d["t0_ref"] = np.where(valid > 0, d["t0_ref"], pin_t)
+            d["t0_obs"] = np.where(valid > 0, d["t0_obs"], pin_t)
+            d["v_ref"] = np.where(valid > 0, d["v_ref"], 0.0)
+            d["v_obs"] = np.where(valid > 0, d["v_obs"], 0.0)
+            # local slot ids replace the global ids inside a shard
+            d["lid"] = np.where(valid > 0, slot[d["lid"]], 0)
+            d["lrel"] = np.where(valid > 0, lrel, 0)
+        else:
+            d["t"] = np.where(valid > 0, d["t"], pin_t)
+        d["valid"] = valid.astype(mask.dtype)
+        d["anchor"] = anchor.astype(np.int64)
+
+        # anchor-grouped row permutation per shard, padded uniformly: the
+        # valid rows of each (shard, anchor) in row order
+        shard_of = np.arange(n * M_per) // M_per
+        rows = np.nonzero(valid > 0)[0]
+        key = shard_of[rows] * nbloc + anchor[rows]
+        fill = _rank_in_groups(key)
+        Ma = max(int(fill.max()) + 1 if len(rows) else 1, 1)
+        perm = np.zeros((n, nbloc, Ma), dtype=np.int64)
+        pmask = np.zeros((n, nbloc, Ma))
+        perm[shard_of[rows], anchor[rows], fill] = rows - shard_of[rows] * M_per
+        pmask[shard_of[rows], anchor[rows], fill] = 1.0
+        banded_tables.append(dict(
+            perm=perm.reshape(n, nbloc * Ma),
+            pmask=pmask.reshape(n, nbloc * Ma).astype(mask.dtype),
+            Ma=Ma,
+        ))
+        new_data.append({k: as_tensor(v, problem.device, problem.dtype)
+                         for k, v in d.items()})
+        new_buckets.append(bspec._replace(M=n * M_per))
+
+    # local spec: per-shard knot arrays are [Hl + seg + Hr] long, the
+    # landmark table is the local block [Lb]
+    nloc = Hl + seg + Hr
+    loc_splines = []
+    off = 0
+    for sp in spec.splines:
+        loc_splines.append(sp._replace(n=nloc, tangent_offset=off))
+        off += nloc * TANGENT_DIMS[sp.kind]
+    Pk_loc = off
+    spec_local = spec._replace(
+        splines=tuple(loc_splines),
+        buckets=tuple(new_buckets),
+        num_landmarks=Lb,
+    )
+    runtime["data"] = new_data
+
+    # landmark mask, permuted into padded slots
+    mask_l = np.zeros(n * Lb, dtype=mask.dtype)
+    if L:
+        mask_l[lid_to_padded] = mask[spec.landmark_offset: spec.landmark_offset + L]
+    # knot tangent mask, padded to nk_pad (pad knots are locked)
+    kmask = []
+    for sp in spec.splines:
+        td = TANGENT_DIMS[sp.kind]
+        m = mask[sp.tangent_offset: sp.tangent_offset + nk * td]
+        kmask.append(
+            np.concatenate([m, np.zeros((nk_pad - nk) * td, mask.dtype)]).reshape(nk_pad, td)
+        )
+    ns = len(problem.sensors) * SENSOR_TANGENT_DIM
+    mask_sen = mask[spec.sensor_offset: spec.sensor_offset + ns]
+
+    lay = dict(
+        nk=nk, nk_pad=nk_pad, seg=seg, Hl=Hl, Hr=Hr, n=n, Lb=Lb, L=L,
+        t0=t0, dt=dt, Pk_loc=Pk_loc, ns=ns, nloc=nloc,
+        lid_to_padded=lid_to_padded,
+        mask_l=mask_l, mask_sen=mask_sen, kmask=kmask,
+        W_max=W_max,
+        # banded reduced-system structure
+        G=G, sbG=sbG, hl_b=hl_b, hr_b=hr_b, nbloc=nbloc, LaMax=LaMax,
+        lid_of_slot=lid_of_slot.reshape(n, nbloc * LaMax),
+        smask=smask.reshape(n, nbloc * LaMax).astype(mask.dtype),
+        banded_tables=banded_tables,
+    )
+    return spec, spec_local, runtime, lay
+
+
+def _check_supported(problem, n_shards, mode):
+    if mode not in ("banded", "pcg"):
+        raise ValueError(f"segment BA mode must be 'banded' or 'pcg', got {mode!r}")
+    if n_shards != 1:
+        raise NotImplementedError(
+            f"segment BA on {n_shards} shards (torch.distributed, the SPIKE band "
+            f"solve) is not ported: {_ROADMAP}")
+    if mode == "pcg":
+        raise NotImplementedError(
+            f"segment BA mode='pcg' (matrix-free PCG, duplicate_cross_diag) is not "
+            f"ported: {_ROADMAP}")
+    for key in problem.buckets:
+        kind = key.split(":")[0]
+        if kind in ("rs_newton", "rs_lifting", "position", "orientation"):
+            raise NotImplementedError(
+                f"{kind} buckets in segment BA are not ported: {_ROADMAP}")
+
+
+def _build_segment_ba(problem, n_shards, mode):
+    """The single-shard banded step's parts (see the module docstring)."""
+    _check_supported(problem, n_shards, mode)
+    dev = problem.device
+    spec, spec_local, runtime, lay = segment_ba_layout(problem, n_shards)
+    assert lay["Hl"] == lay["Hr"] == 0  # one shard: no halos
+    layouts = [_bucket_layout(spec_local, b) for b in spec_local.buckets]
+    dtype = problem.mask.dtype
+    opts = dict(dtype=dtype, device=dev)
+    seg, Lb, Pk_loc, ns = lay["seg"], lay["Lb"], lay["Pk_loc"], lay["ns"]
+    tds = [TANGENT_DIMS[sp.kind] for sp in spec.splines]
+    S = len(problem.sensors)
+    # owned-vector layout: per-spline [seg * td] slices (= the local layout)
+    own_off = np.concatenate([[0], np.cumsum([seg * td for td in tds])]).astype(np.int64)
+
+    rt = {
+        "mask": runtime["mask"].to(dev),
+        "d_max": runtime["d_max"].to(dev),
+        # window bases clamp at the real spline's knot count, not at the
+        # padded local arrays' end
+        "spline_t0": list(runtime["spline_t0"]),
+        "spline_dt": list(runtime["spline_dt"]),
+        "spline_n_eval": [sp.n for sp in spec.splines],
+        "data": [{k: v.to(dev) for k, v in d.items()} for d in runtime["data"]],
+    }
+    mask_own = torch.cat([torch.as_tensor(km[:seg].reshape(-1)) for km in lay["kmask"]]).to(**opts)
+    mask_l = torch.as_tensor(lay["mask_l"][:Lb]).to(**opts)
+    mask_sen = torch.as_tensor(lay["mask_sen"]).to(**opts)
+    d_max = problem.d_max.to(**opts)
+
+    # sensor columns move to [Pk_loc, Pk_loc + ns) of the local layout
+    col_shift = []
+    for layout in layouts:
+        shift = np.zeros(layout.C, np.int64)
+        if layout.sensor_off >= 0:
+            shift[layout.sensor_off: layout.sensor_off + SENSOR_TANGENT_DIM] = (
+                Pk_loc - spec_local.sensor_offset)
+        col_shift.append(torch.as_tensor(shift, device=dev))
+
+    def whitened_blocks(state):
+        """(cost, blocks, mask_l): each bucket's robust-whitened compressed
+        rows ``Jw``, ``rw``, columns in the local layout, anchors and (camera
+        rows) the landmark column, slot and slot-in-anchor. Lock masks are
+        applied after assembly, in pair-block space."""
+        cost = torch.zeros((), **opts)
+        blocks = []
+        for bspec, data, shift in zip(spec_local.buckets, rt["data"], col_shift):
+            r, J, cols, J_rho = bucket_terms(spec_local, bspec, rt, state, data)
+            c, rho_p = _bucket_cost(bspec, data, r)
+            cost = cost + c
+            sq = torch.sqrt(rho_p)
+            blk = {"rw": r * sq[:, None], "Jw": J * sq[:, None, None],
+                   "cols": cols + shift[None, :], "anchor": data["anchor"]}
+            if J_rho is not None:
+                blk["J_rho"] = J_rho * sq[:, None] * mask_l[data["lid"]][:, None]
+                blk["lid"] = data["lid"]
+                blk["lrel"] = data["lrel"]
+            blocks.append(blk)
+        return cost, blocks, mask_l
+
+    # ---- banded reduced system ---------------------------------------------
+    G, sbG, nbloc, LaMax = lay["G"], lay["sbG"], lay["nbloc"], lay["LaMax"]
+    BD = sum(tds)
+    GBD = G * BD
+    WB = 2 * GBD + ns
+    sub_off = np.concatenate([[0], np.cumsum(tds)[:-1]]).astype(np.int64)
+
+    # permutations between the per-spline-contiguous ("ps") and the
+    # knot-interleaved banded layouts of the owned knot tangents
+    ps_of_band = np.zeros(seg * BD, dtype=np.int64)
+    for si, td in enumerate(tds):
+        k, j = np.meshgrid(np.arange(seg), np.arange(td), indexing="ij")
+        ps_of_band[(k * BD + sub_off[si] + j).ravel()] = (own_off[si] + k * td + j).ravel()
+    band_of_ps = np.zeros_like(ps_of_band)
+    band_of_ps[ps_of_band] = np.arange(len(ps_of_band))
+    ps_of_band = torch.as_tensor(ps_of_band, device=dev)
+    band_of_ps = torch.as_tensor(band_of_ps, device=dev)
+
+    tables = [dict(perm=torch.as_tensor(t["perm"][0], device=dev),
+                   pmask=torch.as_tensor(t["pmask"][0]).to(**opts).reshape(nbloc, t["Ma"]),
+                   Ma=t["Ma"]) for t in lay["banded_tables"]]
+    lid_slot = torch.as_tensor(lay["lid_of_slot"][0], device=dev)
+    smask = torch.as_tensor(lay["smask"][0]).to(**opts)
+    smask_a = smask.reshape(nbloc, LaMax)
+    slots = torch.arange(LaMax, device=dev)
+
+    # lock mask of each anchor's pair window: H = M J^T J M, g = M J^T r,
+    # E = E M, applied to the assembled blocks instead of to every row
+    mb = mask_own[ps_of_band].reshape(nbloc, GBD)
+    mask_w = torch.cat([mb, torch.cat([mb[1:], torch.zeros(1, GBD, **opts)]),
+                        mask_sen[None, :].expand(nbloc, ns)], dim=1)
+
+    def colrel(blk, layout):
+        """Pair-window-relative column ids aligned with ``Jw``'s C axis: knot
+        columns -> banded id - anchor * GBD in [0, 2 GBD); sensor columns
+        -> 2 GBD + slot."""
+        cols = blk["cols"]
+        M = cols.shape[0]
+        parts = []
+        for off, si, W, td in layout.windows:
+            k0 = (cols[:, off] - int(own_off[si])) // td
+            w = torch.arange(W, device=dev)
+            j = torch.arange(td, device=dev)
+            b = (k0[:, None, None] + w[None, :, None]) * BD + int(sub_off[si]) + j[None, None, :]
+            parts.append(b.reshape(M, W * td))
+        rel = torch.cat(parts, dim=1) - (blk["anchor"] * GBD)[:, None]
+        if layout.sensor_off >= 0:
+            so = layout.sensor_off
+            rel = torch.cat([rel, cols[:, so: so + SENSOR_TANGENT_DIM] - Pk_loc + 2 * GBD], dim=1)
+        return rel.contiguous()
+
+    def dense_rows(blk, layout):
+        """Kernel B6: the rows as dense pair-window rows [M, rdim, WB]."""
+        return onehot_expand_rows(blk["Jw"].contiguous(), colrel(blk, layout), WB)
+
+    def assemble_band(blocks):
+        """Lock-masked pair-block assembly ``{Pa, ga, Ea, Da, gla}``; it
+        depends only on the linearization, so the speculative loop carries
+        it and re-solves it with a new damping on a rejected step."""
+        Pa = torch.zeros(nbloc, WB, WB, **opts)
+        ga = torch.zeros(nbloc, WB, **opts)
+        Ea = torch.zeros(nbloc, LaMax, WB, **opts)
+        Da = torch.zeros(nbloc, LaMax, **opts)
+        gla = torch.zeros(nbloc, LaMax, **opts)
+        for blk, layout, t in zip(blocks, layouts, tables):
+            Jd = dense_rows(blk, layout)
+            Ma, perm, pm = t["Ma"], t["perm"], t["pmask"]
+            rdim = Jd.shape[1]
+            Jg = Jd[perm].reshape(nbloc, Ma, rdim, WB).mul_(pm[:, :, None, None])
+            del Jd
+            rg = blk["rw"][perm].reshape(nbloc, Ma, rdim) * pm[:, :, None]
+            Pa = Pa + torch.einsum("amrw,amrv->awv", Jg, Jg)
+            ga = ga + torch.einsum("amrw,amr->aw", Jg, rg)
+            if "J_rho" in blk:
+                Jr = blk["J_rho"][perm].reshape(nbloc, Ma, rdim) * pm[:, :, None]
+                lrel = blk["lrel"][perm].reshape(nbloc, Ma)
+                ohL = (lrel[:, :, None] == slots).to(dtype) * pm[:, :, None]
+                A = torch.einsum("amr,amrw->amw", Jr, Jg)
+                Ea = Ea + torch.einsum("aml,amw->alw", ohL, A)
+                Da = Da + torch.einsum("aml,am->al", ohL, torch.sum(Jr * Jr, dim=2))
+                gla = gla + torch.einsum("aml,am->al", ohL, torch.sum(Jr * rg, dim=2))
+        Pa = Pa * mask_w[:, :, None] * mask_w[:, None, :]
+        return dict(Pa=Pa, ga=ga * mask_w, Ea=Ea * mask_w[:, None, :], Da=Da, gla=gla)
+
+    def fold(blocks_a):
+        """[nbloc, ..., WB-part] pair quantities -> per-superblock sums: the
+        anchor's first half plus the previous anchor's second half."""
+        out = blocks_a[0].clone()
+        out[1:] += blocks_a[1][:-1]
+        return out
+
+    def eliminate(asm, mask_l, lam, state):
+        """Damping diagonals from the pair blocks (pre-elimination, as the
+        exact-Schur path damps), landmark elimination in slot space, and the
+        fold into the band ``(Dd, U)``, the sensor border and the right-hand
+        sides. Returns the context of the later stages."""
+        Pa, ga, Ea, Da, gla = (asm[k] for k in ("Pa", "ga", "Ea", "Da", "gla"))
+        diagPa = torch.diagonal(Pa, dim1=1, dim2=2)
+        diag_band = fold((diagPa[:, :GBD], diagPa[:, GBD:2 * GBD])).reshape(-1)
+        diag_sen = diagPa[:, 2 * GBD:].sum(0)
+        g_band_raw = fold((ga[:, :GBD], ga[:, GBD:2 * GBD])).reshape(-1)
+        g_sen_raw = ga[:, 2 * GBD:].sum(0)
+
+        # bound active set: freeze rho = 0 slots with an outward gradient
+        rho_slots = state["rho"][lid_slot].reshape(nbloc, LaMax)
+        free_slots = 1.0 - ((rho_slots <= 0.0) & (gla > 0.0)).to(dtype)
+        mask_l_slots = mask_l[lid_slot].reshape(nbloc, LaMax) * smask_a * free_slots
+        D_d_slots = Da + lam * torch.clamp(Da, 1e-6, 1e32) + (1.0 - mask_l_slots)
+        w_slots = smask_a * free_slots / D_d_slots
+        Ew = Ea * w_slots[:, :, None]
+        Pe = Pa - torch.einsum("alw,alv->awv", Ew, Ea)
+        ge = ga - torch.einsum("alw,al->aw", Ew, gla)
+
+        Dband = fold((Pe[:, :GBD, :GBD], Pe[:, GBD:2 * GBD, GBD:2 * GBD]))
+        Uband = Pe[:, :GBD, GBD:2 * GBD]
+        Bown = fold((Pe[:, 2 * GBD:, :GBD], Pe[:, 2 * GBD:, GBD:2 * GBD]))  # [sbG, ns, GBD]
+        gband = fold((ge[:, :GBD], ge[:, GBD:2 * GBD])).reshape(-1)
+        mask_band = mask_own[ps_of_band]
+        damp = lam * torch.clamp(diag_band, 1e-6, 1e32) + (1.0 - mask_band)
+        Dd = Dband + torch.diag_embed(damp.reshape(sbG, GBD))
+        Bloc = Bown.permute(1, 0, 2).reshape(ns, sbG * GBD)
+        rhs = torch.cat([-gband[:, None], Bloc.T], dim=1).reshape(sbG, GBD, 1 + ns)
+        return dict(Dd=Dd, Uband=Uband, rhs=rhs, Bloc=Bloc,
+                    Csen=Pe[:, 2 * GBD:, 2 * GBD:].sum(0), gsen=ge[:, 2 * GBD:].sum(0),
+                    diag_sen=diag_sen, g_band_raw=g_band_raw, g_sen_raw=g_sen_raw,
+                    mask_band=mask_band, mask_l_slots=mask_l_slots, D_d_slots=D_d_slots,
+                    Pa_raw=Pa, Ea=Ea, Da=Da, gla=gla)
+
+    def band_solve(ctx):
+        """The block-tridiagonal Cholesky solve, [sbG * GBD, 1 + ns]."""
+        return block_tridiag_solve(ctx["Dd"], ctx["Uband"], ctx["rhs"]).reshape(sbG * GBD, -1)
+
+    def sensor_solve(ctx, sol, lam):
+        """The sensors' Schur complement (ns x ns) and the band step."""
+        y = sol[:, 0]
+        if not ns:
+            return y * ctx["mask_band"], torch.zeros(0, **opts)
+        X, Bloc = sol[:, 1:], ctx["Bloc"]
+        damp_s = lam * torch.clamp(ctx["diag_sen"], 1e-6, 1e32) + (1.0 - mask_sen)
+        Ssen = ctx["Csen"] + torch.diag(damp_s) - Bloc @ X
+        rhs_s = -ctx["gsen"] - Bloc @ y
+        x_sen = torch.linalg.solve(Ssen, rhs_s) * mask_sen
+        return (y - X @ x_sen) * ctx["mask_band"], x_sen
+
+    def slot_sum(v):
+        """Slot-space values -> [Lb] per landmark (unused slots add 0)."""
+        return torch.zeros(Lb, **opts).index_add_(
+            0, lid_slot, torch.where(smask > 0, v.reshape(-1), 0.0))
+
+    def back_substitute(ctx, x_band, x_sen, state):
+        """Landmark back-substitution in slot space and the predicted
+        decrease ``-(g.d + d.H d / 2)`` and max |gradient| from the
+        assembled (pre-elimination) blocks. Returns ``(dc, dl, pred,
+        gmax)`` with ``dc = (owned knot step, sensor step)``."""
+        dc_own = x_band[band_of_ps] * mask_own
+        xb = dc_own[ps_of_band].reshape(nbloc, GBD)
+        dcw = torch.cat([xb, torch.cat([xb[1:], torch.zeros(1, GBD, **opts)]),
+                         x_sen[None, :].expand(nbloc, ns)], dim=1)
+        Edc_slots = torch.einsum("alw,aw->al", ctx["Ea"], dcw)
+        dl_slots = -(ctx["gla"] + Edc_slots) / ctx["D_d_slots"] * ctx["mask_l_slots"]
+        # projected landmark step (rho >= 0), so pred is the step taken
+        rho = state["rho"]
+        dl = torch.clamp(rho + slot_sum(dl_slots), min=0.0) - rho
+
+        g_own = ctx["g_band_raw"][band_of_ps]
+        gl = slot_sum(ctx["gla"])
+        gTd = g_own @ dc_own + ctx["g_sen_raw"] @ x_sen + gl @ dl
+        # H = sum_a S_a^T Pa_a S_a with S_a dc = dcw_a
+        dHd = torch.einsum("aw,awv,av->", dcw, ctx["Pa_raw"], dcw)
+        dHd = dHd + 2.0 * (dl @ slot_sum(Edc_slots)) + dl @ (slot_sum(ctx["Da"]) * dl)
+        pred = -(gTd + 0.5 * dHd)
+        gmax = torch.maximum(g_own.abs().max(), gl.abs().max())
+        if ns:
+            gmax = torch.maximum(gmax, ctx["g_sen_raw"].abs().max())
+        return (dc_own, x_sen), dl, pred, gmax
+
+    def solve_band_from_asm(asm, mask_l, lam, state):
+        """Damped banded solve of the assembled pair blocks: ``(dc, dl,
+        pred, gmax)``."""
+        ctx = eliminate(asm, mask_l, lam, state)
+        x_band, x_sen = sensor_solve(ctx, band_solve(ctx), lam)
+        return back_substitute(ctx, x_band, x_sen, state)
+
+    def retract_local(state, dc, dl):
+        dc_own, dc_sen = dc
+        new = dict(state)
+        for si, sp in enumerate(spec.splines):
+            blk = dc_own[own_off[si]: own_off[si + 1]].reshape(seg, tds[si])
+            new[sp.kind] = retract_window(sp.kind, state[sp.kind], blk)
+        if S:
+            sens = dc_sen.reshape(S, SENSOR_TANGENT_DIM)
+            new["q_ct"] = quat.qmul(se3m.so3_exp_quat(sens[:, 0:3]), state["q_ct"])
+            new["p_ct"] = state["p_ct"] + sens[:, 3:6]
+            new["d"] = torch.clamp(state["d"] + sens[:, 6], -d_max, d_max)
+            new["abias"] = state["abias"] + sens[:, 7:10]
+            new["gbias"] = state["gbias"] + sens[:, 10:13]
+        new["rho"] = torch.clamp(state["rho"] + dl, min=0.0)
+        return new
+
+    def cost_local(state):
+        """The cost from the rows' residuals alone (B3 for camera rows)."""
+        cost = torch.zeros((), **opts)
+        for bspec, data in zip(spec_local.buckets, rt["data"]):
+            r = bucket_terms(spec_local, bspec, rt, state, data, cost_only=True)
+            cost = cost + _bucket_cost(bspec, data, r)[0]
+        return cost
+
+    def lin0(state):
+        """(cost, assembly, mask_l): the speculative loop's carried
+        linearization."""
+        cost, blocks, ml = whitened_blocks(state)
+        return cost, assemble_band(blocks), ml
+
+    def step_spec(state, lin, lam):
+        """Solve from the carried assembly, then linearize and assemble the
+        candidate: its cost is the re-cost, so an accepted iteration streams
+        the rows once, and a rejected one re-solves the carried band."""
+        _, asm, ml = lin
+        dc, dl, pred, _ = solve_band_from_asm(asm, ml, lam, state)
+        new_state = retract_local(state, dc, dl)
+        return new_state, lin0(new_state), pred
+
+    def step_local(state, lam):
+        cost, blocks, ml = whitened_blocks(state)
+        dc, dl, pred, gmax = solve_band_from_asm(assemble_band(blocks), ml, lam, state)
+        new_state = retract_local(state, dc, dl)
+        return cost, new_state, cost_local(new_state), pred, (dc, dl), gmax
+
+    nk, nk_pad, L = lay["nk"], lay["nk_pad"], lay["L"]
+    lid_to_padded = torch.as_tensor(lay["lid_to_padded"], device=dev)
+
+    def to_sharded(state):
+        """Global state -> the shard's: knots padded to ``nk_pad`` with
+        copies of the last knot, inverse depths in landmark slots."""
+        st = {k: v.to(dev) for k, v in state.items()}
+        for sp in spec.splines:
+            arr = st[sp.kind]
+            pad = nk_pad - arr.shape[0]
+            if pad:
+                st[sp.kind] = torch.cat([arr, arr[-1:].expand(pad, -1)])
+        rho_p = torch.zeros(lay["n"] * Lb, dtype=st["rho"].dtype, device=dev)
+        if L:
+            rho_p[lid_to_padded] = st["rho"]
+        st["rho"] = rho_p
+        return st
+
+    def to_global(st):
+        out = dict(st)
+        for sp in spec.splines:
+            out[sp.kind] = st[sp.kind][:nk]
+        out["rho"] = st["rho"][lid_to_padded] if L else st["rho"][:0]
+        return out
+
+    # the entry points' parts, and the stages that chip_smoke.py times apart
+    return dict(
+        spec_local=spec_local, runtime=rt, layouts=layouts, WB=WB,
+        whitened_blocks=whitened_blocks, colrel=colrel, dense_rows=dense_rows,
+        assemble_band=assemble_band, eliminate=eliminate, band_solve=band_solve,
+        sensor_solve=sensor_solve, back_substitute=back_substitute,
+        retract_local=retract_local, cost_local=cost_local, lin0_local=lin0,
+        step_spec_local=step_spec, step_local=step_local, to_sharded=to_sharded,
+        to_global=to_global,
+    )
+
+
+def make_segment_ba_step(problem, n_shards=1, mode="banded"):
+    """``step(state, lam) -> (cost, new_state, new_cost, pred, grad_max)``
+    and ``total_cost(state)`` of the segment x landmark layout (the JAX
+    package's ``make_segment_ba_step`` with its mesh replaced by
+    ``n_shards``; the problem's device runs it, and states are global). ``cg_tol``/``cg_maxiter`` belong to the PCG mode, which is not
+    ported."""
+    b = _build_segment_ba(problem, n_shards, mode)
+
+    def step(state, lam):
+        cost, new_st, new_cost, pred, _, gmax = b["step_local"](b["to_sharded"](state), lam)
+        return cost, b["to_global"](new_st), new_cost, pred, gmax
+
+    def total_cost(state):
+        return b["cost_local"](b["to_sharded"](state))
+
+    return step, total_cost
+
+
+def make_segment_ba_solver(problem, n_shards=1, max_iterations=50, function_tolerance=1e-6,
+                           mode="banded"):
+    """LM with the segment x landmark layout, banded mode: the speculative
+    trust-region loop (``solver.lm.trust_region_loop_spec``) on the carried
+    ``(cost, assembly, mask_l)``. Returns ``solve(state) -> (state,
+    final_cost, iterations_run)`` with global states."""
+    b = _build_segment_ba(problem, n_shards, mode)
+
+    def solve(state):
+        st = b["to_sharded"](state)
+        st, cost, it = trust_region_loop_spec(
+            b["step_spec_local"], b["lin0_local"](st), st,
+            max_iterations=max_iterations, function_tolerance=function_tolerance,
+        )
+        return b["to_global"](st), cost, it
+
+    return solve

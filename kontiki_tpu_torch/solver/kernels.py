@@ -74,6 +74,15 @@ def retract_window(kind, win, delta):
     return se3m.se3_pack(quat.qmul(q, dq), t + quat.qrotate(q, dt))
 
 
+def _spline_n_eval(runtime, si, sp):
+    """Clamp bound of spline ``si``'s window bases: its knot count, except
+    where the runtime names another (``spline_n_eval``): the segment-BA
+    layout's local knot arrays run past the real spline end into pad knots,
+    and out-of-range times must still take the real spline's last window."""
+    ne = runtime.get("spline_n_eval")
+    return ne[si] if ne is not None else sp.n
+
+
 # ---------------------------------------------------------------------------
 # camera rows: kernels B1 and B3
 # ---------------------------------------------------------------------------
@@ -103,8 +112,8 @@ def _camera_inputs(spec, runtime, state, data):
     for si, sp in enumerate(spec.splines):
         t0, dt = runtime["spline_t0"][si], runtime["spline_dt"][si]
         for tag, t in times.items():
-            # window base: floor on the primal, clamped to [0, n - 4]
-            i0, u = ev.index_and_u(t, t0, dt, sp.n)
+            # window base: floor on the primal, clamped to [0, n_eval - 4]
+            i0, u = ev.index_and_u(t, t0, dt, _spline_n_eval(runtime, si, sp))
             suffix = "" if se3 else f"_{sp.kind}"
             win = ev.gather_windows(state[sp.kind], i0)
             ins[f"win_{tag}{suffix}"] = win.reshape(M, -1).T.contiguous()
@@ -119,6 +128,8 @@ def _camera_inputs(spec, runtime, state, data):
     ins["uv_obs"] = data["uv_obs"].T.contiguous()
     ins["weight"] = data["weight"][None, :].contiguous()
     ins["K"] = data["K"].reshape(M, 9).T.contiguous()
+    if "valid" in data:
+        ins["valid"] = data["valid"][None, :].contiguous()
     cfg = dict(kind="se3" if se3 else "split", r3_first=not se3 and kinds[0] == "r3")
     return cfg, ins, i0s
 
@@ -168,7 +179,7 @@ def _imu_inputs(spec, bspec, runtime, state, data):
     ins, i0s = {}, []
     for si, sp in enumerate(spec.splines):
         t0, dt = runtime["spline_t0"][si], runtime["spline_dt"][si]
-        i0, u = ev.index_and_u(te, t0, dt, sp.n)
+        i0, u = ev.index_and_u(te, t0, dt, _spline_n_eval(runtime, si, sp))
         win = ev.gather_windows(state[sp.kind], i0)
         i0s.append(i0)
         ins[f"win_{sp.kind}"] = win.reshape(M, -1).T.contiguous()
@@ -246,7 +257,8 @@ def _imu_rows(spec, bspec, runtime, state, data, cost_only=False):
     d0 = state["d"][sid]
     # window base from the current time offset (windows re-center each
     # linearization), floor on the primal
-    i_base = torch.clamp(torch.floor((data["t"] + d0 - t0) / dt).long(), 0, sp.n - W)
+    i_base = torch.clamp(torch.floor((data["t"] + d0 - t0) / dt).long(), 0,
+                         _spline_n_eval(runtime, 0, sp) - W)
     knots = state[sp.kind]
     win = ev.gather_windows(knots, i_base)
     gravity = torch.as_tensor(GRAVITY, dtype=knots.dtype, device=knots.device)

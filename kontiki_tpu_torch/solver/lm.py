@@ -62,6 +62,16 @@ def trust_region_update(cost, new_cost, pred, mu, dec, *, function_tolerance,
     return ok, mu, dec, done
 
 
+def _select(ok, a, b):
+    """``b`` where ``ok`` else ``a``, leaf by leaf over nested dicts, tuples
+    and lists of tensors (``torch.where``, no host read)."""
+    if isinstance(a, dict):
+        return {k: _select(ok, a[k], b[k]) for k in a}
+    if isinstance(a, (tuple, list)):
+        return type(a)(_select(ok, x, y) for x, y in zip(a, b))
+    return torch.where(ok, b, a)
+
+
 def trust_region_loop(one_step, cost0, state, *, max_iterations,
                       function_tolerance):
     """Classic LM loop. ``one_step(state, lam)`` returns ``(cost, new_state,
@@ -91,9 +101,11 @@ def trust_region_loop_spec(step_spec, lin0, state, *, max_iterations,
     """Speculative-linearization LM loop.
 
     ``step_spec(state, lin, lam) -> (new_state, new_lin, pred)`` and
-    ``lin0`` is the linearization at ``state`` with ``lin0[0]`` its cost.
-    Returns ``(state, final_cost, iterations_run)``; the iterate sequence is
-    the JAX loop's."""
+    ``lin0`` is the linearization at ``state`` with ``lin0[0]`` its cost;
+    the rest of ``lin`` may nest dicts and tuples of tensors (the banded
+    segment-BA step carries ``(cost, assembly dict, mask_l)``). Returns
+    ``(state, final_cost, iterations_run)``; the iterate sequence is the
+    JAX loop's."""
     lin = lin0
     mu = torch.full_like(lin[0], 1e4)
     dec = torch.full_like(lin[0], 2.0)
@@ -105,8 +117,8 @@ def trust_region_loop_spec(step_spec, lin0, state, *, max_iterations,
             cost, new_lin[0], pred, mu, dec,
             function_tolerance=function_tolerance,
         )
-        state = {k: torch.where(ok, new_state[k], v) for k, v in state.items()}
-        lin = tuple(torch.where(ok, b, a) for a, b in zip(lin, new_lin))
+        state = _select(ok, state, new_state)
+        lin = _select(ok, lin, new_lin)
         it += 1
         if bool(done):
             break

@@ -18,6 +18,10 @@ and moved to ``device`` once, floats as ``dtype`` and indices as int64.
 - **Ceres-style counts** (``num_parameters``, ``num_residual_blocks``, ...)
   fill the solver's ``Summary``; ``write_back`` copies a state into the
   trajectory, sensor and landmark objects.
+
+``RawProblem`` builds the same attributes straight from struct-of-arrays
+(BASELINE config 5's scale, where one Python object per observation is
+itself the bottleneck).
 """
 import math
 from dataclasses import dataclass, field
@@ -146,6 +150,16 @@ def _activate_spans(t1, t2, t0, dt, nknots):
     return (np.cumsum(diff[:-1]) > 0).astype(np.uint8)
 
 
+def as_tensor(a, device, dtype):
+    """An array (numpy, or a tensor on any device) as a tensor on
+    ``device``: integers as int64, floats as ``dtype``."""
+    if torch.is_tensor(a):
+        a = a.detach().cpu().numpy()
+    a = np.array(a)  # a writable copy: numpy views of JAX arrays are read-only
+    dtype = torch.int64 if np.issubdtype(a.dtype, np.integer) else dtype
+    return torch.as_tensor(a, device=device).to(dtype)
+
+
 class Problem:
     """Compiled estimation problem on ``device`` (the CUDA card unless
     another is named) in ``dtype``."""
@@ -248,9 +262,7 @@ class Problem:
     # tangent layout + state
     # ------------------------------------------------------------------
     def _tensor(self, a):
-        a = np.asarray(a)
-        dtype = torch.int64 if np.issubdtype(a.dtype, np.integer) else self.dtype
-        return torch.as_tensor(a, device=self.device).to(dtype)
+        return as_tensor(a, self.device, self.dtype)
 
     def _layout(self):
         offset = 0
@@ -445,3 +457,116 @@ class Problem:
                 sensor.gyroscope_bias = state["gbias"][i]
         for li, lm in enumerate(self.landmarks):
             lm.inverse_depth = float(state["rho"][li])
+
+
+# ---------------------------------------------------------------------------
+# raw (array-level) problems
+# ---------------------------------------------------------------------------
+
+@dataclass
+class RawSplineInfo:
+    """Array-backed stand-in for ``SplineInfo`` (no trajectory object)."""
+
+    kind: str
+    n: int
+    t0: float
+    dt: float
+    tangent_offset: int = 0
+
+    @property
+    def knot_dim(self):
+        return KNOT_DIMS[self.kind]
+
+    @property
+    def tangent_dim(self):
+        return TANGENT_DIMS[self.kind]
+
+
+@dataclass
+class RawBucket:
+    """Array-backed stand-in for ``Bucket``: data arrays only, no objects."""
+
+    kind: str
+    M: int
+    rdim: int
+    data: Dict[str, object] = field(default_factory=dict)
+    window: Dict[str, int] = field(default_factory=dict)
+    camera_cls: Optional[type] = None
+
+
+class RawProblem:
+    """A compiled problem built directly from arrays (counterpart of
+    ``kontiki_tpu.solver.problem.RawProblem``), with the attributes the
+    solver layers read (``problem_spec``, ``problem_runtime``,
+    ``parallel.segments_ba``), on ``device`` (the CUDA card unless another
+    is named) in ``dtype``.
+
+    ``splines``: list of ``(kind, knots [n, D], t0, dt)``; ``buckets``: dict
+    key -> ``RawBucket`` (data complete, windows set; arrays or tensors,
+    placed on ``device`` here, integers as int64); ``sensors``: state arrays
+    ``{q_ct [S, 4], p_ct [S, 3], d [S], abias, gbias}`` plus ``mask [S, 13]``
+    tangent mask rows and ``d_max [S]``; ``rho [L]`` initial inverse depths,
+    ``landmark_mask [L]`` (default all free). Knots are all free. The state
+    carries an empty ``vt`` (lifting rows are not ported)."""
+
+    def __init__(self, splines, buckets, sensors, rho, landmark_mask=None,
+                 device=None, dtype=default_dtype):
+        self.device = resolve_device(device)
+        self.dtype = dtype
+        self.splines = []
+        state = {}
+        offset = 0
+        for kind, knots, t0, dt in splines:
+            knots = np.asarray(knots, dtype=np.float64)
+            info = RawSplineInfo(kind, knots.shape[0], float(t0), float(dt), offset)
+            offset += info.n * info.tangent_dim
+            self.splines.append(info)
+            state[kind] = knots
+        self.sensor_offset = offset
+        S = int(np.asarray(sensors["q_ct"]).shape[0])
+        offset += S * SENSOR_TANGENT_DIM
+        self.landmark_offset = offset
+        L = int(np.asarray(rho).shape[0])
+        offset += L
+        self.vt_offset = offset
+        self.num_tangent = offset
+
+        for k in ("q_ct", "p_ct", "d", "abias", "gbias"):
+            state[k] = np.asarray(sensors.get(k, np.zeros((S, 3) if k != "d" else S)),
+                                  dtype=np.float64)
+        state["rho"] = np.asarray(rho, dtype=np.float64)
+        state["vt"] = np.zeros(0)
+        self.state0 = {k: self._tensor(v) for k, v in state.items()}
+        self.d_max = self._tensor(np.asarray(sensors.get("d_max", np.zeros(max(S, 1))),
+                                             dtype=np.float64))
+
+        mask = np.zeros(self.num_tangent)
+        for sp in self.splines:
+            mask[sp.tangent_offset: sp.tangent_offset + sp.n * sp.tangent_dim] = 1.0
+        smask = np.asarray(sensors.get("mask", np.zeros((S, SENSOR_TANGENT_DIM))),
+                           dtype=np.float64)
+        mask[self.sensor_offset: self.sensor_offset + S * SENSOR_TANGENT_DIM] = smask.reshape(-1)
+        lmask = np.ones(L) if landmark_mask is None else np.asarray(landmark_mask, np.float64)
+        mask[self.landmark_offset: self.landmark_offset + L] = lmask
+        self.mask = self._tensor(mask)
+
+        self.buckets = {}
+        for key, b in buckets.items():
+            data = {k: self._tensor(v) for k, v in b.data.items()}
+            self.buckets[key] = RawBucket(b.kind, b.M, b.rdim, data, dict(b.window),
+                                          b.camera_cls)
+        # len()-able stand-ins for the object lists
+        self.sensors = list(range(S))
+        self.landmarks = list(range(L))
+
+        self.num_residual_blocks = sum(b.M for b in self.buckets.values())
+        self.num_residuals = sum(b.M * b.rdim for b in self.buckets.values())
+        self.num_residual_blocks_reduced = self.num_residual_blocks
+        self.num_residuals_reduced = self.num_residuals
+        self.num_parameters = self.num_tangent
+        self.num_parameter_blocks = sum(sp.n for sp in self.splines) + 3 * S + L
+        self.num_parameters_reduced = int(np.count_nonzero(mask > 0))
+        self.num_parameter_blocks_reduced = self.num_parameter_blocks
+
+    def _tensor(self, a):
+        return as_tensor(a, self.device, self.dtype)

@@ -1,8 +1,9 @@
 """Synthetic problem generators (counterpart of ``kontiki_tpu.synthetic``):
 the gyro-only SO3 fit of BASELINE config 1, the IMU fusion on a split
 R3 + SO3 trajectory of config 2, the rolling-shutter SfM on a split
-trajectory of config 3 and the SE3 rolling-shutter visual-inertial problem
-of config 4.
+trajectory of config 3, the SE3 rolling-shutter visual-inertial problem
+of config 4 and the array-level bundle adjustment of config 5
+(``make_big_ba_problem``, a ``RawProblem``).
 
 Random draws come from ``numpy.random.default_rng(seed)`` in the same order
 as the JAX package, so both packages build the same problem from one seed.
@@ -346,6 +347,157 @@ def make_rsvi_problem(
         landmarks=landmarks,
         measurements=measurements,
     )
+
+
+def make_big_ba_problem(
+    n_views=1000,
+    n_landmarks=10_000,
+    obs_per_landmark=5,
+    fps=30.0,
+    knot_dt=0.1,
+    imu_rate=0.0,
+    seed=0,
+    readout=0.02,
+    rows=480,
+    cols=640,
+    sigma_p=0.01,
+    sigma_q=0.005,
+    perturb_rho=0.05,
+    noise_px=0.0,
+    device=None,
+):
+    """BASELINE config 5 at scale: array-level rolling-shutter BA on a split
+    R3 + SO3 trajectory, built as a ``solver.problem.RawProblem`` on
+    ``device`` (None: the CUDA card) without per-observation objects.
+
+    Each landmark is observed in its reference view and the
+    ``obs_per_landmark`` frames after it; the rolling-shutter row time of
+    every (landmark, view) pair is solved by 25 fixed-point steps on the CPU,
+    so observations are exactly self-consistent (weight 0 where the point
+    is behind the camera, out of the image or unconverged). ``imu_rate``
+    adds ideal gyro and accel rows from a second sensor. The numpy draws
+    are the JAX package's, in its order (uv, z, pixel noise, knot noise,
+    axis, angle, rho), so one seed gives both packages the same arrays.
+
+    Returns a dict with ``problem``, ``true_trajectory``, ``trajectory``
+    (the perturbed start), the span ``t1``/``t2`` and ``n_obs``."""
+    from .sensors import PinholeCamera
+    from .solver.problem import RawBucket, RawProblem
+
+    rng = np.random.default_rng(seed)
+    span = (n_views - 1) / fps
+    true_traj = make_split_trajectory(span + 1.5, dt=knot_dt, seed=seed, speed=0.3, wmag=0.2)
+    t_first = 0.5
+    t0s = t_first + np.arange(n_views) / fps
+
+    K = np.array([[500.0, 0.0, 0.5 * cols], [0.0, 500.0, 0.5 * rows], [0.0, 0.0, 1.0]])
+    Kinv = np.linalg.inv(K)
+
+    L, k = n_landmarks, obs_per_landmark
+    ref_idx = (np.arange(L) * max(n_views - k - 1, 1) // max(L, 1)).astype(np.int64)
+    ref_idx = np.minimum(ref_idx, n_views - k - 1)
+    uv_ref = np.stack(
+        [rng.uniform(0.05 * cols, 0.95 * cols, L), rng.uniform(0.05 * rows, 0.95 * rows, L)],
+        axis=1,
+    )
+    z_ref = rng.uniform(2.0, 20.0, L)
+    yh_ref = np.concatenate([uv_ref, np.ones((L, 1))], axis=1) @ Kinv.T
+
+    # world points through the (identity-relative-pose) camera at the exact
+    # rolling-shutter reference row time
+    res = true_traj._eval_t(t0s[ref_idx] + uv_ref[:, 1] * readout / rows, device="cpu")
+    X_world = quat.qrotate(res["orientation"], torch.from_numpy(z_ref[:, None] * yh_ref)) \
+        + res["position"]
+
+    # observation views: the k frames after the reference; the row-time
+    # fixed point over all (landmark, view) pairs
+    t0_obs = t0s[ref_idx[:, None] + 1 + np.arange(k)[None, :]]  # [L, k]
+    Kt = torch.from_numpy(K)
+    Xw = X_world[:, None, :]
+    v = torch.full((L, k), 0.5 * rows, dtype=torch.float64)
+    for _ in range(25):
+        t = torch.from_numpy(t0_obs) + v * readout / rows
+        r = true_traj._eval_t(t.reshape(-1).numpy(), device="cpu")
+        q = r["orientation"].reshape(L, k, 4)
+        p = r["position"].reshape(L, k, 3)
+        h = quat.qrotate(quat.qconj(q), Xw - p) @ Kt.T
+        z = h[..., 2]
+        uv = h[..., :2] / torch.where(torch.abs(z) < 1e-12, 1e-12, z)[..., None]
+        v = torch.clamp(uv[..., 1], 0.0, rows - 1e-6)
+    ok = (torch.abs(uv[..., 1] - v) < 1e-8) & (z > 0.2)
+    ok = (ok & (uv[..., 0] >= 0) & (uv[..., 0] < cols)).numpy()
+    uv = uv.numpy()
+
+    M = L * k
+    uv_obs = uv.reshape(M, 2)
+    if noise_px:
+        uv_obs = uv_obs + rng.normal(scale=noise_px, size=(M, 2))
+    cam_data = {
+        "sid": np.zeros(M, dtype=np.int64),
+        "lid": np.repeat(np.arange(L, dtype=np.int64), k),
+        "uv_obs": uv_obs,
+        "v_obs": uv_obs[:, 1],
+        "t0_obs": t0_obs.reshape(M),
+        "t0_ref": np.repeat(t0s[ref_idx], k),
+        "v_ref": np.repeat(uv_ref[:, 1], k),
+        "yh_ref": np.repeat(yh_ref, k, axis=0),
+        "readout": np.full(M, readout),
+        "rows": np.full(M, float(rows)),
+        "K": np.broadcast_to(K, (M, 3, 3)),
+        "weight": ok.reshape(M).astype(np.float64),
+        "huber_c": np.full(M, 5.0),
+    }
+    r3, so3 = true_traj.R3_spline, true_traj.SO3_spline
+    W_cam = 4 + int(np.ceil(readout / knot_dt)) + 1
+    buckets = {
+        "rs_static:PinholeCamera": RawBucket(
+            kind="rs_static:PinholeCamera", M=M, rdim=2, data=cam_data,
+            window={"r3": W_cam, "so3": W_cam}, camera_cls=PinholeCamera,
+        )
+    }
+    n_sensors = 1
+    if imu_rate:
+        ts = np.arange(t_first, t_first + span + readout, 1.0 / imu_rate)
+        w_b, a_b = _body_imu(true_traj, ts)
+        for key, y in (("gyro", w_b), ("accel", a_b)):
+            data = {"t": ts, "y": y, "weight": np.ones(len(ts)),
+                    "sid": np.ones(len(ts), dtype=np.int64)}
+            buckets[key] = RawBucket(kind=key, M=len(ts), rdim=3, data=data,
+                                     window={"r3": 4, "so3": 4})
+        n_sensors = 2
+
+    # perturbed initial state
+    traj = true_traj.clone()
+    knots_p = r3.knots + rng.normal(scale=sigma_p, size=(len(r3), 3))
+    axis = rng.normal(size=(len(so3), 3))
+    axis /= np.linalg.norm(axis, axis=1, keepdims=True)
+    ang = rng.normal(scale=sigma_q, size=(len(so3), 1))
+    dq = np.concatenate([np.cos(ang / 2), np.sin(ang / 2) * axis], axis=1)
+    knots_q = quat.qmul(torch.from_numpy(dq), torch.from_numpy(so3.knots)).numpy()
+    knots_q /= np.linalg.norm(knots_q, axis=1, keepdims=True)
+    traj.R3_spline.set_knots(knots_p)
+    traj.SO3_spline.set_knots(knots_q)
+
+    rho0 = 1.0 / z_ref
+    if perturb_rho:
+        rho0 = np.maximum(rho0 * (1.0 + rng.normal(scale=perturb_rho, size=L)), 1e-4)
+
+    S = n_sensors
+    sensors = {
+        "q_ct": np.tile(np.array([1.0, 0, 0, 0]), (S, 1)),
+        "p_ct": np.zeros((S, 3)),
+        "d": np.zeros(S),
+        "abias": np.zeros((S, 3)),
+        "gbias": np.zeros((S, 3)),
+        "mask": np.zeros((S, 13)),
+        "d_max": np.zeros(S),
+    }
+    problem = RawProblem(
+        splines=[("r3", knots_p, r3.t0, r3.dt), ("so3", knots_q, so3.t0, so3.dt)],
+        buckets=buckets, sensors=sensors, rho=rho0, device=device,
+    )
+    return dict(problem=problem, true_trajectory=true_traj, trajectory=traj,
+                t1=float(t0s[0]), t2=float(t0s[-1]), n_obs=M)
 
 
 def trajectory_ate(traj_a, traj_b, t1, t2, n=200, align=False):

@@ -15,7 +15,11 @@ B1's on the card to 1e-12 in float64. The query kernels B5 and B7 take
 1e-12 in float64 for R3 values (the same basis sums in another order) and
 1e-10 for the SO3/SE3 chains (forward mode in the time shift against the
 plain closed forms), 1e-4 in float32 (each side rounds at ~1e-6 along a
-chain of ~10^2 operations; the derivatives scale by 1/dt^2)."""
+chain of ~10^2 operations; the derivatives scale by 1/dt^2). B6 (one-hot
+row expansion) adds at most two entries per output and equals its plain
+version exactly; the segment-BA step on the card equals the port's on the
+CPU to 1e-9 relative (B1's and the band solve's float64 roundoff through a
+reduced system of condition ~1e6)."""
 import numpy as np
 import pytest
 import torch
@@ -24,6 +28,7 @@ from kontiki_tpu_torch import TrajectoryEstimator, synthetic
 from kontiki_tpu_torch.ops import assembly_kernels as ak
 from kontiki_tpu_torch.ops import linearize_kernels as lk
 from kontiki_tpu_torch.ops import spline_kernels as sk
+from kontiki_tpu_torch.parallel.segments_ba import make_segment_ba_step
 from kontiki_tpu_torch.trajectories import SplitTrajectory, spline_eval
 from kontiki_tpu_torch.solver import kernels
 from kontiki_tpu_torch.solver.lm import make_fused_solver
@@ -300,3 +305,64 @@ def test_pose_estimator_on_cuda_matches_cpu(cuda):
                                             function_tolerance=0.0)
     for g, c in zip(summaries[None].iterations, summaries["cpu"].iterations):
         np.testing.assert_allclose(g.cost, c.cost, rtol=1e-8)
+
+
+def _expand_inputs(M, dtype, device, WB=109, C=61, seed=0):
+    """Random B6 inputs: each row draws its ids from [-1, WB] with every id
+    at most twice, so duplicates and both kinds of out-of-range id occur
+    (and, as in camera rows, no id more than twice)."""
+    g = torch.Generator().manual_seed(seed)
+    Jw = torch.randn(M, 2, C, generator=g, dtype=torch.float64).to(dtype)
+    pool = torch.rand(M, 2 * (WB + 2), generator=g).argsort(dim=1)[:, :C]
+    return Jw.to(device), (pool // 2 - 1).to(device)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("M", [0, 1, 300, 1037])
+def test_onehot_expand_kernel_matches_plain(cuda, M, dtype):
+    Jw, rel = _expand_inputs(M, dtype, cuda)
+    before = lk.onehot_expand_rows.launches
+    got = lk.onehot_expand_rows(Jw, rel, 109)
+    torch.cuda.synchronize()
+    assert lk.onehot_expand_rows.launches == before + (M > 0)
+    assert got.shape == (M, 2, 109) and got.dtype == dtype
+    assert torch.equal(got, lk.onehot_expand_rows_plain(Jw, rel, 109))
+
+
+def test_onehot_expand_kernel_wide_rows(cuda):
+    """A pair window wider than the 48 KB of default shared memory per
+    block of rows (one float64 row of 2 x 4,000 columns)."""
+    Jw, rel = _expand_inputs(37, torch.float64, cuda, WB=4000)
+    got = lk.onehot_expand_rows(Jw, rel, 4000)
+    assert torch.equal(got, lk.onehot_expand_rows_plain(Jw, rel, 4000))
+
+
+def test_onehot_expand_cuda_never_takes_the_plain_path(cuda, monkeypatch):
+    def forbidden(*args, **kwargs):
+        raise AssertionError("the plain version ran for a CUDA tensor")
+
+    monkeypatch.setattr(lk, "onehot_expand_rows_plain", forbidden)
+    Jw, rel = _expand_inputs(64, torch.float64, cuda)
+    lk.onehot_expand_rows(Jw, rel, 109)
+    with pytest.raises(ValueError):
+        lk.onehot_expand_rows(Jw, rel.to(torch.int32), 109)
+
+
+@pytest.mark.parametrize("imu_rate", [0.0, 50.0])
+def test_segment_ba_step_on_cuda_matches_cpu(cuda, imu_rate):
+    out = {}
+    for device in (cuda, "cpu"):
+        big = synthetic.make_big_ba_problem(n_views=40, n_landmarks=120, obs_per_landmark=4,
+                                            seed=11, imu_rate=imu_rate, device=device)
+        step, total_cost = make_segment_ba_step(big["problem"])
+        before = (lk.onehot_expand_rows.launches, lk.linearize_rows.split_launches)
+        out[str(device)] = step(big["problem"].state0, 1e-4) + (
+            total_cost(big["problem"].state0),)
+        after = (lk.onehot_expand_rows.launches, lk.linearize_rows.split_launches)
+        if device == cuda:
+            assert after == (before[0] + 1 + (imu_rate > 0) * 2, before[1] + 1)
+    gpu, cpu = out["cuda"], out["cpu"]
+    for i in (0, 2, 3, 4, 5):
+        np.testing.assert_allclose(gpu[i].item(), cpu[i].item(), rtol=1e-9)
+    for k, v in cpu[1].items():
+        np.testing.assert_allclose(gpu[1][k].cpu().numpy(), v.numpy(), rtol=0, atol=1e-9)

@@ -20,7 +20,10 @@ def test_import_with_jax_blocked():
         "from kontiki_tpu_torch.trajectories import spline_eval, splines\n"
         "from kontiki_tpu_torch.measurements import PositionMeasurement, "
         "OrientationMeasurement\n"
-        "from kontiki_tpu_torch.interop import trajectory_from_numpy\n"
+        "from kontiki_tpu_torch.interop import trajectory_from_numpy, raw_problem_from_numpy\n"
+        "from kontiki_tpu_torch.solver import banded\n"
+        "from kontiki_tpu_torch.parallel import segments_ba, make_segment_ba_solver\n"
+        "from kontiki_tpu_torch.ops.linearize_kernels import onehot_expand_rows\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'kontiki_tpu.')) "
         "for m in sys.modules if sys.modules[m] is not None)\n"
     )
