@@ -82,7 +82,30 @@ Phases, in order; any failure exits non-zero without the final line:
     6-iteration ``make_segment_ba_solver`` (exact B1/B6 launches, final
     cost against the JAX package's, iterations per second, peak device
     memory), one iteration's breakdown, and the solution's ATE through B5
-    against the JAX package's.
+    against the JAX package's;
+19. config 3-atan and config 3-atan-lifting (config 3's generator with the
+    atan camera, static or lifting rows) built through the entry points:
+    structure against the JAX package's; B1 on their rows; B1 and B3 on
+    all eight window x camera x rows branches against their plain
+    versions in float64 and float32 (split on those two problems' rows,
+    SE3 on ``make_rsvi_problem(nviews=64, nlandmarks=200, imu_rate=200.0,
+    seed=4, trajectory="se3", camera_kind="atan", rs="lifting")``'s camera
+    rows, a branch without the atan or lifting inputs on the same rows
+    with them dropped), B3 against B1's residual, each branch's time,
+    bound and plain time; B2 on the lifting bucket (rdim 3, C 62, the
+    row times in the reduced system) against its plain version beside
+    cuBLAS;
+20. both through ``make_fused_solver(strategy="schur")``: initial and
+    1-iteration costs against the JAX package's (1e-9), an untimed
+    warm-up, the timed 25-iteration solve (final cost against the JAX
+    package's, 1e-6; exact B1/B2/B3 launches per branch), then
+    ``TrajectoryEstimator.solve`` on both against the JAX package's (costs,
+    Summary counts with the row-time blocks, steps, launches, per-phase
+    times, the row times written back into the lifting measurements) and
+    the solution's ATE through B5.
+
+The JAX values of phases 19-20 come from ``JAX_PLATFORMS=cpu python3
+tools/atan_lifting_reference.py``.
 
 Each path's launch counts are set to 0 just before its timed solve and
 read just after. A kernel's bound is the larger of its bytes (each input
@@ -162,6 +185,52 @@ CAMERA_CONFIGS = {
                      cost1=JAX_COST_CONFIG3_1, final_ratio=FINAL_RATIO_CONFIG3),
 }
 
+# Config 3-atan and config 3-atan-lifting: config 3's generator with the atan
+# camera (synthetic.make_camera("atan")) and static or lifting rows. The atan
+# unprojection of the reference pixels moves landmarks, so fewer rows stay
+# in view than in config 3. Their structure and costs in float64 from the
+# JAX package on the CPU (tools/atan_lifting_reference.py): the Schur
+# linearization's cost at state0 and the final costs of make_fused_solver(
+# problem, n, function_tolerance=0.0, strategy="schur") for n = 1 and 25.
+# The data are pinhole projections fitted with the atan model: the first
+# steps are rejected and the cost stays far from 0, so the 25-iteration
+# cost is held to the JAX package's, not to a ratio.
+ATAN_CONFIGS = {
+    "config 3-atan": dict(
+        kwargs=dict(CONFIG3, camera_kind="atan", rs="static"),
+        shape={"rs_static": 3837, "num_tangent": 269},
+        cost0=1324749.7362606903, cost1=1324749.7362606898, cost25=451487.0914830953),
+    "config 3-atan-lifting": dict(
+        kwargs=dict(CONFIG3, camera_kind="atan", rs="lifting"),
+        shape={"rs_lifting": 3837, "num_tangent": 4106},
+        cost0=1324749.7362606903, cost1=1324749.7362606898, cost25=512470.0554649725),
+}
+CAMERA_CONFIGS.update(ATAN_CONFIGS)
+ATAN_COST_RTOL = {"cost0": 1e-9, "cost1": 1e-9, "cost25": 1e-6}
+# TrajectoryEstimator(trajectory).solve(max_iterations=10, progress=False,
+# function_tolerance=0.0) on both, from the JAX package on the CPU: initial,
+# iteration-1 and final costs, the Summary's counts (ATAN_SUMMARY_COUNTS),
+# successful and unsuccessful steps, the sum, min and max of the
+# written-back row times (lifting), and the unaligned ATE (n = 200 on
+# [0.5, 0.5 + 31/30)) of the start and of the written-back trajectory.
+JAX_ATAN_ESTIMATOR = {
+    "config 3-atan": dict(
+        cost0=1324749.7362606903, cost1=1324749.7362606903, final=607058.109140536,
+        counts=(215, 155, 207, 152, 7674, 3837, 7674, 3837), steps=(6, 4),
+        ate_start=0.02545798811149049, ate=0.57226192233863),
+    "config 3-atan-lifting": dict(
+        cost0=1324749.7362606903, cost1=1324749.7362606903, final=598157.5916397376,
+        counts=(4052, 3992, 4044, 3989, 11511, 3837, 11511, 3837), steps=(6, 4),
+        vt=(1924.4958160466497, 0.0, 0.9994522909799352), ate_start=0.02545798811149049,
+        ate=0.5689597300651952),
+}
+ATAN_SUMMARY_COUNTS = ("num_parameters", "num_parameter_blocks", "num_parameters_reduced",
+                       "num_parameter_blocks_reduced", "num_residuals", "num_residual_blocks",
+                       "num_residuals_reduced", "num_residual_blocks_reduced")
+# The SE3 rows of the eight-branch check: config 4's generator with the atan
+# camera and lifting rows (camera rows only; no solve).
+SE3_ATAN_LIFTING = dict(CONFIG4, camera_kind="atan", rs="lifting")
+
 # BASELINE configs 1 and 2 (bench.py config1/config2), their structure as
 # the JAX package builds it, and their costs in float64 from the JAX package
 # on the CPU: total_cost at state0 and the final cost of
@@ -232,6 +301,13 @@ TOL = {
     # residual y - body cancels
     ("imu_rows", torch.float64): 1e-10,
     ("imu_rows", torch.float32): 1e-4,
+    # B1 and B3 on each window x camera x rows branch: the same formulas in
+    # another order in f64; in f32 each side rounds at ~1e-7 along the chain
+    # (the rows' residuals are ~1e1-1e2 px, so the r cancellation stays mild)
+    ("linearize_rows branch", torch.float64): 1e-12,
+    ("linearize_rows branch", torch.float32): 1e-4,
+    ("cost_rows branch", torch.float64): 1e-12,
+    ("cost_rows branch", torch.float32): 1e-4,
     # camera-row cost: B1's primal chain without the Jacobian's
     # cancellations; and B3 against B1's residual on the same inputs
     ("cost_rows", torch.float64): 1e-10,
@@ -364,7 +440,9 @@ def reset_counts():
 
     lk.linearize_rows.launches = 0
     lk.linearize_rows.split_launches = 0
+    lk.linearize_rows.branch_launches.clear()
     lk.cost_rows.launches = 0
+    lk.cost_rows.branch_launches.clear()
     ak.assemble_schur_blocks.launches = 0
     lk.imu_rows.launches = 0
     lk.imu_rows.cost_launches = 0
@@ -389,6 +467,8 @@ def read_counts():
         **{f"evaluate_windows {k}": n for k, n in lk.evaluate_windows.launches.items()},
         "r3_evaluate_kernel": sk.r3_evaluate_kernel.launches,
         "onehot_expand_rows": lk.onehot_expand_rows.launches,
+        **{f"linearize_rows {b}": n for b, n in lk.linearize_rows.branch_launches.items()},
+        **{f"cost_rows {b}": n for b, n in lk.cost_rows.branch_launches.items()},
     }
     for name, n in counts.items():
         MAIN_PATH_LAUNCHES[name] = MAIN_PATH_LAUNCHES.get(name, 0) + n
@@ -491,11 +571,12 @@ def phase_b1(problem):
             out["ms"] = cuda_ms(lambda: lk.linearize_rows(cfg, x))
             out["plain_ms"] = cuda_ms(lambda: lk.linearize_rows_plain(cfg, x), reps=5)
             M = x["u_ref"].shape[1]
-            nbytes = 8 * M * (n_inputs(cfg, x) + lk.RDIM * (lk.C + 2))
+            rdim, C = lk.camera_shape(cfg)
+            nbytes = 8 * M * (n_inputs(cfg, x) + rdim * (C + 2))
             ops = lk.linearize_rows_ops(cfg, x)
             out["bound_ms"], out["bound_by"] = bound(nbytes, ops)
             out["library_ms"] = None  # no single PyTorch call computes B1
-            print(f"  linearize_rows {cfg['kind']} f64 M={M}: kernel {out['ms']:.3f} ms, "
+            print(f"  linearize_rows {lk.camera_branch(cfg)} f64 M={M}: kernel {out['ms']:.3f} ms, "
                   f"plain {out['plain_ms']:.3f} ms, bound {out['bound_ms']:.4f} ms by "
                   f"{out['bound_by']} ({nbytes} bytes, {ops} operations)", flush=True)
     return out
@@ -507,7 +588,7 @@ def camera_rows(problem):
 
     spec = kernels.problem_spec(problem)
     runtime = kernels.problem_runtime(problem)
-    (cam,) = [i for i, b in enumerate(spec.buckets) if b.kind == "rs_static"]
+    (cam,) = [i for i, b in enumerate(spec.buckets) if b.kind in kernels.CAMERA_KINDS]
     return kernels._camera_inputs(spec, runtime, problem.state0, runtime["data"][cam])[:2]
 
 
@@ -540,7 +621,7 @@ def phase_b3(problems):
             out = dict(max_abs_err=err)
             out["ms"] = cuda_ms(lambda: lk.cost_rows(cfg, x))
             out["plain_ms"] = cuda_ms(lambda: lk.cost_rows_plain(cfg, x), reps=5)
-            nbytes = 8 * M * (n_inputs(cfg, x) + lk.RDIM)
+            nbytes = 8 * M * (n_inputs(cfg, x) + lk.camera_shape(cfg)[0])
             ops = lk.cost_rows_ops(cfg, x)
             out["bound_ms"], out["bound_by"] = bound(nbytes, ops)
             out["library_ms"] = None  # no single PyTorch call computes B3
@@ -566,7 +647,7 @@ def phase_b2(problem):
     out = {}
     for bspec, data in zip(spec.buckets, runtime["data"]):
         _, rows = whitened_rows(spec, bspec, runtime, problem.state0, data, mask_l)
-        with_rho = bspec.kind == "rs_static"
+        with_rho = bspec.kind in kernels.CAMERA_KINDS
         for dtype in (torch.float64, torch.float32):
             x = tuple(a.to(dtype) if a.is_floating_point() else a for a in rows)
             kw = dict(P=Pc, L=L, with_rho=with_rho)
@@ -603,8 +684,10 @@ def phase_b2(problem):
 
 
 def phase_solve(name, problem):
-    """Configs 3/4 ('auto' -> Schur): initial and 1-iteration costs against
-    the JAX package, a warm-up solve, then the timed 25-iteration solve."""
+    """Configs 3/4 and 3-atan(-lifting) ('auto' -> Schur): initial and
+    1-iteration costs against the JAX package, a warm-up solve, then the
+    timed 25-iteration solve."""
+    from kontiki_tpu_torch.ops import linearize_kernels as lk
     from kontiki_tpu_torch.solver import kernels
     from kontiki_tpu_torch.solver.lm import make_fused_solver
     from kontiki_tpu_torch.solver.schur import build_schur_parts
@@ -615,10 +698,13 @@ def phase_solve(name, problem):
     cost0 = build_schur_parts(spec)["linearize"](runtime, problem.state0)[0].item()
     _, cost1, _ = make_fused_solver(problem, 1, function_tolerance=0.0)(problem.state0)
     cost1 = cost1.item()
-    for what, got, want in (("initial", cost0, cfg["cost0"]), ("1-iteration", cost1, cfg["cost1"])):
+    atan = name in ATAN_CONFIGS
+    for what, got, key in (("initial", cost0, "cost0"), ("1-iteration", cost1, "cost1")):
+        want, tol = cfg[key], ATAN_COST_RTOL[key] if atan else COST_RTOL
         rel = abs(got - want) / want
-        print(f"{name}: {what} cost {got!r} (JAX {want!r}, rel {rel:.2e})", flush=True)
-        if not rel <= COST_RTOL:
+        print(f"{name}: {what} cost {got!r} (JAX {want!r}, rel {rel:.2e}, tol {tol:.0e})",
+              flush=True)
+        if not rel <= tol:
             fail(f"{name}: {what} cost differs from the JAX package by {rel:.2e}")
 
     solve = make_fused_solver(problem, 25, function_tolerance=0.0)
@@ -642,18 +728,190 @@ def phase_solve(name, problem):
     for k, v in state.items():
         if v.shape != problem.state0[k].shape or not torch.isfinite(v).all():
             fail(f"{name}: final state {k}: bad shape or non-finite values")
-    if not (math.isfinite(ratio) and ratio <= cfg["final_ratio"]):
+    if atan:
+        rel = abs(cost - cfg["cost25"]) / cfg["cost25"]
+        print(f"{name}: 25-iteration cost {cost!r} (JAX {cfg['cost25']!r}, rel {rel:.2e}, "
+              f"tol {ATAN_COST_RTOL['cost25']:.0e})", flush=True)
+        if not rel <= ATAN_COST_RTOL["cost25"]:
+            fail(f"{name}: 25-iteration cost differs from the JAX package by {rel:.2e}")
+    elif not (math.isfinite(ratio) and ratio <= cfg["final_ratio"]):
         fail(f"{name}: final/initial cost {ratio:.3e} > {cfg['final_ratio']:.0e}")
     if iters != 25:
         fail(f"{name}: ran {iters} iterations, expected 25")
-    # the speculative loop linearizes state0 and each iteration's candidate
+    if spec.num_vt and not (0.0 <= state["vt"].min().item() <= state["vt"].max().item() <= 1.0):
+        fail(f"{name}: row times left [0, 1]")
+    # the speculative loop linearizes state0 and each iteration's candidate,
+    # all on the camera bucket's branch
     split = spec.splines[0].kind != "se3"
+    branch = lk.camera_branch(camera_rows(problem)[0])
     want = {"linearize_rows": iters + 1, "linearize_rows split": (iters + 1) * split,
+            f"linearize_rows {branch}": iters + 1,
             "assemble_schur_blocks": (iters + 1) * len(spec.buckets)}
-    got = {k: launches[k] for k in want}
+    got = {k: launches.get(k, 0) for k in want}
     if got != want:
         fail(f"{name}: launches {got}, expected {want}")
+    if spec.num_vt:
+        count_rdim3(launches)
     return launches
+
+
+def count_rdim3(launches):
+    """Main-path B2 launches on the lifting bucket (rdim 3, C 62): the
+    config 3-atan-lifting phases' only bucket."""
+    MAIN_PATH_LAUNCHES["assemble_schur_blocks rdim 3"] = (
+        MAIN_PATH_LAUNCHES.get("assemble_schur_blocks rdim 3", 0)
+        + launches["assemble_schur_blocks"])
+
+
+def branch_inputs(problems):
+    """(cfg, ins) on the card of every B1/B3 branch: split static branches
+    on config 3-atan's rows, split lifting on config 3-atan-lifting's, SE3
+    on SE3_ATAN_LIFTING's camera rows; a branch without the atan or lifting
+    inputs takes its problem's rows with them dropped."""
+    from kontiki_tpu_torch.ops import linearize_kernels as lk
+    from kontiki_tpu_torch.solver.problem import Problem
+    from kontiki_tpu_torch.synthetic import make_rsvi_problem
+
+    t0 = time.time()
+    prob = make_rsvi_problem(**SE3_ATAN_LIFTING)
+    se3 = Problem(prob["trajectory"], prob["measurements"])
+    print(f"SE3 atan lifting rows: {time.time() - t0:.1f} s on the host", flush=True)
+    sources = {("split", False): camera_rows(problems["config 3-atan"]),
+               ("split", True): camera_rows(problems["config 3-atan-lifting"]),
+               ("se3", False): camera_rows(se3), ("se3", True): camera_rows(se3)}
+    out = {}
+    for (kind, lifting), (cfg, ins) in sources.items():
+        for camera in ("PinholeCamera", "AtanCamera"):
+            c = dict(cfg, camera=camera, lifting=lifting, rdim=2 + lifting, C=61 + lifting)
+            names = {slot[0] for slot in lk.camera_inputs(c) if slot is not None}
+            out[lk.camera_branch(c)] = (c, {k: v for k, v in ins.items() if k in names})
+    return out
+
+
+def phase_branches(branches):
+    """B1 and B3 on each branch against their plain versions (f64, f32)
+    and B3 against B1's residual; per branch and kernel its error, times
+    and bound."""
+    from kontiki_tpu_torch.ops import linearize_kernels as lk
+
+    out = {}
+    for branch, (cfg, ins) in branches.items():
+        M = ins["u_ref"].shape[1]
+        rdim, C = lk.camera_shape(cfg)
+        print(f"  branch {branch}: M={M}, rdim {rdim}, C {C}", flush=True)
+        for dtype in (torch.float64, torch.float32):
+            x = {k: v.to(dtype).contiguous() for k, v in ins.items()}
+            got = lk.linearize_rows(cfg, x)
+            r = lk.cost_rows(cfg, x)
+            torch.cuda.synchronize()
+            err1 = compare("linearize_rows branch", dtype, ("r", "J", "J_rho"), got,
+                           lk.linearize_rows_plain(cfg, x))
+            err3 = compare("cost_rows branch", dtype, ("r",), (r,),
+                           (lk.cost_rows_plain(cfg, x),))
+            if dtype != torch.float64:
+                continue
+            compare("cost_rows vs linearize_rows", dtype, ("r",), (r,), (got[0],))
+            n_in = n_inputs(cfg, x)
+            for kernel, fn, plain, err, n_out, ops in (
+                    ("linearize_rows", lk.linearize_rows, lk.linearize_rows_plain, err1,
+                     rdim * (C + 2), lk.linearize_rows_ops(cfg, x)),
+                    ("cost_rows", lk.cost_rows, lk.cost_rows_plain, err3, rdim,
+                     lk.cost_rows_ops(cfg, x))):
+                rec = dict(max_abs_err=err, ms=cuda_ms(lambda: fn(cfg, x)),
+                           plain_ms=cuda_ms(lambda: plain(cfg, x), reps=5))
+                nbytes = 8 * M * (n_in + n_out)
+                rec["bound_ms"], rec["bound_by"] = bound(nbytes, ops)
+                rec["library_ms"] = None  # no single PyTorch call computes B1 or B3
+                out[kernel, branch] = rec
+                print(f"  {kernel} {branch} f64 M={M}: kernel {rec['ms']:.4f} ms, plain "
+                      f"{rec['plain_ms']:.3f} ms, bound {rec['bound_ms']:.5f} ms by "
+                      f"{rec['bound_by']} ({nbytes} bytes, {ops} operations)", flush=True)
+    return out
+
+
+def phase_atan_estimator(name, prob):
+    """``TrajectoryEstimator`` on config 3-atan's or 3-atan-lifting's
+    measurement objects (on the card by default): the Summary against the
+    JAX package's, the row times written back, the solution's ATE through
+    B5."""
+    from kontiki_tpu_torch import TrajectoryEstimator
+    from kontiki_tpu_torch.solver import kernels
+    from kontiki_tpu_torch.solver.lm import solve as lm_solve
+    from kontiki_tpu_torch.solver.problem import Problem
+    from kontiki_tpu_torch.synthetic import trajectory_ate
+
+    ref = JAX_ATAN_ESTIMATOR[name]
+    lifting = "vt" in ref
+    truth, span = prob["true_trajectory"], (0.5, 0.5 + 31 / 30)
+    ate_start = trajectory_ate(prob["trajectory"], truth, *span)
+    estimator = TrajectoryEstimator(prob["trajectory"])
+    for m in prob["measurements"]:
+        estimator.add_measurement(m)
+    t0 = time.perf_counter()
+    lm_solve(Problem(prob["trajectory"], prob["measurements"]), max_iterations=1)
+    torch.cuda.synchronize()
+    print(f"{name} estimator: warm-up solve {time.perf_counter() - t0:.3f} s", flush=True)
+    reset_counts()
+    t0 = time.perf_counter()
+    summary = estimator.solve(max_iterations=10, progress=False, function_tolerance=0.0)
+    seconds = time.perf_counter() - t0
+    launches = read_counts()
+    if lifting:
+        count_rdim3(launches)
+    n = len(summary.iterations) - 1
+    print(f"{name} estimator: {summary.BriefReport()}; {n} iterations in {seconds:.3f} s "
+          f"(with problem build and write-back); launches {launches}", flush=True)
+    times = (("jacobian", summary.jacobian_evaluation_time_in_seconds),
+             ("linear solver", summary.linear_solver_time_in_seconds),
+             ("residual", summary.residual_evaluation_time_in_seconds))
+    print(f"{name} estimator per-phase times per iteration: "
+          + ", ".join(f"{k} {1e3 * v / max(n, 1):.3f} ms" for k, v in times), flush=True)
+    for what, got, key, tol in (("initial", summary.initial_cost, "cost0", 1e-9),
+                                ("iteration-1", summary.iterations[1].cost, "cost1", 1e-9),
+                                ("final", summary.final_cost, "final", 1e-6)):
+        rel = abs(got - ref[key]) / ref[key]
+        print(f"{name} estimator: {what} cost {got!r} (JAX {ref[key]!r}, rel {rel:.2e}, "
+              f"tol {tol:.0e})", flush=True)
+        if not rel <= tol:
+            fail(f"{name} estimator: {what} cost differs from the JAX package by {rel:.2e}")
+    counts = tuple(getattr(summary, k) for k in ATAN_SUMMARY_COUNTS)
+    steps = (summary.num_successful_steps, summary.num_unsuccessful_steps)
+    print(f"{name} estimator: counts {counts}, steps {steps} (JAX {ref['counts']}, "
+          f"{ref['steps']})", flush=True)
+    if counts != ref["counts"] or steps != ref["steps"]:
+        fail(f"{name} estimator: Summary counts or steps differ from the JAX package's")
+    branch = f"split atan {'lifting' if lifting else 'static'}"
+    want = {f"cost_rows {branch}": n, f"linearize_rows {branch}": n,
+            "assemble_schur_blocks": n}
+    got = {k: launches.get(k, 0) for k in want}
+    if got != want:
+        fail(f"{name} estimator: launches {got}, expected {want} for {n} iterations")
+    # the row times land in the measurements; rebuilt, the objects cost the final state
+    if lifting:
+        vt = torch.tensor([m.vt for m in prob["measurements"]], dtype=torch.float64)
+        stats = (vt.sum().item(), vt.min().item(), vt.max().item())
+        print(f"{name} estimator: written-back row times sum/min/max {stats} (JAX "
+              f"{ref['vt']})", flush=True)
+        if not (abs(stats[0] - ref["vt"][0]) <= 1e-6 * ref["vt"][0]
+                and all(abs(a - b) <= 1e-6 for a, b in zip(stats[1:], ref["vt"][1:]))):
+            fail(f"{name} estimator: written-back row times differ from the JAX package's")
+    problem = Problem(prob["trajectory"], prob["measurements"])
+    spec = kernels.problem_spec(problem)
+    written = kernels.total_cost(spec, kernels.problem_runtime(problem), problem.state0).item()
+    if not abs(written - summary.final_cost) <= 1e-9 * summary.initial_cost:
+        fail(f"{name} estimator: the written-back objects do not hold the final state "
+             f"({written!r} vs {summary.final_cost!r})")
+    reset_counts()
+    ate = trajectory_ate(prob["trajectory"], truth, *span)
+    check_launches(f"{name} ATE", read_counts(),
+                   {"evaluate_windows r3": 2, "evaluate_windows so3": 2})
+    for what, got, key in (("start", ate_start, "ate_start"), ("solution", ate, "ate")):
+        rel = abs(got - ref[key]) / ref[key]
+        print(f"{name}: ATE vs truth on {span}, {what}: {got!r} (JAX {ref[key]!r}, rel "
+              f"{rel:.2e})", flush=True)
+        if not rel <= 1e-6:
+            fail(f"{name}: {what} ATE differs from the JAX package's by {rel:.2e}")
+    return dict(times, iterations=n)
 
 
 def imu_problem(name):
@@ -1251,6 +1509,20 @@ def phase_config5_rows(problem):
             ms_c = cuda_ms(lambda: lk.cost_rows(cfg, x))
             print(f"  config 5 camera rows M={M} f64: linearize_rows split {ms:.3f} ms, "
                   f"cost_rows {ms_c:.4f} ms", flush=True)
+            # their bounds at these rows: bytes of the rows' inputs and outputs,
+            # operations counted by the host row code in parallel chunks
+            rdim, C = lk.camera_shape(cfg)
+            for kernel, kms, n_out, count in (
+                    ("linearize_rows split", ms, rdim * (C + 2), lk.linearize_rows_ops),
+                    ("cost_rows", ms_c, rdim, lk.cost_rows_ops)):
+                nbytes = 8 * M * (n_inputs(cfg, x) + n_out)
+                ops = lk.count_in_chunks(
+                    lambda a, b: count(cfg, {k: v[:, a:b].contiguous() for k, v in x.items()}),
+                    M)
+                b_ms, b_by = bound(nbytes, ops)
+                print(f"  config 5 {kernel} f64 M={M}: kernel {kms:.4f} ms, bound "
+                      f"{b_ms:.4f} ms by {b_by} ({nbytes} bytes, {ops} operations)",
+                      flush=True)
         del got, got_c, x
 
 
@@ -1460,6 +1732,13 @@ def main():
     b1_split = phase_b1(problem3)
     b3 = phase_b3({"config 3": problem3, "config 4": problem4})
     phase_solve("config 3", problem3)
+    atan = {name: phase_problem(name) for name in ATAN_CONFIGS}
+    branches = phase_branches(branch_inputs({name: p for name, (_, p) in atan.items()}))
+    b2_lifting = phase_b2(atan["config 3-atan-lifting"][1])
+    for name, (_, p) in atan.items():
+        phase_solve(name, p)
+    for name, (prob, _) in atan.items():
+        phase_atan_estimator(name, prob)
     imu = {name: imu_problem(name) for name in IMU_CONFIGS}
     b4 = phase_b4(imu)
     for name, p in imu.items():
@@ -1480,20 +1759,34 @@ def main():
     n = MAIN_PATH_LAUNCHES
     print(f"main-path launches: {n}", flush=True)
     b1_source = dict(route="cuda", source="kontiki_tpu_torch/csrc/linearize_rows.cu")
+    atan_source = dict(route="cuda", source="kontiki_tpu_torch/csrc/linearize_rows_atan.cu")
     kernels = [
         dict(name="linearize_rows", **b1_source,
              replaces="kontiki_tpu/ops/linearize_kernels.py:682",
-             launches=n["linearize_rows"] - n["linearize_rows split"], **b1),
+             launches=n.get("linearize_rows se3 pinhole static", 0), **b1),
         dict(name="linearize_rows (split)", **b1_source,
              replaces="kontiki_tpu/ops/linearize_kernels.py:682",
-             launches=n["linearize_rows split"], **b1_split),
+             launches=n.get("linearize_rows split pinhole static", 0), **b1_split),
+        *[dict(name=f"{kernel} (split, atan{', lifting' if rows == 'lifting' else ''})",
+               **atan_source,
+               replaces=("kontiki_tpu/ops/linearize_kernels.py:682"
+                         if kernel == "linearize_rows"
+                         else "kontiki_tpu/ops/linearize_kernels.py:1220"),
+               launches=n.get(f"{kernel} split atan {rows}", 0),
+               **branches[kernel, f"split atan {rows}"])
+          for kernel in ("linearize_rows", "cost_rows") for rows in ("static", "lifting")],
+        dict(name="assemble_schur_blocks (rdim 3, C 62)", route="cuda",
+             source="kontiki_tpu_torch/csrc/assemble_schur.cu",
+             replaces="kontiki_tpu/ops/assembly_kernels.py:102",
+             launches=n.get("assemble_schur_blocks rdim 3", 0), **b2_lifting),
         dict(name="assemble_schur_blocks", route="cuda",
              source="kontiki_tpu_torch/csrc/assemble_schur.cu",
              replaces="kontiki_tpu/ops/assembly_kernels.py:102",
              launches=n["assemble_schur_blocks"], **b2),
         dict(name="cost_rows", **b1_source,
              replaces="kontiki_tpu/ops/linearize_kernels.py:1220",
-             launches=n["cost_rows"], **b3),
+             launches=n.get("cost_rows se3 pinhole static", 0)
+             + n.get("cost_rows split pinhole static", 0), **b3),
         dict(name="imu_rows", route="cuda",
              source="kontiki_tpu_torch/csrc/imu_rows.cu",
              replaces="kontiki_tpu/ops/linearize_kernels.py:1601",

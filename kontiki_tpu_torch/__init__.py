@@ -4,11 +4,13 @@ Mirrors the JAX package's module paths and names. It imports torch and never
 jax; the JAX package stays beside it as the reference the port is tested
 against. Users call ``TrajectoryEstimator(trajectory).solve()`` as with the
 reference and read the trajectory back through its queries. The hot kernels
-of the camera solves of configs 3 and 4 (camera-row linearization and cost,
-Schur assembly), of the IMU-fusion solves of configs 1 and 2 (gyro and
-accel rows) and of the trajectory queries (window evaluation, the R3 spline
-at arbitrary times) are hand-written CUDA C++ for Hopper (``csrc/``), each
-beside a plain PyTorch version that runs for CPU tensors.
+of the camera solves of configs 3 and 4 (camera-row linearization and cost
+on pinhole and atan cameras, static and lifting rows; Schur assembly), of
+the IMU-fusion solves of configs 1 and 2 (gyro and accel rows), of config
+5's banded segment BA (one-hot row expansion) and of the trajectory queries
+(window evaluation, the R3 spline at arbitrary times) are hand-written CUDA
+C++ for Hopper (``csrc/``), each beside a plain PyTorch version that runs
+for CPU tensors.
 """
 from . import config  # noqa: F401
 

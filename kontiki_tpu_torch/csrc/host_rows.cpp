@@ -1,4 +1,4 @@
-// The row kernels' per-row code (linearize_rows.cu: B1 and B3; imu_rows.cu:
+// The row kernels' per-row code (camera_rows.cuh: B1 and B3; imu_rows.cu:
 // B4; eval_windows.cu: B5; r3_evaluate.cu: B7), compiled for the host with
 // a plain C++ compiler. Two uses:
 //   - on double, the same row functions the CUDA kernels run, to check the
@@ -89,7 +89,7 @@ inline Counted kt_abs(Counted a) {
 
 #include "eval_windows.cu"
 #include "imu_rows.cu"
-#include "linearize_rows.cu"
+#include "camera_rows.cuh"
 #include "r3_evaluate.cu"
 
 namespace {
@@ -114,58 +114,98 @@ struct CountedInputs {
 
 const int kImuKs[10] = {16, 1, 1, 12, 1, 1, 3, 1, 3, 1};
 
-// Leading sizes of the camera kernels' 17 input slots (Inputs order).
+// Leading sizes of the camera kernels' input slots (Inputs order).
 void camera_ks(int flags, int* ks) {
-  static const int se3[17] = {28, 0, 1, 0, 28, 0, 1, 0, 1, 4, 3, 1, 3, 2, 1, 9, 1};
-  static const int split[17] = {12, 16, 1, 1, 12, 16, 1, 1, 2, 4, 3, 1, 3, 2, 1, 9, 1};
-  for (int i = 0; i < 17; ++i) ks[i] = (flags & kCamSplit) ? split[i] : se3[i];
+  static const int se3[kCameraSlots] = {28, 0, 1, 0, 28, 0, 1, 0, 1, 4, 3, 1,
+                                        3, 2, 1, 9, 2, 1, 1, 1, 1, 1, 1};
+  static const int split[kCameraSlots] = {12, 16, 1, 1, 12, 16, 1, 1, 2, 4, 3, 1,
+                                          3, 2, 1, 9, 2, 1, 1, 1, 1, 1, 1};
+  for (int i = 0; i < kCameraSlots; ++i) ks[i] = (flags & kCamSplit) ? split[i] : se3[i];
 }
 
-template <bool Split>
-void host_linearize(const Inputs<double>& in, double* r, double* J, double* J_rho,
-                    int wide) {
-  for (int m = 0; m < in.M; ++m) {
-    if (wide) {
-      linearize_row<double, Split, 25, 21>(in, m, r, J, J_rho);
-    } else {
-      linearize_row<double, Split>(in, m, r, J, J_rho);
+// Fn::run<Split, Atan, Lifting>(args...) on the flags' branch.
+template <typename Fn, typename... A>
+auto camera_dispatch(int flags, A&&... a) {
+  const bool atan = (flags & kCamAtan) != 0, lifting = (flags & kCamLifting) != 0;
+  if (flags & kCamSplit) {
+    if (atan) {
+      return lifting ? Fn::template run<true, true, true>(a...)
+                     : Fn::template run<true, true, false>(a...);
+    }
+    return lifting ? Fn::template run<true, false, true>(a...)
+                   : Fn::template run<true, false, false>(a...);
+  }
+  if (atan) {
+    return lifting ? Fn::template run<false, true, true>(a...)
+                   : Fn::template run<false, true, false>(a...);
+  }
+  return lifting ? Fn::template run<false, false, true>(a...)
+                 : Fn::template run<false, false, false>(a...);
+}
+
+struct HostLinearize {
+  template <bool Split, bool Atan, bool Lifting>
+  static void run(const Inputs<double>& in, double* r, double* J, double* J_rho,
+                  int wide) {
+    constexpr int NS = RowShape<Lifting>::NS;
+    for (int m = 0; m < in.M; ++m) {
+      if (wide) {
+        linearize_row<double, Split, Atan, Lifting, 25, NS>(in, m, r, J, J_rho);
+      } else {
+        linearize_row<double, Split, Atan, Lifting>(in, m, r, J, J_rho);
+      }
     }
   }
-}
+};
 
-// B1's operations: each row once with one jet per stage (25 and 21 seeds),
-// less the primal windows of stage 1, which the stage-3 jets compute again.
-template <bool Split>
-long long count_linearize(const Inputs<Counted>& in) {
-  const int M = in.M;
-  std::vector<Counted> r(static_cast<size_t>(M) * 2), J_rho(static_cast<size_t>(M) * 2);
-  std::vector<Counted> J(static_cast<size_t>(M) * 2 * kC);
-  g_ops = 0;
-  for (int m = 0; m < M; ++m) {
-    linearize_row<Counted, Split, 25, 21>(in, m, r.data(), J.data(), J_rho.data());
+struct HostCost {
+  template <bool Split, bool Atan, bool Lifting>
+  static void run(const Inputs<double>& in, double* r) {
+    for (int m = 0; m < in.M; ++m) cost_row<double, Split, Atan, Lifting>(in, m, r);
   }
-  const long long total = g_ops;
-  g_ops = 0;
-  const bool r3_first = (in.flags & kCamR3First) != 0;
-  Counted zero[24], out[7];
-  for (int k = 0; k < 24; ++k) zero[k] = Counted(0.0);
-  for (int m = 0; m < M; ++m) {
-    Windows<Counted> w;
-    Row<Counted> row;
-    load_row<Counted, Split>(in, m, w, row);
-    for (int i = 0; i < 2; ++i) window_pq<Counted, Split, Counted>(w, i, r3_first, zero, Counted(0.0), out);
+};
+
+// B1's operations: each row once with one jet per stage (25 and 21 or 22
+// seeds), less the primal windows of stage 1, which the stage-3 jets
+// compute again.
+struct CountLinearize {
+  template <bool Split, bool Atan, bool Lifting>
+  static long long run(const Inputs<Counted>& in) {
+    using Shape = RowShape<Lifting>;
+    const size_t M = static_cast<size_t>(in.M);
+    std::vector<Counted> r(M * Shape::R), J_rho(M * Shape::R), J(M * Shape::R * Shape::C);
+    g_ops = 0;
+    for (int m = 0; m < in.M; ++m) {
+      linearize_row<Counted, Split, Atan, Lifting, 25, Shape::NS>(in, m, r.data(), J.data(),
+                                                                  J_rho.data());
+    }
+    const long long total = g_ops;
+    g_ops = 0;
+    const bool r3_first = (in.flags & kCamR3First) != 0;
+    Counted zero[24], out[7];
+    for (int k = 0; k < 24; ++k) zero[k] = Counted(0.0);
+    for (int m = 0; m < in.M; ++m) {
+      Windows<Counted> w;
+      Row<Counted> row;
+      load_row<Counted, Split, Atan, Lifting>(in, m, w, row);
+      for (int i = 0; i < 2; ++i) {
+        window_pq<Counted, Split, Counted>(w, i, r3_first, zero, Counted(0.0), out);
+      }
+    }
+    return total - g_ops;
   }
-  return total - g_ops;
-}
+};
 
 // B3's operations: each row's primal chain once.
-template <bool Split>
-long long count_cost(const Inputs<Counted>& in) {
-  std::vector<Counted> r(static_cast<size_t>(in.M) * 2);
-  g_ops = 0;
-  for (int m = 0; m < in.M; ++m) cost_row<Counted, Split>(in, m, r.data());
-  return g_ops;
-}
+struct CountCost {
+  template <bool Split, bool Atan, bool Lifting>
+  static long long run(const Inputs<Counted>& in) {
+    std::vector<Counted> r(static_cast<size_t>(in.M) * RowShape<Lifting>::R);
+    g_ops = 0;
+    for (int m = 0; m < in.M; ++m) cost_row<Counted, Split, Atan, Lifting>(in, m, r.data());
+    return g_ops;
+  }
+};
 
 }  // namespace
 
@@ -215,44 +255,34 @@ void kontiki_host_linearize_rows_f64(const double* const* ins, double* r, double
                                      double* J_rho, int M, int flags, int wide) {
   const Inputs<double> in =
       make_inputs<double>(reinterpret_cast<const void* const*>(ins), M, flags);
-  if (flags & kCamSplit) {
-    host_linearize<true>(in, r, J, J_rho, wide);
-  } else {
-    host_linearize<false>(in, r, J, J_rho, wide);
-  }
+  camera_dispatch<HostLinearize>(flags, in, r, J, J_rho, wide);
 }
 
 // B3 row code on double: ins and flags as for kontiki_cost_rows_f64.
 void kontiki_host_cost_rows_f64(const double* const* ins, double* r, int M, int flags) {
   const Inputs<double> in =
       make_inputs<double>(reinterpret_cast<const void* const*>(ins), M, flags);
-  for (int m = 0; m < M; ++m) {
-    if (flags & kCamSplit) {
-      cost_row<double, true>(in, m, r);
-    } else {
-      cost_row<double, false>(in, m, r);
-    }
-  }
+  camera_dispatch<HostCost>(flags, in, r);
 }
 
 // Operations of B1's function on these inputs.
 long long kontiki_count_linearize_rows(const double* const* ins, int M, int flags) {
-  int ks[17];
+  int ks[kCameraSlots];
   camera_ks(flags, ks);
-  CountedInputs c(ins, ks, 17, M);
+  CountedInputs c(ins, ks, kCameraSlots, M);
   const Inputs<Counted> in = make_inputs<Counted>(
       reinterpret_cast<const void* const*>(c.ptrs.data()), M, flags);
-  return (flags & kCamSplit) ? count_linearize<true>(in) : count_linearize<false>(in);
+  return camera_dispatch<CountLinearize>(flags, in);
 }
 
 // Operations of B3's function on these inputs.
 long long kontiki_count_cost_rows(const double* const* ins, int M, int flags) {
-  int ks[17];
+  int ks[kCameraSlots];
   camera_ks(flags, ks);
-  CountedInputs c(ins, ks, 17, M);
+  CountedInputs c(ins, ks, kCameraSlots, M);
   const Inputs<Counted> in = make_inputs<Counted>(
       reinterpret_cast<const void* const*>(c.ptrs.data()), M, flags);
-  return (flags & kCamSplit) ? count_cost<true>(in) : count_cost<false>(in);
+  return camera_dispatch<CountCost>(flags, in);
 }
 
 // B5 row code on double: kind 0 r3 / 1 so3 / 2 se3 (kEval*), win [M, 4, D],

@@ -8,7 +8,8 @@ progress=True, num_threads=-1)`` returning a Ceres-compatible Summary.
 Measurements are recorded here and compiled into device tensors
 (``solver.problem.Problem``) at ``solve()`` time, on the CUDA card unless
 ``device`` names another (``device="cpu"`` runs on the CPU); the solution
-is written back into the trajectory, sensor and landmark objects.
+is written back into the trajectory, sensor and landmark objects, and the
+lifted row times into the ``LiftingRsCameraMeasurement`` objects.
 """
 from ._ceres import CallbackReturnType, Summary, TerminationType  # noqa: F401
 from .config import default_dtype

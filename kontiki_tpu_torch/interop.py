@@ -3,8 +3,10 @@ so both packages compute on the very same numbers.
 
 Convert the JAX side with ``np.asarray`` first (this module never imports
 jax): ``state_from_numpy({k: np.asarray(v) for k, v in problem.state0.items()},
-...)``. Every key is carried as it is, so SE3, R3, SO3 and split states and
-the IMU biases all come across. Floats become ``dtype``, integer index arrays
+...)``. Every key is carried as it is, so SE3, R3, SO3 and split states,
+the IMU biases and the lifted row times ``vt`` all come across, and so do
+the bucket data of atan cameras (``wc``, ``gamma``) and lifting rows
+(``vt_idx``, ``vt_orig``). Floats become ``dtype``, integer index arrays
 int64. ``device=None`` means the CUDA card (``config.resolve_device``).
 
 ``trajectory_from_numpy`` and ``split_trajectory_from_numpy`` carry a

@@ -14,10 +14,18 @@ of ``kontiki_tpu.ops.linearize_kernels``):
 
 B1, camera rows:
 
-For each ``rs_static`` pinhole row it computes the residual ``r [M, 2]``,
-the compressed Jacobian ``J [M, 2, 61]`` over
-[ref window (24) | obs window (24) | sensor (13)] and the split landmark
-column ``J_rho [M, 2]``:
+For each camera row it computes the residual ``r [M, rdim]``, the
+compressed Jacobian ``J [M, rdim, C]`` over
+[ref window (24) | obs window (24) | sensor (13) | vt (lifting)] and the
+split landmark column ``J_rho [M, rdim]``. ``cfg["camera"]`` names the
+projection: ``'PinholeCamera'`` (``K X`` hnormalized) or ``'AtanCamera'``
+(the Devernay-Faugeras FOV model about ``wc`` with ``gamma``, inputs ``wc``
+and ``gamma``). ``cfg["lifting"]`` adds the rolling-shutter row time as a
+parameter: the obs window is gathered at ``t0_obs + d + vt0 readout``, the
+third residual is ``w rows (vt - vt_orig)`` and the last column is
+``J_vt = dG/dvt + t_obs readout`` (inputs ``vt0``, ``vt_orig``, ``rows``,
+``readout``); rdim is 2 and C 61 for static rows, 3 and 62 for lifting
+rows (``camera_shape``):
 
 - stage 1 evaluates the ref and obs windows at ``u + s/dt`` in forward mode
   over 25 seeds (24 knot tangents plus the time shift ``s``). ``cfg["kind"]``
@@ -27,7 +35,8 @@ column ``J_rho [M, 2]``:
   ``dt``, whose 24 seeds are the first spline's 12, then the second's
   (``cfg["r3_first"]``);
 - stage 2 linearizes the projection residual over 21 seeds
-  (p, q of ref and obs, sensor rotation and translation, inverse depth);
+  (p, q of ref and obs, sensor rotation and translation, inverse depth)
+  and, lifting, a 22nd, the row time ``vt``;
 - the chain rule through the (p, q) bottleneck gives the window blocks, and
   the sensor block is ``[q_ct(3), p_ct(3), d = t_ref + t_obs, biases = 0]``.
 
@@ -45,11 +54,9 @@ import torch
 from ..constants import GRAVITY
 from ..math.quaternion import EPS as _EPS
 from ..math.se3 import _EPS as _EPS3
-from ..sensors.camera_models import pinhole_project
+from ..sensors.camera_models import atan_project, pinhole_project
 from ..trajectories import spline_eval as ev
 
-RDIM = 2
-C = 61
 _WINDOWS = {
     "se3": (("win_ref", 28), None, ("u_ref", 1), None, ("win_obs", 28), None,
             ("u_obs", 1), None, ("dts", 1)),
@@ -59,15 +66,39 @@ _WINDOWS = {
 }
 _ROW = (("q_ct", 4), ("p_ct", 3), ("rho", 1), ("yh_ref", 3), ("uv_obs", 2),
         ("weight", 1), ("K", 9))
+_ATAN = (("wc", 2), ("gamma", 1))
+_LIFTING = (("vt0", 1), ("vt_orig", 1), ("rows", 1), ("readout", 1))
+_CAMERAS = ("PinholeCamera", "AtanCamera")
+
+
+def _atan(cfg):
+    camera = cfg.get("camera", "PinholeCamera")
+    if camera not in _CAMERAS:
+        raise ValueError(f"camera rows: unsupported camera {camera!r}")
+    return camera == "AtanCamera"
+
+
+def camera_shape(cfg):
+    """``(rdim, C)`` of ``cfg``'s rows: (2, 61) static, (3, 62) lifting."""
+    return (3, 62) if cfg.get("lifting") else (2, 61)
+
+
+def camera_branch(cfg):
+    """The kernels' branch of ``cfg``, as the launch counts name it:
+    window kind, camera and rows, e.g. ``'split atan lifting'``."""
+    return " ".join((cfg["kind"], "atan" if _atan(cfg) else "pinhole",
+                     "lifting" if cfg.get("lifting") else "static"))
 
 
 def camera_inputs(cfg):
     """The camera kernels' input slots, in the C entry points' order:
-    ``(name, leading size)``, or None where ``cfg``'s window kind has no
-    such input. The last slot, ``valid``, is optional."""
+    ``(name, leading size)``, or None where ``cfg``'s window kind, camera or
+    rows have no such input. The last slot, ``valid``, is optional."""
     if cfg["kind"] not in _WINDOWS:
         raise ValueError(f"camera rows: unsupported window kind {cfg['kind']!r}")
-    return (*_WINDOWS[cfg["kind"]], *_ROW, ("valid", 1))
+    atan = _ATAN if _atan(cfg) else (None,) * len(_ATAN)
+    lifting = _LIFTING if cfg.get("lifting") else (None,) * len(_LIFTING)
+    return (*_WINDOWS[cfg["kind"]], *_ROW, *atan, *lifting, ("valid", 1))
 
 
 # ---------------------------------------------------------------------------
@@ -296,10 +327,11 @@ def _window_fns(cfg, ins):
     return make("ref"), make("obs")
 
 
-def _residual_G(ins, u_ref, u_obs, dsen, drho):
+def _residual_G(cfg, ins, u_ref, u_obs, dsen, drho, dvt):
     """Projection residual through the (p, q) bottleneck: u_ref/u_obs are
     7-tuples (p, q), dsen [6, M] (sensor rotation(3), translation(3)),
-    drho [M]. Returns r [2, M]."""
+    drho and dvt [M]. Returns r [rdim, M]: the pixel residual of the
+    pinhole or atan projection, and, lifting, ``w rows (vt - vt_orig)``."""
     p_ref, q_ref = u_ref[:3], u_ref[3:]
     p_obs, q_obs = u_obs[:3], u_obs[3:]
     q_ct = _qmul(_so3_exp_quat((dsen[0], dsen[1], dsen[2])), tuple(ins["q_ct"]))
@@ -316,8 +348,16 @@ def _residual_G(ins, u_ref, u_obs, dsen, drho):
         [Xc[0] + rho * p_ct[0], Xc[1] + rho * p_ct[1], Xc[2] + rho * p_ct[2]], dim=-1
     )
     K = ins["K"].T.reshape(-1, 3, 3)
-    y = pinhole_project(K, X_cam).T
-    return ins["weight"] * (ins["uv_obs"] - y)
+    if _atan(cfg):
+        y = atan_project(K, ins["wc"].T, ins["gamma"][0], X_cam).T
+    else:
+        y = pinhole_project(K, X_cam).T
+    r = ins["weight"] * (ins["uv_obs"] - y)
+    if not cfg.get("lifting"):
+        return r
+    vt = ins["vt0"][0] + dvt
+    r2 = ins["weight"][0] * ins["rows"][0] * (vt - ins["vt_orig"][0])
+    return torch.cat([r, r2[None]])
 
 
 def _jvp_seeds(f, primals, seeds):
@@ -340,8 +380,11 @@ def _jvp_seeds(f, primals, seeds):
 
 def linearize_rows_plain(cfg, ins):
     """Plain PyTorch B1: rows are the batch dimension, seeds an explicit
-    (vmapped) dimension. Returns (r [M,2], J [M,2,61], J_rho [M,2])."""
+    (vmapped) dimension. Returns (r [M, rdim], J [M, rdim, C],
+    J_rho [M, rdim])."""
     M = ins["u_ref"].shape[1]
+    rdim, _ = camera_shape(cfg)
+    lifting = bool(cfg.get("lifting"))
     opts = dict(dtype=ins["u_ref"].dtype, device=ins["u_ref"].device)
     f_ref, f_obs = _window_fns(cfg, ins)
 
@@ -357,23 +400,24 @@ def linearize_rows_plain(cfg, ins):
     pq_ref, Jw_ref = stage1(f_ref)
     pq_obs, Jw_obs = stage1(f_obs)
 
-    # ---- stage 2: the projection residual over 21 seeds ----
-    def G(du_ref, du_obs, dsen, drho):
-        return _residual_G(ins, tuple(pq_ref + du_ref), tuple(pq_obs + du_obs),
-                           dsen, drho)
+    # ---- stage 2: the projection residual over 21 seeds, and lifting dvt ----
+    def G(du_ref, du_obs, dsen, drho, dvt=zerosM):
+        return _residual_G(cfg, ins, tuple(pq_ref + du_ref), tuple(pq_obs + du_obs),
+                           dsen, drho, dvt)
 
-    eye21 = torch.eye(21, **opts)
+    NS = 22 if lifting else 21
+    eye = torch.eye(NS, **opts)
     zeros7 = torch.zeros(7, M, **opts)
     r, JG = _jvp_seeds(
-        G, (zeros7, zeros7, torch.zeros(6, M, **opts), zerosM),
-        (eye21[:, :7], eye21[:, 7:14], eye21[:, 14:20], eye21[:, 20:]),
-    )  # [2, M], [21, 2, M]
+        G, (zeros7, zeros7, torch.zeros(6, M, **opts), zerosM, zerosM)[:NS - 17],
+        (eye[:, :7], eye[:, 7:14], eye[:, 14:20], eye[:, 20:21], eye[:, 21:22])[:NS - 17],
+    )  # [rdim, M], [NS, rdim, M]
 
     # ---- chain rule through the (p, q) bottleneck ----
-    J_ref = torch.zeros(RDIM, 24, M, **opts)
-    J_obs = torch.zeros(RDIM, 24, M, **opts)
-    t_ref = torch.zeros(RDIM, M, **opts)
-    t_obs = torch.zeros(RDIM, M, **opts)
+    J_ref = torch.zeros(rdim, 24, M, **opts)
+    J_obs = torch.zeros(rdim, 24, M, **opts)
+    t_ref = torch.zeros(rdim, M, **opts)
+    t_obs = torch.zeros(rdim, M, **opts)
     for k in range(7):
         J_ref = J_ref + JG[k][:, None, :] * Jw_ref[:24, k][None, :, :]
         J_obs = J_obs + JG[7 + k][:, None, :] * Jw_obs[:24, k][None, :, :]
@@ -381,10 +425,13 @@ def linearize_rows_plain(cfg, ins):
         t_obs = t_obs + JG[7 + k] * Jw_obs[24, k][None, :]
     J_sen = torch.cat(
         [JG[14:20].transpose(0, 1), (t_ref + t_obs)[:, None, :],
-         torch.zeros(RDIM, 6, M, **opts)],
+         torch.zeros(rdim, 6, M, **opts)],
         dim=1,
     )
-    J = torch.cat([J_ref, J_obs, J_sen], dim=1)  # [2, 61, M]
+    parts = [J_ref, J_obs, J_sen]
+    if lifting:  # the row time moves the obs window: dW_obs/dvt = dW_obs/dt readout
+        parts.append((JG[21] + t_obs * ins["readout"][0])[:, None, :])
+    J = torch.cat(parts, dim=1)  # [rdim, C, M]
     J_rho = JG[20]
     if "valid" in ins:
         v = ins["valid"][0]
@@ -394,14 +441,15 @@ def linearize_rows_plain(cfg, ins):
 
 def cost_rows_plain(cfg, ins):
     """Plain PyTorch B3 (the TPU kernel's ``_tile_cost``): the camera rows'
-    residuals ``r [M, 2]`` through B1's primal chain at zero increments,
+    residuals ``r [M, rdim]`` through B1's primal chain at zero increments,
     times ``valid``."""
     M = ins["u_ref"].shape[1]
     opts = dict(dtype=ins["u_ref"].dtype, device=ins["u_ref"].device)
     f_ref, f_obs = _window_fns(cfg, ins)
     zeros24, zerosM = torch.zeros(24, M, **opts), torch.zeros(M, **opts)
-    r = _residual_G(ins, tuple(f_ref(zeros24, zerosM)), tuple(f_obs(zeros24, zerosM)),
-                    torch.zeros(6, M, **opts), zerosM)
+    r = _residual_G(cfg, ins, tuple(f_ref(zeros24, zerosM)),
+                    tuple(f_obs(zeros24, zerosM)), torch.zeros(6, M, **opts), zerosM,
+                    zerosM)
     if "valid" in ins:
         r = r * ins["valid"][0]
     return r.T.contiguous()
@@ -434,8 +482,10 @@ def _check_camera_inputs(who, cfg, ins):
 
 
 def _camera_flags(cfg):
-    """Flags of the C entry points (bits of ``csrc/linearize_rows.cu``)."""
-    return (1 if cfg["kind"] == "split" else 0) | (2 if cfg.get("r3_first") else 0)
+    """Flags of the C entry points (bits of ``csrc/camera_rows.cuh``):
+    split windows, R3 spline first, atan camera, lifting rows."""
+    return ((1 if cfg["kind"] == "split" else 0) | (2 if cfg.get("r3_first") else 0)
+            | (4 if _atan(cfg) else 0) | (8 if cfg.get("lifting") else 0))
 
 
 def _slot_ptrs(slots, ins):
@@ -466,35 +516,45 @@ def _launch_camera(who, cfg, ins, outs):
 
 
 def linearize_rows(cfg, ins):
-    """B1: (r [M,2], J [M,2,61], J_rho [M,2]) from ``ins`` (dict of [k, M]
-    tensors named as in ``camera_inputs(cfg)``); ``cfg``: ``kind``
-    ('se3' | 'split') and, split, ``r3_first``. CPU tensors run the plain
-    version, CUDA tensors the hand-written kernel."""
+    """B1: (r [M, rdim], J [M, rdim, C], J_rho [M, rdim]) from ``ins``
+    (dict of [k, M] tensors named as in ``camera_inputs(cfg)``); ``cfg``:
+    ``kind`` ('se3' | 'split'), split ``r3_first``, and optionally
+    ``camera`` ('PinholeCamera', the default, | 'AtanCamera') and
+    ``lifting`` (default False). CPU tensors run the plain version, CUDA
+    tensors the hand-written kernel."""
     M = _check_camera_inputs("linearize_rows", cfg, ins)
     x = ins["u_ref"]
     if x.device.type == "cpu":
         return linearize_rows_plain(cfg, ins)
     if x.device.type != "cuda":
         raise ValueError(f"linearize_rows: unsupported device {x.device}")
-    r = torch.empty(M, RDIM, dtype=x.dtype, device=x.device)
-    J = torch.empty(M, RDIM, C, dtype=x.dtype, device=x.device)
-    J_rho = torch.empty(M, RDIM, dtype=x.dtype, device=x.device)
+    rdim, C = camera_shape(cfg)
+    r = torch.empty(M, rdim, dtype=x.dtype, device=x.device)
+    J = torch.empty(M, rdim, C, dtype=x.dtype, device=x.device)
+    J_rho = torch.empty(M, rdim, dtype=x.dtype, device=x.device)
     if M == 0:
         return r, J, J_rho
     _launch_camera("linearize_rows", cfg, ins, (r, J, J_rho))
-    linearize_rows.launches += 1
+    _count(linearize_rows, cfg)
     linearize_rows.split_launches += int(cfg["kind"] == "split")
     return r, J, J_rho
 
 
-#: kernel launches since the count was last reset (CUDA tensors only), and
-#: how many of them were on split windows
+def _count(wrapper, cfg):
+    wrapper.launches += 1
+    branch = camera_branch(cfg)
+    wrapper.branch_launches[branch] = wrapper.branch_launches.get(branch, 0) + 1
+
+
+#: kernel launches since the count was last reset (CUDA tensors only), per
+#: branch (``camera_branch``), and how many of them were on split windows
 linearize_rows.launches = 0
+linearize_rows.branch_launches = {}
 linearize_rows.split_launches = 0
 
 
 def cost_rows(cfg, ins):
-    """B3: the camera rows' residuals ``r [M, 2]`` only (see
+    """B3: the camera rows' residuals ``r [M, rdim]`` only (see
     ``cost_rows_plain``), from the inputs of ``linearize_rows``. CPU
     tensors run the plain version, CUDA tensors the hand-written kernel."""
     M = _check_camera_inputs("cost_rows", cfg, ins)
@@ -503,16 +563,18 @@ def cost_rows(cfg, ins):
         return cost_rows_plain(cfg, ins)
     if x.device.type != "cuda":
         raise ValueError(f"cost_rows: unsupported device {x.device}")
-    r = torch.empty(M, RDIM, dtype=x.dtype, device=x.device)
+    r = torch.empty(M, camera_shape(cfg)[0], dtype=x.dtype, device=x.device)
     if M == 0:
         return r
     _launch_camera("cost_rows", cfg, ins, (r,))
-    cost_rows.launches += 1
+    _count(cost_rows, cfg)
     return r
 
 
-#: kernel launches since the count was last reset (CUDA tensors only)
+#: kernel launches since the count was last reset (CUDA tensors only), and
+#: per branch (``camera_branch``)
 cost_rows.launches = 0
+cost_rows.branch_launches = {}
 
 
 # ---------------------------------------------------------------------------
@@ -888,9 +950,10 @@ def linearize_rows_host(cfg, ins, wide=False):
 
     M = _check_camera_inputs("linearize_rows", cfg, ins)
     keep, ptrs = _host_args(camera_inputs(cfg), ins)
-    r = torch.zeros(M, RDIM, dtype=torch.float64)
-    J = torch.zeros(M, RDIM, C, dtype=torch.float64)
-    J_rho = torch.zeros(M, RDIM, dtype=torch.float64)
+    rdim, C = camera_shape(cfg)
+    r = torch.zeros(M, rdim, dtype=torch.float64)
+    J = torch.zeros(M, rdim, C, dtype=torch.float64)
+    J_rho = torch.zeros(M, rdim, dtype=torch.float64)
     load_host_library().kontiki_host_linearize_rows_f64(
         ptrs, r.data_ptr(), J.data_ptr(), J_rho.data_ptr(), M, _camera_flags(cfg),
         int(wide))
@@ -903,7 +966,7 @@ def cost_rows_host(cfg, ins):
 
     M = _check_camera_inputs("cost_rows", cfg, ins)
     keep, ptrs = _host_args(camera_inputs(cfg), ins)
-    r = torch.zeros(M, RDIM, dtype=torch.float64)
+    r = torch.zeros(M, camera_shape(cfg)[0], dtype=torch.float64)
     load_host_library().kontiki_host_cost_rows_f64(ptrs, r.data_ptr(), M, _camera_flags(cfg))
     return r
 

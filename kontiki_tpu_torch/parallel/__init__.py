@@ -3,7 +3,7 @@
 Ported: ``segments_ba``, the knot-segment x landmark-block layout of
 BASELINE config 5 with its banded direct solve, on one shard. The JAX
 package's measurement sharding, its other layouts and every multi-shard
-path wait for ``torch.distributed`` (ROADMAP.md Queue A 9.5).
+path wait for ``torch.distributed`` (ROADMAP.md Queue A 5).
 """
 from .segments_ba import make_segment_ba_solver, make_segment_ba_step, segment_ba_layout
 

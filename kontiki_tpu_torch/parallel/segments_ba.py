@@ -33,9 +33,11 @@ One LM iteration of the banded mode, on one device:
 Only one shard is ported: there the halos are empty (``Hl = Hr = 0``), the
 knot and landmark arrays are the whole problem padded to ``seg`` knots, and
 the JAX package's permutes and reductions over the mesh are identities.
-``n_shards > 1`` (torch.distributed), the matrix-free ``mode="pcg"`` and
-Newton, lifting, position and orientation buckets raise
-``NotImplementedError`` (ROADMAP.md Queue A 9.5).
+``n_shards > 1`` (torch.distributed, ROADMAP.md Queue A 5), the
+matrix-free ``mode="pcg"`` (Queue A 2.5), Newton buckets (Queue A 1) and
+position and orientation buckets (Queue A 5) raise ``NotImplementedError``.
+Lifting buckets raise ``ValueError`` in banded mode, as the JAX package's
+do: their per-row ``vt`` columns ride the PCG mode.
 """
 import math
 from typing import NamedTuple, Tuple
@@ -60,7 +62,6 @@ from ..solver.problem import SENSOR_TANGENT_DIM, TANGENT_DIMS, as_tensor
 __all__ = ["make_segment_ba_step", "make_segment_ba_solver", "segment_ba_layout"]
 
 _SINGLE_WINDOW = ("position", "orientation", "gyro", "accel")
-_ROADMAP = "ROADMAP.md Queue A 9.5"
 
 #: bucket kinds whose rows carry their sensor's 13 tangent columns
 _SENSOR_KINDS = ("rs_static", "gyro", "accel")
@@ -403,16 +404,21 @@ def _check_supported(problem, n_shards, mode):
     if n_shards != 1:
         raise NotImplementedError(
             f"segment BA on {n_shards} shards (torch.distributed, the SPIKE band "
-            f"solve) is not ported: {_ROADMAP}")
+            f"solve) is not ported: ROADMAP.md Queue A 5")
     if mode == "pcg":
         raise NotImplementedError(
-            f"segment BA mode='pcg' (matrix-free PCG, duplicate_cross_diag) is not "
-            f"ported: {_ROADMAP}")
+            "segment BA mode='pcg' (matrix-free PCG, duplicate_cross_diag) is not "
+            "ported: ROADMAP.md Queue A 2.5")
     for key in problem.buckets:
         kind = key.split(":")[0]
-        if kind in ("rs_newton", "rs_lifting", "position", "orientation"):
+        if kind == "rs_lifting":
+            raise ValueError(
+                "rs_lifting buckets ride the segment-BA PCG mode (per-row vt "
+                "columns are not banded); use mode='pcg'")
+        if kind in ("rs_newton", "position", "orientation"):
+            item = "Queue A 1" if kind == "rs_newton" else "Queue A 5"
             raise NotImplementedError(
-                f"{kind} buckets in segment BA are not ported: {_ROADMAP}")
+                f"{kind} buckets in segment BA are not ported: ROADMAP.md {item}")
 
 
 def _build_segment_ba(problem, n_shards, mode):

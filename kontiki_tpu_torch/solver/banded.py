@@ -1,7 +1,7 @@
 """Block-tridiagonal solve (counterpart of ``kontiki_tpu.solver.banded``'s
 ``block_tridiag_solve``, its sequential "scan" method; parallel cyclic
 reduction and the ``KONTIKI_BAND_SOLVE`` switch are not ported, ROADMAP.md
-Queue A)."""
+Queue A 2.1)."""
 import torch
 
 

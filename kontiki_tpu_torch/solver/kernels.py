@@ -1,12 +1,14 @@
 """Batched residual / Jacobian terms, bounds, retraction and the dense
-solver parts (counterpart of ``kontiki_tpu.solver.kernels``, the subset
-BASELINE configs 1-4 use).
+solver parts (counterpart of ``kontiki_tpu.solver.kernels``; every bucket
+kind but ``rs_newton``).
 
-- Camera rows (``rs_static``, pinhole, on an SE3 spline or a split R3 + SO3
-  trajectory) gather their 4-knot windows and row constants into the
-  transposed ``[k, M]`` layout and run kernel B1
-  (``ops.linearize_kernels.linearize_rows``); their cost alone runs kernel
-  B3 (``cost_rows``) on the same inputs.
+- Camera rows (``rs_static`` and ``rs_lifting``, on a pinhole or an atan
+  camera, on an SE3 spline or a split R3 + SO3 trajectory) gather their
+  4-knot windows and row constants into the transposed ``[k, M]`` layout
+  and run kernel B1 (``ops.linearize_kernels.linearize_rows``); their cost
+  alone runs kernel B3 (``cost_rows``) on the same inputs. A lifting row's
+  observed window is evaluated at ``t0_obs + d + vt readout`` and its
+  Jacobian carries the ``vt`` column last.
 - Gyro and accel rows on an SO3 spline or a split R3 + SO3 trajectory do
   the same for kernel B4 (``ops.linearize_kernels.imu_rows``), which also
   has the cost-only form the re-cost uses.
@@ -20,7 +22,8 @@ BASELINE configs 1-4 use).
 - Locks are masks over tangent columns, applied after assembly. R3 knots
   retract additively, SO3 knots by left-multiplied ``exp``, SE3 knots by
   right-multiplied ``exp`` (Sophus ``T * exp(x)``), sensor orientations by
-  left-multiplied ``exp``.
+  left-multiplied ``exp``. Bounds are kept by projection: rho >= 0,
+  |d| <= max_time_offset, vt in [0, 1].
 - Huber loss follows Ceres: cost ``0.5 * sum(rho(|r|^2))`` and IRLS weights
   ``rho'(s)`` on the normal equations.
 """
@@ -43,8 +46,8 @@ class SplineSpec(NamedTuple):
 
 
 class BucketSpec(NamedTuple):
-    kind: str  # 'position' | 'orientation' | 'gyro' | 'accel' | 'rs_static'
-    camera: str  # '' | 'PinholeCamera'
+    kind: str  # 'position' | 'orientation' | 'gyro' | 'accel' | 'rs_static' | 'rs_lifting'
+    camera: str  # '' | 'PinholeCamera' | 'AtanCamera'
     M: int
     rdim: int
     windows: Tuple[int, ...]  # W per spline, aligned with ProblemSpec.splines
@@ -58,6 +61,8 @@ class ProblemSpec(NamedTuple):
     landmark_offset: int
     num_sensors: int
     num_landmarks: int
+    vt_offset: int = 0
+    num_vt: int = 0
 
 
 def retract_window(kind, win, delta):
@@ -72,6 +77,10 @@ def retract_window(kind, win, delta):
     q, t = se3m.se3_unpack(win)
     dq, dt = se3m.se3_exp(delta)
     return se3m.se3_pack(quat.qmul(q, dq), t + quat.qrotate(q, dt))
+
+
+#: the camera-row bucket kinds (kernels B1 and B3)
+CAMERA_KINDS = ("rs_static", "rs_lifting")
 
 
 def _spline_n_eval(runtime, si, sp):
@@ -89,19 +98,28 @@ def _spline_n_eval(runtime, si, sp):
 
 def _camera_inputs(spec, runtime, state, data):
     """Gather + transpose camera rows for B1 and B3. Returns ``(cfg, ins,
-    i0s)``: the kernels' configuration, the [k, M] input dict and the
-    window base indices ``{"ref": [per spline], "obs": [per spline]}``.
+    i0s)``: the kernels' configuration (window ``kind``, ``r3_first``,
+    ``camera``, ``lifting``, ``rdim``, ``C``, as the JAX package's), the
+    [k, M] input dict and the window base indices ``{"ref": [per spline],
+    "obs": [per spline]}``.
 
     SE3 windows are ``win_{tag}`` [28] with ``u_{tag}``; split windows are
     ``win_{tag}_r3`` [12] with ``u_{tag}`` and ``win_{tag}_so3`` [16] with
     ``u_{tag}_so3``, each on its own spline's ``t0``/``dt``; ``dts`` holds
-    the SE3 spacing, or the (R3, SO3) spacings whatever the spline order."""
+    the SE3 spacing, or the (R3, SO3) spacings whatever the spline order.
+    The bucket's data say its camera and rows: ``wc`` and ``gamma`` come
+    with an atan camera, ``vt_idx`` and ``vt_orig`` with lifting rows,
+    whose observed time is ``t0_obs + d + vt readout``."""
+    atan = "wc" in data
+    lifting = "vt_idx" in data
     d = state["d"][data["sid"]]
     row_delta = data["readout"] / data["rows"]
-    times = {
-        "ref": data["t0_ref"] + d + data["v_ref"] * row_delta,
-        "obs": data["t0_obs"] + d + data["v_obs"] * row_delta,
-    }
+    if lifting:
+        vt0 = state["vt"][data["vt_idx"]]
+        t_obs = data["t0_obs"] + d + vt0 * data["readout"]
+    else:
+        t_obs = data["t0_obs"] + d + data["v_obs"] * row_delta
+    times = {"ref": data["t0_ref"] + d + data["v_ref"] * row_delta, "obs": t_obs}
     kinds = tuple(sp.kind for sp in spec.splines)
     se3 = kinds == ("se3",)
     if not se3 and sorted(kinds) != ["r3", "so3"]:
@@ -128,16 +146,26 @@ def _camera_inputs(spec, runtime, state, data):
     ins["uv_obs"] = data["uv_obs"].T.contiguous()
     ins["weight"] = data["weight"][None, :].contiguous()
     ins["K"] = data["K"].reshape(M, 9).T.contiguous()
+    if atan:
+        ins["wc"] = data["wc"].T.contiguous()
+        ins["gamma"] = data["gamma"][None, :].contiguous()
+    if lifting:
+        ins["vt0"] = vt0[None, :].contiguous()
+        ins["vt_orig"] = data["vt_orig"][None, :].contiguous()
+        ins["rows"] = data["rows"][None, :].contiguous()
+        ins["readout"] = data["readout"][None, :].contiguous()
     if "valid" in data:
         ins["valid"] = data["valid"][None, :].contiguous()
-    cfg = dict(kind="se3" if se3 else "split", r3_first=not se3 and kinds[0] == "r3")
+    cfg = dict(kind="se3" if se3 else "split", r3_first=not se3 and kinds[0] == "r3",
+               camera="AtanCamera" if atan else "PinholeCamera", lifting=lifting,
+               rdim=3 if lifting else 2, C=62 if lifting else 61)
     return cfg, ins, i0s
 
 
 def _camera_rows(spec, runtime, state, data):
-    """(r [M,2], J [M,2,61], cols [M,61], J_rho [M,2]) of the camera rows;
-    columns are [ref windows, obs windows (each in spline order), sensor] as
-    in the JAX package."""
+    """(r [M, rdim], J [M, rdim, C], cols [M, C], J_rho [M, rdim]) of the
+    camera rows; columns are [ref windows, obs windows (each in spline
+    order), sensor, vt (lifting rows)] as in the JAX package."""
     cfg, ins, i0s = _camera_inputs(spec, runtime, state, data)
     r, J, J_rho = linearize_rows(cfg, ins)
     sid = data["sid"]
@@ -148,6 +176,8 @@ def _camera_rows(spec, runtime, state, data):
     ]
     cols.append(spec.sensor_offset + sid[:, None] * SENSOR_TANGENT_DIM
                 + torch.arange(SENSOR_TANGENT_DIM, device=sid.device))
+    if cfg["lifting"]:
+        cols.append((spec.vt_offset + data["vt_idx"])[:, None])
     return r, J, torch.cat(cols, dim=1), J_rho
 
 
@@ -371,9 +401,10 @@ def bucket_terms(spec, bspec, runtime, state, data, cost_only=False):
     off (the Schur path's form); with ``cost_only``, ``r [M, rdim]`` alone
     and no Jacobian: camera rows through B3, SO3/split IMU rows through
     B4's cost-only form, SE3 IMU rows and pose rows through their residual
-    function at zero increments."""
+    function at zero increments. ``rs_newton`` rows are not ported
+    (ROADMAP.md Queue A 1)."""
     kinds = [sp.kind for sp in spec.splines]
-    if bspec.kind == "rs_static":
+    if bspec.kind in CAMERA_KINDS:
         if cost_only:
             return cost_rows(*_camera_inputs(spec, runtime, state, data)[:2])
         return _camera_rows(spec, runtime, state, data)
@@ -404,9 +435,10 @@ def _huber_prime(s, c):
 
 def _bucket_cost(bspec, data, r):
     """``(cost, rho')`` of one bucket's residuals: 0.5 sum rho(|r|^2), Huber
-    on camera rows (Ceres semantics), plain squares elsewhere."""
+    on camera rows (Ceres semantics, over the whole residual block), plain
+    squares elsewhere."""
     s = torch.sum(r * r, dim=-1)
-    if bspec.kind == "rs_static":
+    if bspec.kind in CAMERA_KINDS:
         c = data["huber_c"]
         return 0.5 * torch.sum(_huber(s, c)), _huber_prime(s, c)
     return 0.5 * torch.sum(s), torch.ones_like(s)
@@ -430,7 +462,8 @@ def total_cost(spec, runtime, state):
 
 def project_delta(spec, runtime, state, delta):
     """Clip bound-constrained tangent components (rho >= 0,
-    |d| <= max_time_offset) to the increment the retraction will apply.
+    |d| <= max_time_offset, vt in [0, 1]) to the increment the retraction
+    will apply.
 
     LM's predicted reduction must come from this projected step: with a
     landmark at the rho = 0 bound and an outward gradient the raw step
@@ -447,6 +480,11 @@ def project_delta(spec, runtime, state, delta):
         lo = spec.landmark_offset
         dl = delta[lo:lo + L]
         delta[lo:lo + L] = torch.clamp(state["rho"] + dl, min=0.0) - state["rho"]
+    V = spec.num_vt
+    if V:
+        vo = spec.vt_offset
+        dv = delta[vo:vo + V]
+        delta[vo:vo + V] = torch.clamp(state["vt"] + dv, 0.0, 1.0) - state["vt"]
     return delta
 
 
@@ -468,7 +506,9 @@ def damped_solve(mask, H, g, lam):
 
 def _retract_state(spec, runtime, state, delta):
     """Apply a masked global tangent step to the state dict; bounds
-    (rho >= 0, |d| <= max_time_offset) are enforced by projection."""
+    (rho >= 0, |d| <= max_time_offset, vt in [0, 1]; reference
+    static_rscamera_measurement.h:180, sensors.h:158-160,
+    lifting_rscamera_measurement.h:199-204) are enforced by projection."""
     delta = delta * runtime["mask"]
     new = dict(state)
     for sp in spec.splines:
@@ -490,6 +530,10 @@ def _retract_state(spec, runtime, state, delta):
     if L:
         lo = spec.landmark_offset
         new["rho"] = torch.clamp(state["rho"] + delta[lo:lo + L], min=0.0)
+    V = spec.num_vt
+    if V:
+        vo = spec.vt_offset
+        new["vt"] = torch.clamp(state["vt"] + delta[vo:vo + V], 0.0, 1.0)
     return new
 
 
@@ -584,6 +628,8 @@ def problem_spec(problem) -> ProblemSpec:
         landmark_offset=problem.landmark_offset,
         num_sensors=len(problem.sensors),
         num_landmarks=len(problem.landmarks),
+        vt_offset=problem.vt_offset,
+        num_vt=int(problem.state0["vt"].shape[0]),
     )
 
 

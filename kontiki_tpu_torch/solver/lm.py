@@ -41,8 +41,9 @@ def _resolve_strategy(problem, strategy):
     if strategy == "auto":
         strategy = "schur" if len(problem.landmarks) else "dense"
     if strategy not in ("dense", "schur"):
+        item = {"iterative_schur": "2.2", "banded": "2.3"}.get(strategy, "2")
         raise NotImplementedError(
-            f"strategy {strategy!r} is not ported (ROADMAP.md Queue A 9.3)")
+            f"strategy {strategy!r} is not ported (ROADMAP.md Queue A {item})")
     return strategy
 
 

@@ -11,7 +11,9 @@ and moved to ``device`` once, floats as ``dtype`` and indices as int64.
 
 - **State** is a dict of tensors: knots per spline kind (``r3``, ``so3``,
   ``se3``), stacked sensor parameters (IMU biases from ``ConstantBiasImu``),
-  landmark inverse depths.
+  landmark inverse depths, and the lifted row times ``vt`` of
+  ``LiftingRsCameraMeasurement`` rows (after the landmarks in the tangent
+  vector, always free, bounded to [0, 1]).
 - **Locks -> masks** over the global tangent vector reproduce
   ``SetParameterBlockConstant``; only knots inside some measurement's span
   are free.
@@ -34,11 +36,12 @@ from ..config import default_dtype, resolve_device
 from ..measurements import (
     AccelerometerMeasurement,
     GyroscopeMeasurement,
+    LiftingRsCameraMeasurement,
     OrientationMeasurement,
     PositionMeasurement,
     StaticRsCameraMeasurement,
 )
-from ..sensors import ConstantBiasImu, PinholeCamera
+from ..sensors import AtanCamera, ConstantBiasImu, PinholeCamera
 from ..trajectories.splines import (
     SplitTrajectory,
     UniformR3SplineTrajectory,
@@ -176,6 +179,7 @@ class Problem:
         self.landmarks: list = []
         self._landmark_index: dict = {}
         self.buckets: Dict[str, Bucket] = {}
+        self._lifting: list = []  # lifting measurements, in vt order
 
         self._spans = []
         for m in self.measurements:
@@ -247,13 +251,19 @@ class Problem:
             self._activate(spans)
             key = "gyro" if isinstance(m, GyroscopeMeasurement) else "accel"
             self._bucket(key, 3).measurements.append((m, s))
-        elif isinstance(m, StaticRsCameraMeasurement):
+        elif isinstance(m, (StaticRsCameraMeasurement, LiftingRsCameraMeasurement)):
             if not isinstance(m.camera, PinholeCamera):
                 raise TypeError(f"Unsupported camera type {type(m.camera)}")
             s = self._sensor_id(m.camera)
             li = self._landmark_id(m.observation.landmark)
             self._activate(self._camera_spans(m))
-            bucket = self._bucket("rs_static:PinholeCamera", 2, camera_cls=PinholeCamera)
+            if isinstance(m, StaticRsCameraMeasurement):
+                key, rdim = "rs_static", 2
+            else:
+                key, rdim = "rs_lifting", 3
+                self._lifting.append(m)
+            cam_cls = AtanCamera if isinstance(m.camera, AtanCamera) else PinholeCamera
+            bucket = self._bucket(f"{key}:{cam_cls.__name__}", rdim, camera_cls=cam_cls)
             bucket.measurements.append((m, s, li))
         else:
             raise TypeError(f"Unsupported measurement type {type(m)}")
@@ -273,6 +283,8 @@ class Problem:
         offset += len(self.sensors) * SENSOR_TANGENT_DIM
         self.landmark_offset = offset
         offset += len(self.landmarks)
+        self.vt_offset = offset
+        offset += len(self._lifting)
         self.num_tangent = offset
 
         state = {}
@@ -297,6 +309,7 @@ class Problem:
         state["gbias"] = gb
         state["rho"] = np.array([lm.inverse_depth for lm in self.landmarks],
                                 dtype=np.float64)
+        state["vt"] = np.array([m.vt for m in self._lifting], dtype=np.float64)
         self.state0 = {k: self._tensor(v) for k, v in state.items()}
 
         self.d_max = self._tensor(
@@ -326,6 +339,7 @@ class Problem:
             mask[base: base + SENSOR_TANGENT_DIM] = sm
         for li, lm in enumerate(self.landmarks):
             mask[self.landmark_offset + li] = 0.0 if lm.locked else 1.0
+        mask[self.vt_offset: self.vt_offset + len(self._lifting)] = 1.0
         self.mask = self._tensor(mask)
 
     # ------------------------------------------------------------------
@@ -370,8 +384,15 @@ class Problem:
                 data["readout"] = np.array([c.readout for c in cams])
                 data["rows"] = np.array([float(c.rows) for c in cams])
                 data["K"] = np.stack([c.camera_matrix for c in cams])
+                if b.camera_cls is AtanCamera:
+                    data["wc"] = np.stack([c.wc for c in cams])
+                    data["gamma"] = np.array([c.gamma for c in cams])
                 data["weight"] = np.array([m.weight for m in ms])
                 data["huber_c"] = np.array([m.huber_loss for m in ms])
+                if kind == "rs_lifting":
+                    vt_index = {id(m): i for i, m in enumerate(self._lifting)}
+                    data["vt_idx"] = np.array([vt_index[id(m)] for m in ms], dtype=np.int64)
+                    data["vt_orig"] = np.array([m.vt_orig for m in ms])
                 readout = max((c.readout for c in cams), default=0.0)
                 for sp in self.splines:
                     b.window[sp.kind] = self._window_width(sp, readout=readout)
@@ -382,8 +403,9 @@ class Problem:
     # ------------------------------------------------------------------
     def _bookkeeping(self):
         """Parameter and residual counts as Ceres reports them: a parameter
-        block per active knot, sensor parameter and landmark; a residual
-        block per measurement, reduced when one of its parameters is free."""
+        block per active knot, sensor parameter, landmark and lifted row
+        time; a residual block per measurement, reduced when one of its
+        parameters is free (a lifting row's ``vt`` always is)."""
         locked_traj = self.trajectory.locked if self.splines else True
         blocks = []  # (ambient size, constant)
         for sp in self.splines:
@@ -396,6 +418,7 @@ class Problem:
                 blocks.append((3, sensor.accelerometer_bias_locked))
                 blocks.append((3, sensor.gyroscope_bias_locked))
         blocks += [(1, lm.locked) for lm in self.landmarks]
+        blocks += [(1, False)] * len(self._lifting)
 
         self.num_parameters = sum(n for n, _ in blocks)
         self.num_parameter_blocks = len(blocks)
@@ -411,8 +434,9 @@ class Problem:
         self.num_residual_blocks_reduced = 0
         self.num_residuals_reduced = 0
         for b in self.buckets.values():
+            lifting = b.kind.split(":")[0] == "rs_lifting"
             for entry in b.measurements:
-                free = any_free_traj
+                free = any_free_traj or lifting
                 if isinstance(entry, tuple):
                     sensor = self.sensors[entry[1]]
                     free = free or not (
@@ -434,9 +458,9 @@ class Problem:
     # ------------------------------------------------------------------
     def write_back(self, state):
         """Copy ``state`` (a dict of tensors on any device) into the
-        trajectory, sensor and landmark objects: knots with re-normalised
-        quaternions, relative poses, time offsets clipped to their bounds,
-        IMU biases and inverse depths."""
+        trajectory, sensor, landmark and lifting-measurement objects: knots
+        with re-normalised quaternions, relative poses, time offsets clipped
+        to their bounds, IMU biases, inverse depths and row times ``vt``."""
         state = {k: v.detach().cpu().numpy() for k, v in state.items()}
         for sp in self.splines:
             arr = state[sp.kind]
@@ -457,6 +481,8 @@ class Problem:
                 sensor.gyroscope_bias = state["gbias"][i]
         for li, lm in enumerate(self.landmarks):
             lm.inverse_depth = float(state["rho"][li])
+        for mi, m in enumerate(self._lifting):
+            m.vt = float(state["vt"][mi])
 
 
 # ---------------------------------------------------------------------------
@@ -507,7 +533,9 @@ class RawProblem:
     ``{q_ct [S, 4], p_ct [S, 3], d [S], abias, gbias}`` plus ``mask [S, 13]``
     tangent mask rows and ``d_max [S]``; ``rho [L]`` initial inverse depths,
     ``landmark_mask [L]`` (default all free). Knots are all free. The state
-    carries an empty ``vt`` (lifting rows are not ported)."""
+    carries an empty ``vt``: array-level lifting rows (the JAX package's
+    ``vt`` argument) are not ported; they ride segment BA's PCG mode,
+    ROADMAP.md Queue A 2.5."""
 
     def __init__(self, splines, buckets, sensors, rho, landmark_mask=None,
                  device=None, dtype=default_dtype):

@@ -12,7 +12,9 @@ diagonal and its elimination is exact and parallel:
     dl = -(g_l + E dc) / D
 
 LM damping goes on both diagonals before elimination, so the step equals
-the dense damped solve. Kernel B2 (``ops.assembly_kernels``) assembles the
+the dense damped solve. The lifted row times ``vt`` stay in the reduced
+system: c-space is the tangent vector without the landmark block, so
+``vt_offset + i`` maps to ``landmark_offset + i``. Kernel B2 (``ops.assembly_kernels``) assembles the
 blocks; whitening, masks, ``E^T (E / D)`` and the dense solve of the
 reduced system stay plain torch.
 """
@@ -20,6 +22,7 @@ import torch
 
 from ..ops.assembly_kernels import assemble_schur_blocks
 from .kernels import (
+    CAMERA_KINDS,
     _bucket_cost,
     _retract_state,
     bucket_terms,
@@ -77,7 +80,7 @@ def build_schur_parts(spec):
         cost = torch.zeros((), **opts)
         for bspec, data in zip(spec.buckets, runtime["data"]):
             c, rows = whitened_rows(spec, bspec, runtime, state, data, mask_l)
-            with_rho = bspec.kind == "rs_static"
+            with_rho = bspec.kind in CAMERA_KINDS
             Hb, gb, Eb, Db, glb = assemble_schur_blocks(
                 *rows, P=Pc, L=L, with_rho=with_rho
             )

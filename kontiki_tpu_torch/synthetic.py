@@ -1,8 +1,9 @@
 """Synthetic problem generators (counterpart of ``kontiki_tpu.synthetic``):
 the gyro-only SO3 fit of BASELINE config 1, the IMU fusion on a split
 R3 + SO3 trajectory of config 2, the rolling-shutter SfM on a split
-trajectory of config 3, the SE3 rolling-shutter visual-inertial problem
-of config 4 and the array-level bundle adjustment of config 5
+trajectory of config 3 (with a pinhole or an atan camera, static or
+lifting rows), the SE3 rolling-shutter visual-inertial problem of config 4
+and the array-level bundle adjustment of config 5
 (``make_big_ba_problem``, a ``RawProblem``).
 
 Random draws come from ``numpy.random.default_rng(seed)`` in the same order
@@ -23,12 +24,13 @@ from .math import quaternion as quat
 from .measurements import (
     AccelerometerMeasurement,
     GyroscopeMeasurement,
+    LiftingRsCameraMeasurement,
     OrientationMeasurement,
     PositionMeasurement,
     StaticRsCameraMeasurement,
 )
 from .rotations import axis_angle_to_quat, quat_conj, quat_mult, quat_to_rotation_matrix
-from .sensors import BasicImu, ConstantBiasImu, PinholeCamera
+from .sensors import AtanCamera, BasicImu, ConstantBiasImu, PinholeCamera
 from .sfm import Landmark, View
 from .trajectories import (
     SplitTrajectory,
@@ -211,7 +213,15 @@ def make_imu_problem(duration=5.0, rate=200.0, knot_dt=0.1, seed=0, noise=0.0,
 _DEFAULT_K = np.array([[500.0, 0.0, 320.0], [0.0, 500.0, 240.0], [0.0, 0.0, 1.0]])
 
 
-def make_camera(readout=0.025, rows=480, cols=640):
+def make_camera(kind="pinhole", readout=0.025, rows=480, cols=640):
+    """The generators' camera: pinhole, or ``kind="atan"`` with the
+    distortion centre at the image centre (normalised) and gamma 0.9."""
+    if kind == "atan":
+        return AtanCamera(
+            rows, cols, readout, _DEFAULT_K.copy(),
+            wc=np.array([0.5 * cols, 0.5 * rows]) @ np.linalg.inv(_DEFAULT_K[:2, :2]).T,
+            gamma=0.9,
+        )
     return PinholeCamera(rows, cols, readout, _DEFAULT_K.copy())
 
 
@@ -255,6 +265,8 @@ def make_rsvi_problem(
     imu_rate=0.0,
     knot_dt=0.15,
     seed=0,
+    camera_kind="pinhole",
+    rs="static",
     noise_px=0.0,
     sigma_p=0.02,
     sigma_q=0.01,
@@ -269,16 +281,25 @@ def make_rsvi_problem(
     imu_rate=0.0, seed=3`` (split); config 4 is ``nviews=64, nlandmarks=200,
     imu_rate=200.0, seed=4, trajectory="se3"``.
 
-    Camera rows are ``StaticRsCameraMeasurement`` on a pinhole camera; the
-    IMU is a ``BasicImu``."""
+    ``camera_kind`` ('pinhole' | 'atan') selects the camera (``make_camera``)
+    and ``rs`` the camera rows: 'static' (``StaticRsCameraMeasurement``) or
+    'lifting' (``LiftingRsCameraMeasurement``). The observations are the
+    pinhole projections in both cases, as in the JAX package. The IMU is a
+    ``BasicImu``."""
     if trajectory not in ("split", "se3"):
         raise ValueError(f"trajectory must be 'split' or 'se3', got {trajectory!r}")
+    if rs == "newton":
+        raise NotImplementedError(
+            "rs='newton' rows are not ported (ROADMAP.md Queue A 1, config 4-Newton)")
+    if rs not in ("static", "lifting"):
+        raise ValueError(f"rs must be 'static', 'lifting' or 'newton', got {rs!r}")
+    mcls = StaticRsCameraMeasurement if rs == "static" else LiftingRsCameraMeasurement
     rng = np.random.default_rng(seed)
     span = (nviews - 1) / fps
     duration = span + 1.5
     make = make_se3_trajectory if trajectory == "se3" else make_split_trajectory
     true_traj = make(duration, dt=knot_dt, seed=seed, speed=speed, wmag=wmag)
-    camera = make_camera()
+    camera = make_camera(camera_kind)
     t_first = 0.5
     t0s = t_first + np.arange(nviews) / fps
     views = [View(i, t) for i, t in enumerate(t0s)]
@@ -323,7 +344,7 @@ def make_rsvi_problem(
             if noise_px:
                 y = y + rng.normal(scale=noise_px, size=2)
             o = views[vi].create_observation(lm, y)
-            measurements.append(StaticRsCameraMeasurement(camera, o))
+            measurements.append(mcls(camera, o))
         if perturb_rho:
             lm.inverse_depth = max(
                 lm.inverse_depth * (1.0 + rng.normal(scale=perturb_rho)), 1e-4

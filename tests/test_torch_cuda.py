@@ -19,7 +19,9 @@ chain of ~10^2 operations; the derivatives scale by 1/dt^2). B6 (one-hot
 row expansion) adds at most two entries per output and equals its plain
 version exactly; the segment-BA step on the card equals the port's on the
 CPU to 1e-9 relative (B1's and the band solve's float64 roundoff through a
-reduced system of condition ~1e6)."""
+reduced system of condition ~1e6). B1 and B3 on the atan camera and on
+lifting rows (every window x camera x rows branch) take the camera rows'
+tolerances."""
 import numpy as np
 import pytest
 import torch
@@ -366,3 +368,73 @@ def test_segment_ba_step_on_cuda_matches_cpu(cuda, imu_rate):
         np.testing.assert_allclose(gpu[i].item(), cpu[i].item(), rtol=1e-9)
     for k, v in cpu[1].items():
         np.testing.assert_allclose(gpu[1][k].cpu().numpy(), v.numpy(), rtol=0, atol=1e-9)
+
+
+BRANCHES = [f"{kind} {camera} {rows}" for kind in ("se3", "split")
+            for camera in ("pinhole", "atan") for rows in ("static", "lifting")]
+
+
+@pytest.fixture(scope="module")
+def branch_rows(cuda):
+    """Camera rows of every B1/B3 branch on the card: each window kind's
+    rows of an atan lifting problem, and the same rows without the atan or
+    the lifting inputs for the other branches."""
+    rows = {}
+    for kind in ("se3", "split"):
+        gen = make_rsvi_problem(nviews=8, nlandmarks=24, imu_rate=0.0, seed=3,
+                                noise_px=1.0, camera_kind="atan", rs="lifting",
+                                trajectory=kind)
+        traj = regrid(gen["trajectory"]) if kind == "split" else gen["trajectory"]
+        problem = Problem(traj, gen["measurements"], device=cuda)
+        spec, rt = kernels.problem_spec(problem), kernels.problem_runtime(problem)
+        cfg, ins = kernels._camera_inputs(spec, rt, problem.state0, rt["data"][0])[:2]
+        assert (cfg["camera"], cfg["lifting"]) == ("AtanCamera", True)
+        for camera in ("PinholeCamera", "AtanCamera"):
+            for lifting in (False, True):
+                c = dict(cfg, camera=camera, lifting=lifting, rdim=2 + lifting,
+                         C=61 + lifting)
+                names = {s[0] for s in lk.camera_inputs(c) if s is not None}
+                rows[lk.camera_branch(c)] = (c, {k: v for k, v in ins.items() if k in names})
+    return rows
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-10), (torch.float32, 1e-3)])
+@pytest.mark.parametrize("branch", BRANCHES)
+def test_camera_branch_kernels_match_plain(branch_rows, branch, dtype, tol):
+    """B1 and B3 on each window x camera x rows branch against their plain
+    versions, with and without ``valid``; each launch counts on its branch."""
+    cfg, ins = branch_rows[branch]
+    x = {k: v.to(dtype).contiguous() for k, v in ins.items()}
+    M = x["u_ref"].shape[1]
+    xv = dict(x, valid=(torch.arange(M, device=x["u_ref"].device) % 5 != 2).to(dtype)[None, :])
+    rdim, C = lk.camera_shape(cfg)
+    for inputs in (x, xv):
+        before = (lk.linearize_rows.branch_launches.get(branch, 0),
+                  lk.cost_rows.branch_launches.get(branch, 0))
+        got = lk.linearize_rows(cfg, inputs)
+        r = lk.cost_rows(cfg, inputs)
+        assert (lk.linearize_rows.branch_launches[branch],
+                lk.cost_rows.branch_launches[branch]) == (before[0] + 1, before[1] + 1)
+        assert got[1].shape == (M, rdim, C) and r.shape == (M, rdim)
+        _assert_close(got, lk.linearize_rows_plain(cfg, inputs), tol)
+        _assert_close((r,), (lk.cost_rows_plain(cfg, inputs),), max(tol, 1e-4)
+                      if dtype == torch.float32 else tol)
+    if dtype == torch.float64:
+        _assert_close((lk.cost_rows(cfg, x),), (lk.linearize_rows(cfg, x)[0],), 1e-12)
+
+
+def test_atan_lifting_solve_on_cuda_matches_cpu(cuda):
+    """The fused Schur solve of an atan lifting problem on the card equals
+    the CPU run; the row times stay in [0, 1]."""
+    out = {}
+    for device in ("cpu", cuda):
+        gen = make_rsvi_problem(nviews=8, nlandmarks=24, imu_rate=0.0, seed=3, noise_px=1.0,
+                                camera_kind="atan", rs="lifting")
+        problem = Problem(gen["trajectory"], gen["measurements"], device=device)
+        out[str(device)] = make_fused_solver(problem, 8, function_tolerance=0.0,
+                                             strategy="schur")(problem.state0)
+    (cs, cc, ci), (gs, gc, gi) = out["cpu"], out["cuda"]
+    assert ci == gi == 8
+    np.testing.assert_allclose(gc.item(), cc.item(), rtol=1e-9)
+    np.testing.assert_allclose(gs["vt"].cpu().numpy(), cs["vt"].numpy(), rtol=0, atol=1e-8)
+    assert 0.0 <= gs["vt"].min().item() and gs["vt"].max().item() <= 1.0

@@ -46,7 +46,9 @@ def test_gather_stage_matches_jax(camera):
     tspec = tk.problem_spec(pair["torch"])
     tcfg, tins, _ = tk._camera_inputs(tspec, pair["rt"], pair["state"],
                                       pair["rt"]["data"][camera["ci"]])
-    assert tcfg == dict(kind="se3", r3_first=False)
+    assert tcfg == camera["cfg"] == dict(kind="se3", r3_first=False,
+                                         camera="PinholeCamera", lifting=False, rdim=2,
+                                         C=61)
     assert sorted(tins) == sorted(camera["ins"])
     for k, v in tins.items():
         np.testing.assert_array_equal(v.numpy(), np.asarray(camera["ins"][k]), err_msg=k)

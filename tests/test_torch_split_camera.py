@@ -46,7 +46,9 @@ def _close(got, want, name):
 
 def jax_twin(traj, measurements):
     """The JAX package's Problem over the same trajectory (split or SE3),
-    sensors, landmarks and measurements as the port's objects."""
+    sensors (pinhole or atan cameras, IMUs: poses, offsets, offset bounds
+    and locks), landmarks and measurements (static or lifting camera rows,
+    with their ``vt``; gyro and accel rows) as the port's objects."""
     if isinstance(traj, SplitTrajectory):
         r3, so3 = traj.R3_spline, traj.SO3_spline
         jtraj = jt.SplitTrajectory(r3.dt, so3.dt, r3.t0, so3.t0)
@@ -63,7 +65,10 @@ def jax_twin(traj, measurements):
 
     def sensor(s):
         if id(s) not in sensors:
-            if hasattr(s, "camera_matrix"):
+            if hasattr(s, "gamma"):
+                j = js.AtanCamera(s.rows, s.cols, s.readout, s.camera_matrix, wc=s.wc,
+                                  gamma=s.gamma)
+            elif hasattr(s, "camera_matrix"):
                 j = js.PinholeCamera(s.rows, s.cols, s.readout, s.camera_matrix)
             elif hasattr(s, "gyroscope_bias"):
                 j = js.ConstantBiasImu(s.accelerometer_bias, s.gyroscope_bias)
@@ -72,6 +77,7 @@ def jax_twin(traj, measurements):
             else:
                 j = js.BasicImu()
             j.relative_pose = s.relative_pose
+            j.max_time_offset = s.max_time_offset  # before the offset it bounds
             j.time_offset = s.time_offset
             for lock in ("relative_orientation_locked", "relative_position_locked",
                          "time_offset_locked"):
@@ -95,8 +101,14 @@ def jax_twin(traj, measurements):
                     jlm, lm.reference.uv)
                 lms[id(lm)] = jlm
             obs = view(m.observation.view).create_observation(lms[id(lm)], m.observation.uv)
-            ms.append(jm.StaticRsCameraMeasurement(sensor(m.camera), obs, m.huber_loss,
-                                                   m.weight))
+            if hasattr(m, "vt"):
+                jm_ = jm.LiftingRsCameraMeasurement(sensor(m.camera), obs, m.huber_loss,
+                                                    m.weight)
+                jm_.vt = m.vt
+            else:
+                jm_ = jm.StaticRsCameraMeasurement(sensor(m.camera), obs, m.huber_loss,
+                                                   m.weight)
+            ms.append(jm_)
         elif hasattr(m, "w"):
             ms.append(jm.GyroscopeMeasurement(sensor(m.imu), m.t, m.w, m.weight))
         else:
@@ -162,8 +174,9 @@ def test_gather_matches_jax(camera):
     T = pair["torch"]
     trt = tk.problem_runtime(T)
     tcfg, own, _ = tk._camera_inputs(pair["tspec"], trt, T.state0, trt["data"][0])
-    assert tcfg == dict(kind="split", r3_first=True) == {
-        k: camera["cfg"][k] for k in ("kind", "r3_first")}
+    assert tcfg == camera["cfg"] == dict(kind="split", r3_first=True,
+                                         camera="PinholeCamera", lifting=False, rdim=2,
+                                         C=61)
     assert sorted(tins) == sorted(camera["ins"]) == sorted(own)
     for k, v in tins.items():
         np.testing.assert_array_equal(v.numpy(), np.asarray(camera["ins"][k]), err_msg=k)
