@@ -10,10 +10,14 @@ Phases, in order; any failure exits non-zero without the final line:
 1. device: a CUDA device must be present; prints its name and power limit;
 2. build: compiles the hand-written kernels (one nvcc per source, sm_90a,
    in parallel), loads them, and builds their row code for the host
-   beside them (operation counts for the bounds);
+   beside them (operation counts for the bounds); prints the registers and
+   spill of each B1, B2 and B3 instantiation from ``ptxas -v``;
 3. B1 (camera-row linearization) and 4. B2 (Schur assembly): each kernel
    against its plain PyTorch version on the same config-4 inputs on the
    card, in float64 and float32, with errors, median times and bounds;
+   then B2 on random inputs the main path never makes (P = 600, past the
+   head triangle its shared memory holds; repeated and out-of-range ids;
+   out-of-range landmarks; ``with_rho=False``; M = 1 and 0);
 5. solve: BASELINE config 4 through the normal entry points
    (``synthetic.make_rsvi_problem`` -> ``Problem`` -> ``make_fused_solver``):
    a 1-iteration cost against the JAX package's value, an untimed warm-up
@@ -94,7 +98,8 @@ Phases, in order; any failure exits non-zero without the final line:
     with them dropped), B3 against B1's residual, each branch's time,
     bound and plain time; B2 on the lifting bucket (rdim 3, C 62, the
     row times in the reduced system) against its plain version beside
-    cuBLAS;
+    cuBLAS; B1 on M = 1, 7 and 129 rows of config 4 and config
+    3-atan-lifting with rows of valid = 0;
 20. both through ``make_fused_solver(strategy="schur")``: initial and
     1-iteration costs against the JAX package's (1e-9), an untimed
     warm-up, the timed 25-iteration solve (final cost against the JAX
@@ -127,6 +132,7 @@ result ``{"ok": true, "device": {...}}``.
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -524,10 +530,46 @@ def phase_build():
         print(f"build: {time.time() - t0:.1f} s -> {os.path.relpath(so, ROOT)}", flush=True)
         host.result()
     print(f"host row code: ready {time.time() - t0:.1f} s after the build began", flush=True)
-    for line in so.with_suffix(".log").read_text().splitlines():
+    log = so.with_suffix(".log").read_text()
+    for line in log.splitlines():
         if ("Compiling entry" in line or "Function properties" in line
                 or "registers" in line or "spill" in line or line.startswith("==")):
             print(f"  ptxas: {line.strip()}", flush=True)
+    for name, regs, spill in ptxas_summary(log):
+        print(f"ptxas {name}: {regs} registers, {spill} bytes spill stores", flush=True)
+
+
+#: B1 (lane groups; one row per thread), B2 and B3's kernels in a mangled
+#: ptxas name: kernel, then the scalar and, for B1/B3, the Split, Atan and
+#: Lifting flags
+_KERNEL_NAME = re.compile(r"(linearize_rows_kernel|linearize_rows_thread_kernel|cost_rows_kernel"
+                          r"|assemble_schur_kernel)"
+                          r"I([df])(?:Lb([01])ELb([01])ELb([01])E)?E")
+
+
+def ptxas_summary(log):
+    """[(kernel, registers, spill store bytes)] of each instantiation of
+    B1, B2 and B3 in the build's ``ptxas -v`` report."""
+    out, name, spill = [], None, 0
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '(\S+)'", line)
+        if entry:
+            m = _KERNEL_NAME.search(entry.group(1))
+            name = m and (f"{m.group(1)}<{'double' if m.group(2) == 'd' else 'float'}"
+                          + ("" if m.group(3) is None else
+                             f", {('se3', 'split')[int(m.group(3))]}, "
+                             f"{('pinhole', 'atan')[int(m.group(4))]}, "
+                             f"{('static', 'lifting')[int(m.group(5))]}") + ">")
+            spill = 0
+            continue
+        st = re.search(r"(\d+) bytes spill stores", line)
+        if st:
+            spill = int(st.group(1))
+        used = re.search(r"Used (\d+) registers", line)
+        if used and name:
+            out.append((name, int(used.group(1)), spill))
+            name = None
+    return out
 
 
 def phase_problem(name):
@@ -681,6 +723,84 @@ def phase_b2(problem):
                       f"{out['bound_ms']:.4f} ms by {out['bound_by']} ({nbytes} bytes, "
                       f"{ops} operations)", flush=True)
     return out
+
+
+def schur_edge_rows(M, P, L, rdim, C, seed, dtype):
+    """Random B2 inputs on the card shaped like a camera bucket: rows in
+    runs of one landmark sharing 20 ids, one id repeated in every row (equal
+    ids at i != j), ids and lids out of range here and there."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    lid = np.sort(rng.integers(0, L, size=M))
+    cols = rng.integers(0, P, size=(M, C))
+    cols[:, 2:22] = rng.integers(0, P, size=(L, 20))[lid]
+    cols[:, 1] = cols[:, 0]
+    cols[rng.random((M, C)) < 0.02] = -1
+    cols[rng.random((M, C)) < 0.02] = P + 3
+    lid[rng.random(M) < 0.05] = L
+    real = lambda a: torch.tensor(a, dtype=dtype, device="cuda")  # noqa: E731
+    return (real(rng.normal(size=(M, rdim, C))),
+            torch.tensor(cols.astype(np.int32), device="cuda"),
+            real(rng.normal(size=(M, rdim))), real(rng.normal(size=(M, rdim))),
+            torch.tensor(lid.astype(np.int32), device="cuda"))
+
+
+#: B2 on inputs the main path never makes: (name, M, P, L, rdim, C,
+#: with_rho); P = 600 lies past the head triangle that fits the shared
+#: memory (~222 ids in f64, ~324 in f32), so part of H goes to global atomics
+B2_EDGE_CASES = (("P 600", 3000, 600, 50, 2, 61, True),
+                 ("P 600, rdim 3, C 62", 1000, 600, 50, 3, 62, True),
+                 ("with_rho False", 500, 194, 10, 2, 61, False),
+                 ("M 1", 1, 600, 5, 2, 61, True),
+                 ("M 0", 0, 600, 5, 2, 61, True))
+
+
+def phase_b2_edges():
+    """B2 against its plain version (the entries it drops taken out) on
+    B2_EDGE_CASES, float64 and float32."""
+    from kontiki_tpu_torch.ops import assembly_kernels as ak
+
+    names = ("H", "g", "E", "D", "g_l")
+    for i, (case, M, P, L, rdim, C, with_rho) in enumerate(B2_EDGE_CASES):
+        for dtype in (torch.float64, torch.float32):
+            Jw, cols, rw, J_rho, lid = schur_edge_rows(M, P, L, rdim, C, i, dtype)
+            kw = dict(P=P, L=L, with_rho=with_rho)
+            got = ak.assemble_schur_blocks(Jw, cols, rw, J_rho, lid, **kw)
+            torch.cuda.synchronize()
+            drop = (cols < 0) | (cols >= P)
+            off = (lid < 0) | (lid >= L)
+            want = ak.assemble_schur_blocks_plain(
+                Jw * ~drop[:, None, :], torch.where(drop, 0, cols), rw,
+                J_rho * ~off[:, None], torch.where(off, 0, lid), **kw)
+            n = 5 if with_rho else 2
+            print(f"  B2 edge case {case}: M={M} P={P} rdim={rdim} C={C}", flush=True)
+            compare("assemble_schur_blocks", dtype, names[:n], got[:n], want[:n])
+            if not with_rho and got[2:] != (None, None, None):
+                fail(f"assemble_schur_blocks {case}: landmark outputs without with_rho")
+
+
+def phase_b1_ragged(problems):
+    """B1 against its plain version on M = 1, 7 and 129 rows cut from each
+    problem's camera rows (a ragged last lane group and block), every third
+    row with valid = 0 (its outputs must be exact zeros), float64 and
+    float32."""
+    from kontiki_tpu_torch.ops import linearize_kernels as lk
+
+    for name, problem in problems.items():
+        cfg, ins = camera_rows(problem)
+        for M in (1, 7, 129):
+            for dtype in (torch.float64, torch.float32):
+                x = {k: v[:, :M].to(dtype).contiguous() for k, v in ins.items()}
+                x["valid"] = (torch.arange(M, device="cuda") % 3 != 1).to(dtype)[None, :]
+                got = lk.linearize_rows(cfg, x)
+                torch.cuda.synchronize()
+                print(f"  B1 {name} ({lk.camera_branch(cfg)}) M={M}", flush=True)
+                compare("linearize_rows branch", dtype, ("r", "J", "J_rho"), got,
+                        lk.linearize_rows_plain(cfg, x))
+                off = x["valid"][0] == 0
+                if not all(bool((a[off] == 0).all()) for a in got):
+                    fail(f"linearize_rows {name} M={M}: a row with valid = 0 is not zero")
 
 
 def phase_solve(name, problem):
@@ -1727,6 +1847,7 @@ def main():
     built4 = dict(trajectory=prob4["trajectory"].clone(), measurements=prob4["measurements"])
     b1 = phase_b1(problem4)
     b2 = phase_b2(problem4)
+    phase_b2_edges()
     phase_solve("config 4", problem4)
     prob3, problem3 = phase_problem("config 3")
     b1_split = phase_b1(problem3)
@@ -1735,6 +1856,7 @@ def main():
     atan = {name: phase_problem(name) for name in ATAN_CONFIGS}
     branches = phase_branches(branch_inputs({name: p for name, (_, p) in atan.items()}))
     b2_lifting = phase_b2(atan["config 3-atan-lifting"][1])
+    phase_b1_ragged({"config 4": problem4, "config 3-atan-lifting": atan["config 3-atan-lifting"][1]})
     for name, (_, p) in atan.items():
         phase_solve(name, p)
     for name, (prob, _) in atan.items():

@@ -11,8 +11,9 @@
 //    _cost_only_call / _tile_cost.
 // Their plain PyTorch versions are kontiki_tpu_torch/ops/linearize_kernels.py
 // linearize_rows_plain and cost_rows_plain, which the wrappers run for CPU
-// tensors. Rows with valid = 0 give zeros. One thread per row, so there are
-// no padded lanes (the TPU kernels pad divisors with 1.0 to a 128-row tile).
+// tensors. Rows with valid = 0 give zeros. A row is never padded (the TPU
+// kernels pad divisors with 1.0 to a 128-row tile): B3 runs one thread per
+// row, B1 one group of lanes per row, and a group past the last row idles.
 //
 // Branches, template parameters of the row code and the kernels, chosen by
 // the C entry points' flags:
@@ -33,20 +34,37 @@
 //    J_vt = dG/dvt + (dG/du_obs dW_obs/dt) readout (rdim 3, C 62).
 //
 // B1 design: forward mode carried explicitly in Jet<T, N> dual numbers
-// (jet.cuh), the way ceres::Jet differentiates the reference.
-//   1. primal (p, q) of the ref and obs windows;
+// (jet.cuh), the way ceres::Jet differentiates the reference, in stages:
+//   1. primal (p, q) of the ref and obs windows (row_primal);
 //   2. the projection residual over 21 seeds (p, q of ref and obs, sensor
 //      rotation and translation, inverse depth) and, lifting, dvt, in
-//      chunks of N2 = 7: the lifting rows' 22nd seed takes a fourth chunk
-//      of the same width, so every branch runs 8-wide jets (B1 split
-//      pinhole static already runs at 255 registers with spill);
+//      chunks of N2 = 7 (row_residual): the lifting rows' 22nd seed takes a
+//      fourth chunk of the same width;
 //   3. each window in forward mode over 25 seeds (24 knot tangents + the
-//      time shift s, u_eff = u + s/dt), in chunks of N1 = 5; each chunk's
-//      tangents are chained through the (p, q) bottleneck at once and
-//      written out, so no window Jacobian is kept per thread.
-// The sensor block is [q_ct(3), p_ct(3), d = t_ref + t_obs, biases = 0],
+//      time shift s, u_eff = u + s/dt), each chunk's tangents chained
+//      through the (p, q) bottleneck at once and written out (row_window),
+//      so no window Jacobian is kept;
+// then the sensor block [q_ct(3), p_ct(3), d = t_ref + t_obs, biases = 0],
 // where t_ref and t_obs are the residual's derivatives through each
-// window's time shift; the lifting vt column reuses t_obs.
+// window's time shift; the lifting vt column reuses t_obs (row_finish).
+// Two kernels, chosen by M (launch_linearize):
+//  - lane groups, while one row per thread would not fill the card (configs
+//    3 and 4: 3,837-12,304 rows): a row runs on a group of lanes of a warp
+//    (32 on SE3, 16 split; Lanes), the row's inputs and each stage's
+//    results (RowStages) in shared memory, the lanes of a stage the same
+//    instructions on different seeds in narrow jets (seed chunks of 2 on
+//    SE3 and 3 split, each window chunk with the time shift), so a row's
+//    latency is one pass per stage; the group stages its J row in shared
+//    memory, and the block writes its rows, which are contiguous in J,
+//    with 16-byte stores;
+//  - one row per thread from a full wave on (config 5: 500,000 rows), the
+//    stages in sequence in seed chunks of 5 (windows) and 7 (residual),
+//    every lane busy in every stage.
+// In both, a window's increments are made as the chain reads them
+// (SeededDelta) and its knots incremented as the chain reaches them (Lazy),
+// so one knot's jets are held at a time. The host runs the lane schedule lane
+// after lane (linearize_row_lanes) and the stages in chunks
+// (linearize_row: N1 = 5, N2 = 7, or one full-width jet each).
 //
 // B1 bound: an SE3 row reads 82 values (pinhole static; 3 more atan, 4 more
 // lifting; split rows 3 more) and writes 126 (192 lifting), ~1.7 KB in
@@ -54,11 +72,13 @@
 // (csrc/host_rows.cpp counts them): at config 4's 12,304 rows, ~6 us of
 // bytes and ~5 us of operations at 67 TFLOP/s.
 // The kernel's time is set by arithmetic latency and registers instead:
-// each row runs the window chain (trig, sqrt, atan) 10 times with 6-wide
-// jets and the residual 3 times (4 lifting) with 8-wide jets. Seed chunks
-// keep the live jets small (a 25-wide jet would need ~50 registers per
-// value and spill heavily); the price is re-running the primal chain once
-// per chunk.
+// the window chain (trig, sqrt, atan) and the residual chain in jets.
+// One thread per row with every window increment made up front (the first
+// port) spilled in f64 (SE3: 255 registers, 5.7 KB) and ran a chain of 13
+// jet passes per row, too few rows to fill the card at configs 3 and 4.
+// Seed chunks keep the live jets small (a 25-wide jet would need ~50
+// registers per value); the price is re-running the primal chain once per
+// chunk.
 //
 // B3 design: the same row code instantiated on the plain scalar T instead
 // of a Jet, so the primal math is written once and checked on the host
@@ -77,8 +97,8 @@
 namespace {
 
 constexpr int kC = 61;            // static columns: 24 ref | 24 obs | 13 sensor
-constexpr int kN1 = 5;            // stage-1 seed chunk (25 = 5 x 5)
-constexpr int kN2 = 7;            // stage-2 seed chunk (21 = 3 x 7; 22 = 4 chunks)
+constexpr int kN1 = 5;            // window seed chunk, one row per thread (25 = 5 x 5)
+constexpr int kN2 = 7;            // residual seed chunk, one row per thread (21 = 3 x 7)
 constexpr double kEpsP = 1e-32;   // projection guard (camera_models._EPS)
 
 // flags of the C entry points
@@ -99,9 +119,9 @@ struct RowShape {
 // additive) and the cumulative SO3 spline at u_so3 + s/dt_so3 (win[12..27],
 // knots left exp(w) q). delta holds the first spline's 12 increments, then
 // the second's.
-template <typename T, typename S>
+template <typename T, typename S, typename D, bool Lazy = false>
 KT_HD void pq_split(const T* win, T u_r3, T u_so3, T dt_r3, T dt_so3,
-                    const S* delta, const S& s, bool r3_first, S* out) {
+                    const D& delta, const S& s, bool r3_first, S* out) {
   const int off_r3 = r3_first ? 0 : 12;
   const int off_so3 = r3_first ? 12 : 0;
 
@@ -120,15 +140,17 @@ KT_HD void pq_split(const T* win, T u_r3, T u_so3, T dt_r3, T dt_so3,
     out[k] = acc;
   }
 
-  Q4<S> kq[4];
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
+  // knot j of the SO3 spline with its increment; Lazy as for pq_se3
+  auto knot = [&](int j) {
     const T* w = win + 12 + 4 * j;
     const Q4<S> qj = {S(w[0]), S(w[1]), S(w[2]), S(w[3])};
     const V3<S> dw = {delta[off_so3 + 3 * j], delta[off_so3 + 3 * j + 1],
                       delta[off_so3 + 3 * j + 2]};
-    kq[j] = qmul(so3_exp_quat(dw), qj);
-  }
+    return qmul(so3_exp_quat(dw), qj);
+  };
+  Q4<S> kq[4];
+#pragma unroll
+  for (int j = 0; j < (Lazy ? 1 : 4); ++j) kq[j] = knot(j);
   const S uq = u_so3 + s / dt_so3;
   const S q2 = uq * uq;
   const S q3 = q2 * uq;
@@ -138,6 +160,7 @@ KT_HD void pq_split(const T* win, T u_r3, T u_so3, T dt_r3, T dt_so3,
   Q4<S> q = kq[0];
 #pragma unroll
   for (int j = 1; j < 4; ++j) {
+    if (Lazy) kq[j] = knot(j);
     const V3<S> w3 = logq_vec(qmul(qconj(kq[j - 1]), kq[j]));
     const S b = B[j - 1];
     q = qmul(q, expq_pure(V3<S>{b * w3.x, b * w3.y, b * w3.z}));
@@ -153,14 +176,14 @@ struct Windows {
 };
 
 // (p, q) of window i (0 ref, 1 obs) with increments delta and time shift s.
-template <typename T, bool Split, typename S>
-KT_HD void window_pq(const Windows<T>& w, int i, bool r3_first, const S* delta,
+template <typename T, bool Split, typename S, bool Lazy = false, typename D>
+KT_HD void window_pq(const Windows<T>& w, int i, bool r3_first, const D& delta,
                      const S& s, S* out) {
   if (Split) {
-    pq_split<T, S>(w.win[i], w.u[i][0], w.u[i][1], w.dt[0], w.dt[1], delta, s,
-                   r3_first, out);
+    pq_split<T, S, D, Lazy>(w.win[i], w.u[i][0], w.u[i][1], w.dt[0], w.dt[1], delta, s,
+                            r3_first, out);
   } else {
-    pq_se3<T, S>(w.win[i], w.u[i][0], w.dt[0], delta, s, out);
+    pq_se3<T, S, D, Lazy>(w.win[i], w.u[i][0], w.dt[0], delta, s, out);
   }
 }
 
@@ -306,9 +329,126 @@ KT_HD void load_row(const Inputs<T>& in, int m, Windows<T>& w, Row<T>& row) {
   }
 }
 
-// Linearize row m: r [M, R], J [M, R, C], J_rho [M, R] (RowShape). The
-// kernel runs the seed chunks N1 = kN1, N2 = kN2; N1 = 25, N2 = NS is one
-// chunk each.
+// What a row's stages hand on: the primal (p, q) of both windows, the
+// residual's seed columns JG and value r, and the residual's derivatives t
+// through each window's time shift (t_ref, t_obs).
+template <typename T, bool Lifting>
+struct RowStages {
+  static constexpr int R = RowShape<Lifting>::R;
+  static constexpr int NS = RowShape<Lifting>::NS;
+  T pq[2][7], JG[NS][R], r[R], t[2][R];
+};
+
+// Stage 1: the primal (p, q) of window i (0 ref, 1 obs).
+template <typename T, bool Split>
+KT_HD void row_primal(const Windows<T>& w, int i, bool r3_first, T* pq) {
+  T zero[24];
+  for (int k = 0; k < 24; ++k) zero[k] = T(0);
+  const T zs = T(0);
+  window_pq<T, Split, T>(w, i, r3_first, zero, zs, pq);
+}
+
+// Stage 2: the residual over its seed chunk c of width N2 (seeds N2 c ..
+// N2 c + N2 - 1 of the NS: p, q of ref and obs, sensor rotation and
+// translation, inverse depth and, lifting, dvt) into JG; chunk 0 also
+// writes r.
+template <typename T, bool Atan, bool Lifting, int N2>
+KT_HD void row_residual(const Row<T>& row, RowStages<T, Lifting>& st, int c) {
+  constexpr int R = RowShape<Lifting>::R;
+  constexpr int NS = RowShape<Lifting>::NS;
+  using S = Jet<T, N2>;
+  const int s0 = N2 * c;
+  S ur[7], uo[7], dsen[6], out[R];
+  for (int k = 0; k < 7; ++k) {
+    ur[k] = seeded<T, N2>(st.pq[0][k], k - s0);
+    uo[k] = seeded<T, N2>(st.pq[1][k], 7 + k - s0);
+  }
+  for (int k = 0; k < 6; ++k) dsen[k] = seeded<T, N2>(T(0), 14 + k - s0);
+  const S drho = seeded<T, N2>(T(0), 20 - s0);
+  const S dvt = seeded<T, N2>(T(0), 21 - s0);
+  residual_G<T, S, Atan, Lifting>(row, ur, uo, dsen, drho, dvt, out);
+#pragma unroll
+  for (int i = 0; i < N2; ++i) {
+    if (s0 + i < NS) {
+      for (int rr = 0; rr < R; ++rr) st.JG[s0 + i][rr] = out[rr].v[i];
+    }
+  }
+  if (c == 0) {
+    for (int rr = 0; rr < R; ++rr) st.r[rr] = out[rr].a;
+  }
+}
+
+// A window's 24 increments in a seed chunk, each made when it is read (so
+// the window chain holds one knot's at a time): increment k carries
+// tangent 1 in slot k - k0 for k0 <= k < k0 + Per, none otherwise.
+template <typename T, int N>
+struct SeededDelta {
+  int k0, per;
+  KT_HD Jet<T, N> operator[](int k) const {
+    return seeded<T, N>(T(0), (k >= k0 && k < k0 + per) ? k - k0 : -1);
+  }
+};
+
+// Stage 3: window i in forward mode over its seed chunk c in one Jet<T, N1>:
+// the knot tangents Per c .. Per c + Per - 1 (of 24) and the time shift s
+// (u_eff = u + s/dt), in the last slot when N1 > Per (every chunk carries
+// it; chunk 0 keeps it), else as seed 24 of the chunk that reaches it. The
+// tangents are chained through the (p, q) bottleneck with JG and written,
+// times v, into the row's J [R, C]; the time shift's into t[i].
+template <typename T, bool Split, bool Lifting, int N1, int Per>
+KT_HD void row_window(const Windows<T>& w, int i, int c, bool r3_first,
+                      RowStages<T, Lifting>& st, T v, T* J) {
+  constexpr int R = RowShape<Lifting>::R;
+  constexpr int C = RowShape<Lifting>::C;
+  using S = Jet<T, N1>;
+  const int k0 = Per * c;
+  const SeededDelta<T, N1> delta = {k0, Per};
+  const S s = seeded<T, N1>(T(0), N1 > Per ? Per : 24 - k0);
+  S out[7];
+  window_pq<T, Split, S, true>(w, i, r3_first, delta, s, out);
+#pragma unroll
+  for (int j = 0; j < N1; ++j) {
+    const int sd = j < Per ? k0 + j : 24;
+    if (sd > 24 || (j >= Per && c != 0)) continue;
+    for (int rr = 0; rr < R; ++rr) {
+      T acc = T(0);
+      for (int k = 0; k < 7; ++k) acc = acc + st.JG[7 * i + k][rr] * out[k].v[j];
+      if (sd < 24) {
+        J[rr * C + 24 * i + sd] = acc * v;
+      } else {
+        st.t[i][rr] = acc;
+      }
+    }
+  }
+}
+
+// The row's remaining outputs, after stages 1-3: the sensor block
+// [q_ct(3), p_ct(3), d = t_ref + t_obs, biases = 0] and, lifting, the vt
+// column of J [R, C], and r [R], J_rho [R], all times valid.
+template <typename T, bool Lifting>
+KT_HD void row_finish(const Row<T>& row, const RowStages<T, Lifting>& st, T* J, T* r_out,
+                      T* Jrho_out) {
+  constexpr int R = RowShape<Lifting>::R;
+  constexpr int C = RowShape<Lifting>::C;
+  const T v = row.valid;
+  for (int rr = 0; rr < R; ++rr) {
+    for (int j = 0; j < 6; ++j) J[rr * C + 48 + j] = st.JG[14 + j][rr] * v;
+    J[rr * C + 54] = (st.t[0][rr] + st.t[1][rr]) * v;
+    for (int j = 55; j < kC; ++j) J[rr * C + j] = T(0);
+    if constexpr (Lifting) {
+      // the row time moves the obs window: dW_obs/dvt = dW_obs/dt readout
+      J[rr * C + kC] = (st.JG[21][rr] + st.t[1][rr] * row.readout) * v;
+    }
+    r_out[rr] = st.r[rr] * v;
+    Jrho_out[rr] = st.JG[20][rr] * v;
+  }
+}
+
+// Linearize row m: r [M, R], J [M, R, C], J_rho [M, R] (RowShape), the
+// stages in sequence in seed chunks N1 (windows, 25 seeds) and N2
+// (residual): the one-row-per-thread kernel (N1 = kN1, N2 = kN2) and, on
+// the host, N1 = 25, N2 = NS, one chunk each, as the operation count runs
+// it.
 template <typename T, bool Split, bool Atan, bool Lifting, int N1 = kN1, int N2 = kN2>
 KT_HD void linearize_row(const Inputs<T>& in, int m, T* r_out, T* J_out,
                          T* Jrho_out) {
@@ -319,82 +459,76 @@ KT_HD void linearize_row(const Inputs<T>& in, int m, T* r_out, T* J_out,
   Row<T> row;
   load_row<T, Split, Atan, Lifting>(in, m, w, row);
   const bool r3_first = (in.flags & kCamR3First) != 0;
-
-  // 1. primal (p, q) of both windows
-  T pq[2][7];
-  {
-    T zero[24];
-    for (int k = 0; k < 24; ++k) zero[k] = T(0);
-    const T zs = T(0);
-    window_pq<T, Split, T>(w, 0, r3_first, zero, zs, pq[0]);
-    window_pq<T, Split, T>(w, 1, r3_first, zero, zs, pq[1]);
-  }
-
-  // 2. residual and its NS seed columns
-  T JG[NS][R], r[R];
-  for (int s0 = 0; s0 < NS; s0 += N2) {
-    using S = Jet<T, N2>;
-    S ur[7], uo[7], dsen[6], out[R];
-    for (int k = 0; k < 7; ++k) {
-      ur[k] = seeded<T, N2>(pq[0][k], k - s0);
-      uo[k] = seeded<T, N2>(pq[1][k], 7 + k - s0);
-    }
-    for (int k = 0; k < 6; ++k) dsen[k] = seeded<T, N2>(T(0), 14 + k - s0);
-    const S drho = seeded<T, N2>(T(0), 20 - s0);
-    const S dvt = seeded<T, N2>(T(0), 21 - s0);
-    residual_G<T, S, Atan, Lifting>(row, ur, uo, dsen, drho, dvt, out);
-#pragma unroll
-    for (int i = 0; i < N2; ++i) {
-      if (NS % N2 == 0 || s0 + i < NS) {
-        for (int rr = 0; rr < R; ++rr) JG[s0 + i][rr] = out[rr].v[i];
-      }
-    }
-    for (int rr = 0; rr < R; ++rr) r[rr] = out[rr].a;
-  }
-
-  // 3. window tangents, chained through the (p, q) bottleneck
-  const T v = row.valid;
+  RowStages<T, Lifting> st;
   T* J = J_out + static_cast<size_t>(m) * R * C;
-  // d(r)/d(time): t_ref + t_obs in one running sum, and t_obs alone for the
-  // lifting vt column (one sum, not one per window: per-window sums changed
-  // the pinhole static kernels' register allocation and spill, and slowed
-  // the SE3 one)
-  T t_sum[R], t_obs[R];
-  for (int rr = 0; rr < R; ++rr) t_sum[rr] = T(0);
+  for (int i = 0; i < 2; ++i) row_primal<T, Split>(w, i, r3_first, st.pq[i]);
+  for (int c = 0; c < (NS + N2 - 1) / N2; ++c) row_residual<T, Atan, Lifting, N2>(row, st, c);
   for (int i = 0; i < 2; ++i) {
-    for (int s0 = 0; s0 < 25; s0 += N1) {
-      using S = Jet<T, N1>;
-      S delta[24], out[7];
-      for (int k = 0; k < 24; ++k) delta[k] = seeded<T, N1>(T(0), k - s0);
-      const S s = seeded<T, N1>(T(0), 24 - s0);
-      window_pq<T, Split, S>(w, i, r3_first, delta, s, out);
-#pragma unroll
-      for (int j = 0; j < N1; ++j) {
-        const int c = s0 + j;
-        for (int rr = 0; rr < R; ++rr) {
-          T acc = T(0);
-          for (int k = 0; k < 7; ++k) acc = acc + JG[7 * i + k][rr] * out[k].v[j];
-          if (c < 24) {
-            J[rr * C + 24 * i + c] = acc * v;
-          } else {
-            t_sum[rr] = t_sum[rr] + acc;
-            if (Lifting && i == 1) t_obs[rr] = acc;
-          }
-        }
-      }
+    for (int c = 0; c < (25 + N1 - 1) / N1; ++c) {
+      row_window<T, Split, Lifting, N1, N1>(w, i, c, r3_first, st, row.valid, J);
     }
   }
-  for (int rr = 0; rr < R; ++rr) {
-    for (int j = 0; j < 6; ++j) J[rr * C + 48 + j] = JG[14 + j][rr] * v;
-    J[rr * C + 54] = t_sum[rr] * v;
-    for (int j = 55; j < kC; ++j) J[rr * C + j] = T(0);
-    if constexpr (Lifting) {
-      // the row time moves the obs window: dW_obs/dvt = dW_obs/dt readout
-      J[rr * C + kC] = (JG[21][rr] + t_obs[rr] * row.readout) * v;
-    }
-    r_out[R * m + rr] = r[rr] * v;
-    Jrho_out[R * m + rr] = JG[20][rr] * v;
+  row_finish<T, Lifting>(row, st, J, r_out + R * m, Jrho_out + R * m);
+}
+
+// B1's lane kernel runs one row on a group of lanes of a warp, stage by
+// stage (Lanes: the widths and the group of each window kind):
+//   1. lanes 0-1: the primal (p, q) of the ref and obs windows;
+//   2. one residual seed chunk of `res` seeds a lane (11 lanes on SE3, 8
+//      split; the lifting rows' 22nd seed is one of them);
+//   3. one window seed chunk a lane, `win` knot tangents plus the time
+//      shift, window lane / (24 / win) (24 lanes on SE3, 16 split).
+// Narrow jets keep a lane's registers few: the 8-wide jets of the first
+// design spilled 10 KB on SE3 and 1.7 KB split in f64; the SE3 chain is the
+// longer, so its chunks are the narrower.
+constexpr int kB1Threads = 128;
+
+template <bool Split>
+struct Lanes {
+  static constexpr int res = Split ? 3 : 2;  // residual seeds of a stage-2 lane
+  static constexpr int win = Split ? 3 : 2;  // knot tangents of a stage-3 lane
+  static constexpr int win_chunks = 24 / win;  // stage-3 lanes per window
+  static constexpr int res_chunks = (22 + res - 1) / res;
+  static constexpr int needed = res_chunks > 2 * win_chunks ? res_chunks : 2 * win_chunks;
+  static constexpr int group = needed <= 8 ? 8 : needed <= 16 ? 16 : 32;  // lanes a row
+  static constexpr int rows = kB1Threads / group;                         // rows a block
+};
+
+// Lane `lane` of a row's group in stage `stage` (0, 1, 2 as above).
+template <typename T, bool Split, bool Atan, bool Lifting>
+KT_HD void row_stage(int stage, int lane, const Windows<T>& w, const Row<T>& row,
+                     bool r3_first, RowStages<T, Lifting>& st, T* J) {
+  using K = Lanes<Split>;
+  constexpr int NS = RowShape<Lifting>::NS;
+  if (stage == 0) {
+    if (lane < 2) row_primal<T, Split>(w, lane, r3_first, st.pq[lane]);
+  } else if (stage == 1) {
+    if (lane < (NS + K::res - 1) / K::res) row_residual<T, Atan, Lifting, K::res>(row, st, lane);
+  } else if (lane < 2 * K::win_chunks) {
+    row_window<T, Split, Lifting, K::win + 1, K::win>(
+        w, lane / K::win_chunks, lane % K::win_chunks, r3_first, st, row.valid, J);
   }
+}
+
+// Row m as the kernel's lane group computes it, the lanes of each stage
+// one after the other: the host's check of the kernel's schedule.
+template <typename T, bool Split, bool Atan, bool Lifting>
+KT_HD void linearize_row_lanes(const Inputs<T>& in, int m, T* r_out, T* J_out,
+                               T* Jrho_out) {
+  constexpr int R = RowShape<Lifting>::R;
+  constexpr int C = RowShape<Lifting>::C;
+  Windows<T> w;
+  Row<T> row;
+  load_row<T, Split, Atan, Lifting>(in, m, w, row);
+  const bool r3_first = (in.flags & kCamR3First) != 0;
+  RowStages<T, Lifting> st;
+  T* J = J_out + static_cast<size_t>(m) * R * C;
+  for (int stage = 0; stage < 3; ++stage) {
+    for (int lane = 0; lane < Lanes<Split>::group; ++lane) {
+      row_stage<T, Split, Atan, Lifting>(stage, lane, w, row, r3_first, st, J);
+    }
+  }
+  row_finish<T, Lifting>(row, st, J, r_out + R * m, Jrho_out + R * m);
 }
 
 // Residual only of row m (B3): r [M, R], B1's primal chain at zero
@@ -417,11 +551,108 @@ KT_HD void cost_row(const Inputs<T>& in, int m, T* r_out) {
 
 #ifdef __CUDACC__
 
+// A row group's inputs and stage results in shared memory.
+template <typename T, bool Lifting>
+struct GroupRow {
+  Windows<T> w;
+  Row<T> row;
+  RowStages<T, Lifting> st;
+};
+
+// Shared memory of a B1 block: the rows' J tiles [rows, R, C], then their
+// GroupRows.
+template <typename T, bool Split, bool Lifting>
+constexpr size_t b1_smem_bytes() {
+  return Lanes<Split>::rows * (sizeof(T) * RowShape<Lifting>::R * RowShape<Lifting>::C +
+                               sizeof(GroupRow<T, Lifting>));
+}
+
+// n values from shared src to global dst, in 16-byte stores where dst
+// allows (src is 16-byte aligned).
+template <typename T>
+__device__ void copy_out(const T* src, T* dst, int n) {
+  constexpr int V = 16 / sizeof(T);
+  int done = 0;
+  if (reinterpret_cast<unsigned long long>(dst) % 16 == 0) {
+    const int4* s = reinterpret_cast<const int4*>(src);
+    int4* d = reinterpret_cast<int4*>(dst);
+    for (int i = threadIdx.x; i < n / V; i += blockDim.x) d[i] = s[i];
+    done = n / V * V;
+  }
+  for (int i = done + threadIdx.x; i < n; i += blockDim.x) dst[i] = src[i];
+}
+
+// B1: a block of Lanes::rows rows, each on a group of Lanes::group lanes
+// of one warp (row_stage); the group's J tile is staged in shared memory
+// and the block's tiles, contiguous in J, are written out together.
 template <typename T, bool Split, bool Atan, bool Lifting>
-__global__ void __launch_bounds__(128) linearize_rows_kernel(
+__global__ void __launch_bounds__(kB1Threads) linearize_rows_kernel(
+    Inputs<T> in, T* r, T* J, T* J_rho) {
+  using K = Lanes<Split>;
+  constexpr int R = RowShape<Lifting>::R;
+  constexpr int C = RowShape<Lifting>::C;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* tiles = reinterpret_cast<T*>(smem);
+  GroupRow<T, Lifting>* groups =
+      reinterpret_cast<GroupRow<T, Lifting>*>(tiles + K::rows * R * C);
+  const int grp = threadIdx.x / K::group;
+  const int lane = threadIdx.x % K::group;
+  const int m0 = blockIdx.x * K::rows;
+  const int m = m0 + grp;
+  const bool live = m < in.M;
+  GroupRow<T, Lifting>& g = groups[grp];
+  T* tile = tiles + grp * R * C;
+  const bool r3_first = (in.flags & kCamR3First) != 0;
+  if (live && lane == 0) load_row<T, Split, Atan, Lifting>(in, m, g.w, g.row);
+  __syncwarp();
+  for (int stage = 0; stage < 3; ++stage) {
+    if (live) row_stage<T, Split, Atan, Lifting>(stage, lane, g.w, g.row, r3_first, g.st, tile);
+    __syncwarp();
+  }
+  if (live && lane == 0) row_finish<T, Lifting>(g.row, g.st, tile, r + R * m, J_rho + R * m);
+  __syncthreads();
+  const int rows = in.M - m0 < K::rows ? in.M - m0 : K::rows;
+  copy_out(tiles, J + static_cast<size_t>(m0) * R * C, rows * R * C);
+}
+
+// B1 for many rows: one row per thread, the stages in sequence in the seed
+// chunks of linearize_row (kN1, kN2), the stage results in registers.
+template <typename T, bool Split, bool Atan, bool Lifting>
+__global__ void __launch_bounds__(128) linearize_rows_thread_kernel(
     Inputs<T> in, T* r, T* J, T* J_rho) {
   const int m = blockIdx.x * blockDim.x + threadIdx.x;
   if (m < in.M) linearize_row<T, Split, Atan, Lifting>(in, m, r, J, J_rho);
+}
+
+// Rows the one-row-per-thread kernel holds on the card at once.
+template <typename T, bool Split, bool Atan, bool Lifting>
+int thread_kernel_wave() {
+  static int wave = 0;
+  if (!wave) {
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, linearize_rows_thread_kernel<T, Split, Atan, Lifting>, 128, 0);
+    wave = sms * (per_sm > 0 ? per_sm : 1) * 128;
+  }
+  return wave;
+}
+
+// B1 on the kernel that suits M: lane groups (a row's latency is one pass
+// per stage) while one row per thread would not fill the card; one row
+// per thread (every lane busy in every stage) from a full wave on.
+template <typename T, bool Split, bool Atan, bool Lifting>
+void launch_linearize(const Inputs<T>& in, T* r, T* J, T* J_rho, cudaStream_t st) {
+  if (in.M >= thread_kernel_wave<T, Split, Atan, Lifting>()) {
+    linearize_rows_thread_kernel<T, Split, Atan, Lifting><<<(in.M + 127) / 128, 128, 0, st>>>(
+        in, r, J, J_rho);
+  } else {
+    constexpr int rows = Lanes<Split>::rows;
+    linearize_rows_kernel<T, Split, Atan, Lifting>
+        <<<(in.M + rows - 1) / rows, kB1Threads, b1_smem_bytes<T, Split, Lifting>(), st>>>(
+            in, r, J, J_rho);
+  }
 }
 
 template <typename T, bool Split, bool Atan, bool Lifting>
@@ -448,11 +679,11 @@ int launch_camera(const void* const* ins, void* r, void* J, void* J_rho, int M,
       cost_rows_kernel<T, false, Atan, Lifting><<<blocks, threads, 0, st>>>(in, rp);
     }
   } else if (split) {
-    linearize_rows_kernel<T, true, Atan, Lifting><<<blocks, threads, 0, st>>>(
-        in, rp, static_cast<T*>(J), static_cast<T*>(J_rho));
+    launch_linearize<T, true, Atan, Lifting>(in, rp, static_cast<T*>(J),
+                                             static_cast<T*>(J_rho), st);
   } else {
-    linearize_rows_kernel<T, false, Atan, Lifting><<<blocks, threads, 0, st>>>(
-        in, rp, static_cast<T*>(J), static_cast<T*>(J_rho));
+    launch_linearize<T, false, Atan, Lifting>(in, rp, static_cast<T*>(J),
+                                              static_cast<T*>(J_rho), st);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,6 +1,7 @@
 // The row kernels' per-row code (camera_rows.cuh: B1 and B3; imu_rows.cu:
-// B4; eval_windows.cu: B5; r3_evaluate.cu: B7), compiled for the host with
-// a plain C++ compiler. Two uses:
+// B4; eval_windows.cu: B5; r3_evaluate.cu: B7) and B2's block accumulation
+// (assemble_schur.cu), compiled for the host with a plain C++ compiler. Two
+// uses:
 //   - on double, the same row functions the CUDA kernels run, to check the
 //     row math against the plain PyTorch versions without a card;
 //   - on Counted, a double that counts its floating-point operations, to
@@ -23,6 +24,7 @@
 // the rows in parallel threads and add the counts.
 // Built by kontiki_tpu_torch/ops/build.py build_host():
 //   c++ -std=c++17 -O2 -shared -fPIC -o libkontiki_host.so host_rows.cpp
+#include <algorithm>
 #include <cmath>
 #include <vector>
 
@@ -91,6 +93,7 @@ inline Counted kt_abs(Counted a) {
 #include "imu_rows.cu"
 #include "camera_rows.cuh"
 #include "r3_evaluate.cu"
+#include "assemble_schur.cu"
 
 namespace {
 
@@ -143,14 +146,21 @@ auto camera_dispatch(int flags, A&&... a) {
                  : Fn::template run<false, false, false>(a...);
 }
 
+// B1's row code in a check mode: the seed chunks (kB1Chunks), one
+// full-width jet per stage (kB1Wide), or the kernel's lane group, lane after
+// lane (kB1Lanes).
+enum { kB1Chunks = 0, kB1Wide = 1, kB1Lanes = 2 };
+
 struct HostLinearize {
   template <bool Split, bool Atan, bool Lifting>
   static void run(const Inputs<double>& in, double* r, double* J, double* J_rho,
-                  int wide) {
+                  int mode) {
     constexpr int NS = RowShape<Lifting>::NS;
     for (int m = 0; m < in.M; ++m) {
-      if (wide) {
+      if (mode == kB1Wide) {
         linearize_row<double, Split, Atan, Lifting, 25, NS>(in, m, r, J, J_rho);
+      } else if (mode == kB1Lanes) {
+        linearize_row_lanes<double, Split, Atan, Lifting>(in, m, r, J, J_rho);
       } else {
         linearize_row<double, Split, Atan, Lifting>(in, m, r, J, J_rho);
       }
@@ -250,12 +260,40 @@ long long kontiki_count_imu_rows(const double* const* ins, int M, int flags) {
 }
 
 // B1 row code on double: ins and flags as for kontiki_linearize_rows_f64;
-// wide as for kontiki_host_imu_rows_f64.
+// mode kB1Chunks, kB1Wide or kB1Lanes.
 void kontiki_host_linearize_rows_f64(const double* const* ins, double* r, double* J,
-                                     double* J_rho, int M, int flags, int wide) {
+                                     double* J_rho, int M, int flags, int mode) {
   const Inputs<double> in =
       make_inputs<double>(reinterpret_cast<const void* const*>(ins), M, flags);
-  camera_dispatch<HostLinearize>(flags, in, r, J, J_rho, wide);
+  camera_dispatch<HostLinearize>(flags, in, r, J, J_rho, mode);
+}
+
+// B2 on double as the kernel accumulates it: the rows cut into blocks x
+// warps ranges (a block's warps take ranges `blocks` apart), each block
+// adding the products of ids below Ph into its own head triangle and g
+// head, the others straight into H and g, the landmark outputs in runs per
+// warp; the blocks' heads summed in order into H, mirrored, and g.
+// Arguments as for kontiki_assemble_schur_f64; the outputs arrive zeroed.
+void kontiki_host_assemble_schur_f64(const double* Jw, const int* cols, const double* rw,
+                                     const double* J_rho, const int* lid, double* H,
+                                     double* g, double* E, double* D, double* g_l, int M,
+                                     int rdim, int C, int P, int L, int with_rho, int Ph,
+                                     int blocks, int warps) {
+  const SchurArgs<double> a = {Jw, rw, J_rho, cols, lid, H, g, E, D, g_l,
+                               M, rdim, C, P, L, with_rho, Ph};
+  const int nv = head_values(Ph);
+  std::vector<double> ws(static_cast<size_t>(blocks) * nv);
+  std::vector<double> wv(warp_values(rdim, C));
+  std::vector<int> wi(warp_ints(C));
+  for (int b = 0; b < blocks; ++b) {
+    double* U = ws.data() + static_cast<size_t>(b) * nv;
+    for (int w = 0; w < warps; ++w) {
+      int lo, hi;
+      warp_range(M, blocks, warps, b, w, &lo, &hi);
+      warp_rows(a, lo, hi, U, U + nv - Ph, wv.data(), wi.data(), 0, 1);
+    }
+  }
+  for (int t = 0; t < nv; ++t) reduce_head(ws.data(), blocks, P, Ph, t, H, g);
 }
 
 // B3 row code on double: ins and flags as for kontiki_cost_rows_f64.

@@ -147,23 +147,29 @@ KT_HD V3<S> Vinv_apply(const V3<S>& o, const V3<S>& t) {
           t.z - T(0.5) * c1.z + c * c2.z};
 }
 
-// Cumulative SE3 window (p, q) at u + s/dt with right increments
-// (q exp(w), t + R(q) V(w) v) on the 4 knots; delta rows 6j+0..2 are
-// translation, 6j+3..5 rotation.
-template <typename T, typename S>
-KT_HD void pq_se3(const T* win, T u, T dt, const S* delta, const S& s, S* out) {
+// Knot j of an SE3 window with its right increment (q exp(w), t + R(q)
+// V(w) v); delta rows 6j+0..2 are translation, 6j+3..5 rotation (delta: an
+// array of S or anything indexed like one).
+template <typename T, typename S, typename D>
+KT_HD void se3_knot(const T* win, int j, const D& delta, Q4<S>& kq, V3<S>& kt) {
+  const Q4<S> qj = {S(win[7 * j]), S(win[7 * j + 1]), S(win[7 * j + 2]), S(win[7 * j + 3])};
+  const V3<S> dv = {delta[6 * j], delta[6 * j + 1], delta[6 * j + 2]};
+  const V3<S> dw = {delta[6 * j + 3], delta[6 * j + 4], delta[6 * j + 5]};
+  const V3<S> rt = qrotate(qj, V_apply(dw, dv));
+  kq = qmul(qj, so3_exp_quat(dw));
+  kt = {win[7 * j + 4] + rt.x, win[7 * j + 5] + rt.y, win[7 * j + 6] + rt.z};
+}
+
+// Cumulative SE3 window (p, q) at u + s/dt with right increments on the 4
+// knots (se3_knot). Lazy increments each knot when the chain reaches it, so
+// two are held at a time (B1's wide jets need that to fit their registers);
+// otherwise all four come first (B3's and B5's chains run faster so).
+template <typename T, typename S, typename D, bool Lazy = false>
+KT_HD void pq_se3(const T* win, T u, T dt, const D& delta, const S& s, S* out) {
   Q4<S> kq[4];
   V3<S> kt[4];
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const Q4<S> qj = {S(win[7 * j]), S(win[7 * j + 1]), S(win[7 * j + 2]),
-                      S(win[7 * j + 3])};
-    const V3<S> dv = {delta[6 * j], delta[6 * j + 1], delta[6 * j + 2]};
-    const V3<S> dw = {delta[6 * j + 3], delta[6 * j + 4], delta[6 * j + 5]};
-    const V3<S> rt = qrotate(qj, V_apply(dw, dv));
-    kq[j] = qmul(qj, so3_exp_quat(dw));
-    kt[j] = {win[7 * j + 4] + rt.x, win[7 * j + 5] + rt.y, win[7 * j + 6] + rt.z};
-  }
+  for (int j = 0; j < (Lazy ? 1 : 4); ++j) se3_knot<T, S, D>(win, j, delta, kq[j], kt[j]);
 
   const S ue = u + s / dt;
   const S u2 = ue * ue;
@@ -176,6 +182,7 @@ KT_HD void pq_se3(const T* win, T u, T dt, const S* delta, const S& s, S* out) {
   V3<S> Pt = kt[0];
 #pragma unroll
   for (int j = 1; j < 4; ++j) {
+    if (Lazy) se3_knot<T, S, D>(win, j, delta, kq[j], kt[j]);
     const Q4<S> qi = qconj(kq[j - 1]);
     const V3<S> ti = qrotate(qi, kt[j - 1]);
     const Q4<S> q_rel = qmul(qi, kq[j]);

@@ -77,8 +77,8 @@ def assemble_schur_blocks(Jw, cols, rw, J_rho, lid, *, P, L, with_rho):
     from .build import load_library
 
     lib = load_library()
-    fn = (lib.kontiki_assemble_schur_f64 if Jw.dtype == torch.float64
-          else lib.kontiki_assemble_schur_f32)
+    suffix = "_f64" if Jw.dtype == torch.float64 else "_f32"
+    fn = getattr(lib, "kontiki_assemble_schur" + suffix)
     opts = dict(dtype=Jw.dtype, device=Jw.device)
     H = torch.zeros(P, P, **opts)
     g = torch.zeros(P, **opts)
@@ -88,12 +88,18 @@ def assemble_schur_blocks(Jw, cols, rw, J_rho, lid, *, P, L, with_rho):
     g_l = torch.zeros(Lo, **opts)
     if M:
         with torch.cuda.device(Jw.device):
+            # the blocks' heads, summed into H and g by the kernel's second launch
+            n = getattr(lib, "kontiki_assemble_schur_workspace" + suffix)(M, rdim, C, P)
+            if n < 0:
+                raise ValueError(f"assemble_schur_blocks: rows of rdim {rdim}, C {C} do not "
+                                 f"fit the card's shared memory")
+            ws = torch.empty(n, **opts)
             stream = torch.cuda.current_stream().cuda_stream
             err = fn(*[ctypes.c_void_p(a.data_ptr())
                        for a in (Jw, cols, rw, J_rho, lid, H, g, E, D, g_l)],
                      ctypes.c_int(M), ctypes.c_int(rdim), ctypes.c_int(C),
                      ctypes.c_int(P), ctypes.c_int(L), ctypes.c_int(int(with_rho)),
-                     ctypes.c_void_p(stream))
+                     ctypes.c_void_p(ws.data_ptr()), ctypes.c_void_p(stream))
         if err:
             raise RuntimeError(
                 f"assemble_schur_blocks: kernel launch failed (CUDA error {err})"
@@ -106,3 +112,27 @@ def assemble_schur_blocks(Jw, cols, rw, J_rho, lid, *, P, L, with_rho):
 
 #: kernel launches since the count was last reset (CUDA tensors only)
 assemble_schur_blocks.launches = 0
+
+
+def assemble_schur_blocks_host(Jw, cols, rw, J_rho, lid, *, P, L, with_rho, head, blocks,
+                               warps):
+    """B2 as its CUDA kernel accumulates it (``csrc/assemble_schur.cu``),
+    compiled for the host, in float64: the rows cut into ``blocks`` x
+    ``warps`` ranges, each block adding the products of ids below ``head``
+    into its own copy of the head triangle, the other products straight
+    into H, the landmark outputs in runs of rows per warp; the blocks'
+    heads then summed into H and g. Same outputs as
+    ``assemble_schur_blocks`` (CPU tensors); ids out of range are
+    dropped."""
+    from .build import load_host_library
+
+    M, rdim, C = _check_inputs(Jw, cols, rw, J_rho, lid)
+    f64 = [a.detach().to("cpu", torch.float64).contiguous() for a in (Jw, rw, J_rho)]
+    i32 = [a.detach().to("cpu").contiguous() for a in (cols, lid)]
+    outs = [torch.zeros(P, P, dtype=torch.float64), torch.zeros(P, dtype=torch.float64),
+            *[torch.zeros(*s, dtype=torch.float64) for s in ((L, P), (L,), (L,))]]
+    ptrs = [ctypes.c_void_p(a.data_ptr()) for a in (f64[0], i32[0], f64[1], f64[2], i32[1], *outs)]
+    load_host_library().kontiki_host_assemble_schur_f64(
+        *ptrs, M, rdim, C, P, L, int(with_rho), head, blocks, warps)
+    H, g, E, D, g_l = outs
+    return (H, g, E, D, g_l) if with_rho else (H, g, None, None, None)

@@ -13,7 +13,9 @@ C++ compiler (``csrc/host_rows.cpp``): the row math on ``double`` for checks
 without a card, and on an operation-counting scalar for the operation side
 of a kernel's bound.
 """
+import contextlib
 import ctypes
+import fcntl
 import functools
 import hashlib
 import os
@@ -36,7 +38,7 @@ _D = ctypes.c_double
 _ENTRIES = {
     "kontiki_linearize_rows": [_P, _P, _P, _P, _I, _I, _P],
     "kontiki_cost_rows": [_P, _P, _I, _I, _P],
-    "kontiki_assemble_schur": [_P] * 10 + [_I] * 6 + [_P],
+    "kontiki_assemble_schur": [_P] * 10 + [_I] * 6 + [_P, _P],
     "kontiki_imu_rows": [_P] * 10 + [_P, _P, _I, _I, _P],
     "kontiki_eval_windows": [_I, _P, _P, _D, _P, _I, _P],
     "kontiki_r3_evaluate": [_P, _I, _D, _D, _P, _P, _P, _P, _I, _P],
@@ -55,6 +57,7 @@ _HOST_ENTRIES = {
     "kontiki_count_eval_windows": ([_I, _P, _P, _D, _I], ctypes.c_longlong),
     "kontiki_host_r3_evaluate_f64": ([_P, _I, _D, _D, _P, _P, _P, _P, _I], None),
     "kontiki_count_r3_evaluate": ([_P, _I, _D, _D, _P, _I], ctypes.c_longlong),
+    "kontiki_host_assemble_schur_f64": ([_P] * 10 + [_I] * 9, None),
 }
 
 
@@ -100,6 +103,20 @@ def _compile(so, cmd):
     return so
 
 
+@contextlib.contextmanager
+def _locked(so):
+    """Hold an exclusive lock on ``so``'s ``.lock`` file in the build
+    directory, so that concurrent processes (pytest workers) build a library
+    once and the others wait for it."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(so.with_suffix(".lock"), "w") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
+
+
 def build():
     """Compile the kernels if the library for these sources is missing:
     each ``.cu`` to an object in parallel, then one link. Returns the
@@ -107,7 +124,11 @@ def build():
     so = library_path()
     if so.exists():
         return so
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with _locked(so):
+        return so if so.exists() else _build(so)
+
+
+def _build(so):
     tag = f"{so.stem}.{os.getpid()}"
     jobs = []
     for cu in (s for s in _sources() if s.suffix == ".cu"):
@@ -139,7 +160,8 @@ def build_host():
     if so.exists():
         return so
     cxx = os.environ.get("CXX") or shutil.which("c++") or "g++"
-    return _compile(so, [cxx, *HOST_FLAGS, str(src)])
+    with _locked(so):
+        return so if so.exists() else _compile(so, [cxx, *HOST_FLAGS, str(src)])
 
 
 @functools.lru_cache(maxsize=None)
@@ -152,6 +174,10 @@ def load_library():
             fn = getattr(lib, name + suffix)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
+    for suffix in ("_f32", "_f64"):
+        fn = getattr(lib, "kontiki_assemble_schur_workspace" + suffix)
+        fn.argtypes = [_I] * 4
+        fn.restype = ctypes.c_longlong
     return lib
 
 

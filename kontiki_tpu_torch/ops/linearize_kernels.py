@@ -943,9 +943,10 @@ def imu_rows_ops(cfg, ins, cost_only=False):
     return load_host_library().kontiki_count_imu_rows(ptrs, M, _imu_flags(cfg, cost_only))
 
 
-def linearize_rows_host(cfg, ins, wide=False):
+def linearize_rows_host(cfg, ins, wide=False, lanes=False):
     """B1's CUDA row code compiled for the host, in float64; ``wide`` as
-    for ``imu_rows_host``."""
+    for ``imu_rows_host``; ``lanes`` runs the kernel's schedule, each row's
+    lane group one lane after another, stage by stage."""
     from .build import load_host_library
 
     M = _check_camera_inputs("linearize_rows", cfg, ins)
@@ -956,7 +957,7 @@ def linearize_rows_host(cfg, ins, wide=False):
     J_rho = torch.zeros(M, rdim, dtype=torch.float64)
     load_host_library().kontiki_host_linearize_rows_f64(
         ptrs, r.data_ptr(), J.data_ptr(), J_rho.data_ptr(), M, _camera_flags(cfg),
-        int(wide))
+        2 if lanes else int(wide))
     return r, J, J_rho
 
 

@@ -2,9 +2,9 @@
 (``csrc/camera_rows.cuh``, B1 and B3), compiled for the host
 (``csrc/host_rows.cpp``), against the plain PyTorch versions in float64 at
 1e-12 relative to max |plain| per output, on every window x camera x rows
-branch: the kernels' seed chunks (a lifting row's 22nd seed in a fourth
-chunk), the one full-width jet per row that B1's operation count runs
-(``wide``), B3's scalar chain, with and without ``valid``; and the
+branch: the seed chunks (a lifting row's 22nd seed in a fourth chunk),
+the one full-width jet per row that B1's operation count runs (``wide``),
+B1's kernel schedule lane after lane (``lanes``), B3's scalar chain, with and without ``valid``; and the
 operation counts the bounds use. The rows are those of a small atan
 lifting problem on each window kind (split on distinct R3/SO3 grids), with
 the atan or lifting inputs dropped for the other branches."""
@@ -54,6 +54,17 @@ def test_row_code_matches_plain(host_library, rows, branch):
     _assert_close(got, tlk.linearize_rows_plain(cfg, vin))
     off = vin["valid"][0] == 0
     assert all(torch.all(a[off] == 0) for a in got)
+
+
+@pytest.mark.parametrize("branch", BRANCHES)
+def test_lane_schedule_matches_plain(host_library, rows, branch):
+    """B1's kernel schedule, one row on a group of lanes stage by stage
+    (``linearize_row_lanes``), run lane after lane: with and without
+    ``valid``."""
+    cfg, ins = rows[branch]
+    for inputs in (ins, _valid(ins)):
+        _assert_close(tlk.linearize_rows_host(cfg, inputs, lanes=True),
+                      tlk.linearize_rows_plain(cfg, inputs))
 
 
 @pytest.mark.parametrize("kind", ["se3", "split"])

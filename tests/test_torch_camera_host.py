@@ -1,16 +1,21 @@
 """The camera kernels' own row code (``csrc/linearize_rows.cu``: B1's SE3
 and split branches and B3), compiled for the host with a plain C++ compiler
 (``csrc/host_rows.cpp``), against the plain PyTorch versions in float64, at
-1e-12 relative to max |plain| per output: the kernels' seed chunks, the one
+1e-12 relative to max |plain| per output: the seed chunks, the one
 full-width jet per row that B1's operation count runs, and B3's scalar
 chain, with and without ``valid``. The split rows come from R3 and SO3
-splines on distinct grids, in both spline orders."""
+splines on distinct grids, in both spline orders.
+
+Also B2's block accumulation (``csrc/assemble_schur.cu``, shared by its
+kernel) against ``assemble_schur_blocks_plain``: heads narrower than P,
+repeated ids, landmark runs, ids out of range."""
 import shutil
 
 import numpy as np
 import pytest
 import torch
 
+from kontiki_tpu_torch.ops import assembly_kernels as tak
 from kontiki_tpu_torch.ops import linearize_kernels as tlk
 from kontiki_tpu_torch.solver import kernels as tk
 from kontiki_tpu_torch.solver.problem import Problem
@@ -112,3 +117,55 @@ def test_operation_counts(host_library, rows, kind):
     assert 0 < 10 * b3 < b1
     half = {k: v[:, ::2].contiguous() for k, v in ins.items()}
     assert tlk.cost_rows_ops(cfg, half) < b3
+
+
+def schur_rows(M, P, L, rdim=2, C=61, seed=0, dtype=torch.float64, device="cpu"):
+    """Random B2 inputs shaped like a camera bucket: rows grouped by
+    landmark (runs of one lid) whose first 20 ids after two are shared,
+    one id repeated within each row, ids and lids out of range here and
+    there (dropped)."""
+    rng = np.random.default_rng(seed)
+    lid = np.sort(rng.integers(0, L, size=M))
+    cols = rng.integers(0, P, size=(M, C))
+    cols[:, 2:22] = rng.integers(0, P, size=(L, 20))[lid]
+    cols[:, 1] = cols[:, 0]
+    cols[rng.random((M, C)) < 0.02] = -1
+    cols[rng.random((M, C)) < 0.02] = P + 3
+    lid[rng.random(M) < 0.05] = L
+    as_t = lambda a: torch.tensor(a, dtype=dtype, device=device)  # noqa: E731
+    return (as_t(rng.normal(size=(M, rdim, C))),
+            torch.tensor(cols.astype(np.int32), device=device),
+            as_t(rng.normal(size=(M, rdim))), as_t(rng.normal(size=(M, rdim))),
+            torch.tensor(lid.astype(np.int32), device=device))
+
+
+def schur_reference(Jw, cols, rw, J_rho, lid, *, P, L, with_rho):
+    """The plain B2 with the entries the kernel drops taken out: ids out of
+    range (their Jacobian entries zeroed) and the landmark outputs of rows
+    whose lid is out of range."""
+    drop = (cols < 0) | (cols >= P)
+    off = (lid < 0) | (lid >= L)
+    return tak.assemble_schur_blocks_plain(
+        Jw * ~drop[:, None, :], torch.where(drop, 0, cols), rw, J_rho * ~off[:, None],
+        torch.where(off, 0, lid), P=P, L=L, with_rho=with_rho)
+
+
+@pytest.mark.parametrize("with_rho", [True, False])
+@pytest.mark.parametrize("M,blocks,warps,head", [(0, 1, 1, 16), (1, 1, 4, 16),
+                                                 (300, 3, 4, 16), (300, 2, 16, 40)])
+def test_b2_block_accumulation_matches_plain(host_library, M, blocks, warps, head, with_rho):
+    """B2's kernel accumulation on the host: rows cut over blocks and
+    warps, products of ids below ``head`` in each block's upper triangle
+    (mirrored when the blocks' heads are summed), the rest straight into
+    H, the landmark outputs in runs."""
+    P, L = 40, 9
+    rows = schur_rows(M, P, L, seed=M + head)
+    kw = dict(P=P, L=L, with_rho=with_rho)
+    got = tak.assemble_schur_blocks_host(*rows, **kw, head=head, blocks=blocks, warps=warps)
+    want = schur_reference(*rows, **kw)
+    for g, w in zip(got, want):
+        if w is None:
+            assert g is None
+        else:
+            torch.testing.assert_close(g, w, rtol=1e-12, atol=1e-12 * max(w.abs().max().item(), 1))
+    assert torch.equal(got[0], got[0].T)

@@ -36,7 +36,7 @@ from kontiki_tpu_torch.solver import kernels
 from kontiki_tpu_torch.solver.lm import make_fused_solver
 from kontiki_tpu_torch.solver.problem import Problem
 from kontiki_tpu_torch.synthetic import make_gyro_problem, make_imu_problem, make_rsvi_problem
-from test_torch_camera_host import regrid
+from test_torch_camera_host import regrid, schur_reference, schur_rows
 
 torch.set_num_threads(1)
 pytestmark = pytest.mark.gpu
@@ -94,6 +94,25 @@ def test_assemble_kernel_matches_plain(cuda, dtype, tol):
     got = ak.assemble_schur_blocks(*rows, P=P, L=L, with_rho=True)
     assert ak.assemble_schur_blocks.launches == before + 1
     _assert_close(got, ak.assemble_schur_blocks_plain(*rows, P=P, L=L, with_rho=True), tol)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-10), (torch.float32, 1e-4)])
+@pytest.mark.parametrize("M,P,rdim,C,with_rho", [(600, 600, 2, 61, True), (300, 600, 3, 62, True),
+                                                 (300, 194, 2, 61, False), (1, 600, 2, 61, True),
+                                                 (0, 600, 2, 61, True)])
+def test_assemble_kernel_edge_cases(cuda, M, P, rdim, C, with_rho, dtype, tol):
+    """B2 past the head triangle its shared memory holds (P = 600: the
+    launch sets the head width below P and adds the rest into H directly),
+    with repeated, shared and out-of-range ids and landmarks, without
+    landmarks, and on one and no rows."""
+    L = 9
+    rows = schur_rows(M, P, L, rdim=rdim, C=C, seed=M + rdim, dtype=dtype, device=cuda)
+    kw = dict(P=P, L=L, with_rho=with_rho)
+    got = ak.assemble_schur_blocks(*rows, **kw)
+    want = schur_reference(*rows, **kw)
+    if not with_rho:
+        assert got[2:] == (None, None, None)
+    _assert_close([g for g in got if g is not None], [w for w in want if w is not None], tol)
 
 
 def test_solve_on_cuda_matches_cpu(problems):
@@ -438,3 +457,19 @@ def test_atan_lifting_solve_on_cuda_matches_cpu(cuda):
     np.testing.assert_allclose(gc.item(), cc.item(), rtol=1e-9)
     np.testing.assert_allclose(gs["vt"].cpu().numpy(), cs["vt"].numpy(), rtol=0, atol=1e-8)
     assert 0.0 <= gs["vt"].min().item() and gs["vt"].max().item() <= 1.0
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12), (torch.float32, 1e-3)])
+@pytest.mark.parametrize("M", [1, 7, 129])
+@pytest.mark.parametrize("branch", ["se3 pinhole static", "split atan lifting"])
+def test_linearize_rows_ragged_rows(branch_rows, branch, M, dtype, tol):
+    """B1 on row counts that leave the last lane group and block ragged,
+    every third row with valid = 0 (exact zeros)."""
+    cfg, ins = branch_rows[branch]
+    n = min(M, ins["u_ref"].shape[1])
+    x = {k: v[:, :n].to(dtype).contiguous() for k, v in ins.items()}
+    x["valid"] = (torch.arange(n, device=x["u_ref"].device) % 3 != 1).to(dtype)[None, :]
+    got = lk.linearize_rows(cfg, x)
+    _assert_close(got, lk.linearize_rows_plain(cfg, x), tol)
+    off = x["valid"][0] == 0
+    assert all(bool((a[off] == 0).all()) for a in got)
