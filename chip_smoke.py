@@ -11,7 +11,7 @@ Phases, in order; any failure exits non-zero without the final line:
 2. build: compiles the hand-written kernels (one nvcc per source, sm_90a,
    in parallel), loads them, and builds their row code for the host
    beside them (operation counts for the bounds); prints the registers and
-   spill of each B1, B2 and B3 instantiation from ``ptxas -v``;
+   spill of each B1-B5 instantiation from ``ptxas -v``;
 3. B1 (camera-row linearization) and 4. B2 (Schur assembly): each kernel
    against its plain PyTorch version on the same config-4 inputs on the
    card, in float64 and float32, with errors, median times and bounds;
@@ -34,7 +34,10 @@ Phases, in order; any failure exits non-zero without the final line:
    warm-up solve, the timed 25-iteration solve;
 9. B4 (gyro/accel rows): the kernel against its plain version at config-1
    and config-2 shapes (gyro on SO3, gyro and accel on the split
-   trajectory), linearization and cost-only, float64 and float32;
+   trajectory), linearization and cost-only, float64 and float32, also on
+   M = 1, 127 and 129 rows and each bucket with every third row at
+   valid = 0 (exact zeros there); the time per launch of each form on
+   each bucket;
 10. configs 1 and 2 (``make_gyro_problem`` / ``make_imu_problem`` ->
     ``Problem`` on the card by default -> ``make_fused_solver``, 'auto' ->
     dense): structure, initial and 1-iteration costs against the JAX
@@ -54,13 +57,16 @@ Phases, in order; any failure exits non-zero without the final line:
     the 4,800,000 row times of a 10,000-frame rolling-shutter sequence (30
     fps, 480 rows, readout 0.02 s) on the SE3 and split trajectories that
     ``make_big_ba_problem(n_views=10_000)`` sizes (3,352 knots per spline),
-    float64 and float32, with times and bounds; B7 also on the same times
-    shuffled;
+    float64 and float32, with times and bounds, B5 and B7 also on the same
+    times shuffled, B5 on M = 1, 127 and 129 of them and on a window of
+    equal knots;
 14. read-back through the entry points: the trajectory queries at those
     4.8 M times on both trajectories (B5, exact launches per query) and B7
     through ``ops.r3_evaluate_kernel`` in both orders; config 4's built
     trajectory queried at its 425 gyro times against the JAX package's
-    values; ``trajectory_ate``/``trajectory_aoe`` of config 4's built and
+    values; one se3 query call split into its stages (range check, host
+    -> device, ``index_and_u``, ``gather_windows``, B5, device -> host);
+    ``trajectory_ate``/``trajectory_aoe`` of config 4's built and
     written-back trajectories against the truth, against the JAX
     package's;
 15. pose fit: ``TrajectoryEstimator(trajectory).solve(max_iterations=10,
@@ -124,7 +130,10 @@ B7's as each query's chain once (B5's time derivatives in forward mode, as
 the kernel runs them); B2's from the shapes, the upper triangle of the
 symmetric H only. A kernel's
 ``launches`` in the JSON line is the sum over the main-path runs (the
-timed fused solves and the estimator solves).
+timed fused solves and the estimator solves). Its ``ms`` is the median
+CUDA-event time of one wrapper call; B4's two entries (linearize and
+cost-only, on config 2's accel bucket) also give ``graph_ms``, the time
+per launch on the card from a CUDA graph of launches.
 
 The last two lines are a JSON object with the kernels' numbers and the JSON
 result ``{"ok": true, "device": {...}}``.
@@ -411,6 +420,11 @@ JAX_POSE_FIT = dict(cost0=11.630382382384372, cost1=0.1675783358026372,
                     counts=(4221, 1206, 4221, 24000, 12000))
 
 
+#: the card's name and power limit (nvidia-smi), printed beside B4's and
+#: B5's times
+CARD = "not read"
+
+
 def fail(msg):
     print(f"FAIL: {msg}", flush=True)
     sys.exit(1)
@@ -431,6 +445,20 @@ def cuda_ms(fn, reps=20, warmup=3):
         times.append(start.elapsed_time(end))
     times.sort()
     return times[len(times) // 2]
+
+
+def graph_ms(fn, n=50):
+    """Device milliseconds of one ``fn()``: ``n`` calls captured in a CUDA
+    graph and replayed (``cuda_ms``), over ``n``. The time of a kernel of a
+    few microseconds without the host's enqueue of each call, which
+    ``cuda_ms`` of a single call measures as well."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    return cuda_ms(graph.replay) / n
 
 
 def bound(nbytes, ops):
@@ -511,7 +539,9 @@ def phase_device():
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True,
     )
-    print(f"card: {smi.stdout.strip() or smi.stderr.strip()}", flush=True)
+    global CARD
+    CARD = smi.stdout.strip() or smi.stderr.strip()
+    print(f"card: {CARD}", flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}", flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -539,27 +569,32 @@ def phase_build():
         print(f"ptxas {name}: {regs} registers, {spill} bytes spill stores", flush=True)
 
 
-#: B1 (lane groups; one row per thread), B2 and B3's kernels in a mangled
-#: ptxas name: kernel, then the scalar and, for B1/B3, the Split, Atan and
-#: Lifting flags
+#: B1 (lane groups; one row per thread), B2, B3, B4 (linearize; cost-only)
+#: and B5's kernels in a mangled ptxas name: kernel, then the scalar and,
+#: for B1/B3, the Split, Atan and Lifting flags, for B5 the kind (B5's f64
+#: se3 kernel, eval_windows_capped_kernel, is no template)
 _KERNEL_NAME = re.compile(r"(linearize_rows_kernel|linearize_rows_thread_kernel|cost_rows_kernel"
-                          r"|assemble_schur_kernel)"
-                          r"I([df])(?:Lb([01])ELb([01])ELb([01])E)?E")
+                          r"|assemble_schur_kernel|imu_rows_kernel|imu_cost_kernel"
+                          r"|eval_windows_kernel|eval_windows_capped_kernel)"
+                          r"(?:I([df])(?:Lb([01])ELb([01])ELb([01])E|Li([012])E)?E)?")
 
 
 def ptxas_summary(log):
     """[(kernel, registers, spill store bytes)] of each instantiation of
-    B1, B2 and B3 in the build's ``ptxas -v`` report."""
+    B1-B5 in the build's ``ptxas -v`` report."""
     out, name, spill = [], None, 0
     for line in log.splitlines():
         entry = re.search(r"Compiling entry function '(\S+)'", line)
         if entry:
             m = _KERNEL_NAME.search(entry.group(1))
-            name = m and (f"{m.group(1)}<{'double' if m.group(2) == 'd' else 'float'}"
+            name = m and (m.group(1) if m.group(2) is None else
+                          f"{m.group(1)}<{'double' if m.group(2) == 'd' else 'float'}"
                           + ("" if m.group(3) is None else
                              f", {('se3', 'split')[int(m.group(3))]}, "
                              f"{('pinhole', 'atan')[int(m.group(4))]}, "
-                             f"{('static', 'lifting')[int(m.group(5))]}") + ">")
+                             f"{('static', 'lifting')[int(m.group(5))]}")
+                          + ("" if m.group(6) is None else
+                             f", {('r3', 'so3', 'se3')[int(m.group(6))]}") + ">")
             spill = 0
             continue
         st = re.search(r"(\d+) bytes spill stores", line)
@@ -1057,12 +1092,31 @@ def imu_problem(name):
     return problem
 
 
+def imu_edge_inputs(ins, M):
+    """The first M of a bucket's [k, n] IMU inputs (rows repeated as
+    needed; M = None keeps the bucket), every third row with valid = 0."""
+    n = ins["u_so3"].shape[1]
+    M = n if M is None else M
+    x = {k: v.repeat(1, -(-M // n))[:, :M].contiguous() for k, v in ins.items()}
+    valid = x.get("valid", torch.ones_like(x["u_so3"])).clone()
+    valid[:, ::3] = 0.0
+    x["valid"] = valid
+    return x
+
+
 def phase_b4(problems):
-    """B4 against its plain version on every bucket of configs 1 and 2."""
+    """B4 against its plain version on every bucket of configs 1 and 2, and
+    on M = 1, 127 and 129 rows and the whole bucket with every third row at
+    valid = 0 (exact zeros there); the time per launch of each form on each
+    bucket (on the card, from a CUDA graph of launches, and per call).
+    Returns the numbers of each form on the largest bucket (config 2's
+    accel rows) with the worst error over all buckets: ``ms`` per call, as
+    every kernel's, and ``graph_ms`` per launch on the card."""
     from kontiki_tpu_torch.ops import linearize_kernels as lk
     from kontiki_tpu_torch.solver import kernels
 
-    total = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0, bytes=0, ops=0)
+    forms = {"linearize": None, "cost-only": None}
+    worst = 0.0
     for name, problem in problems.items():
         spec = kernels.problem_spec(problem)
         runtime = kernels.problem_runtime(problem)
@@ -1079,32 +1133,42 @@ def phase_b4(problems):
                 want = lk.imu_rows_plain(cfg, x)
                 err = compare("imu_rows", dtype, ("r", "J", "r cost-only"),
                               (*got, got_c), (*want, want[0]))
+                for rows in (1, 127, 129, None):
+                    xe = imu_edge_inputs(x, rows)
+                    got = (*lk.imu_rows(cfg, xe), lk.imu_rows(cfg, xe, cost_only=True))
+                    torch.cuda.synchronize()
+                    want_e = lk.imu_rows_plain(cfg, xe)
+                    what = f"M={xe['u_so3'].shape[1]}, valid=0 rows"
+                    print(f"  {name} {tag} {what}:", flush=True)
+                    err = max(err, compare("imu_rows", dtype, ("r", "J", "r cost-only"), got,
+                                           (*want_e, want_e[0])))
+                    dead = xe["valid"][0] == 0
+                    if any(torch.count_nonzero(g[dead]).item() for g in got):
+                        fail(f"imu_rows {dtype} {name} {tag} {what}: nonzero outputs on rows "
+                             "with valid = 0")
                 if dtype != torch.float64:
                     continue
+                worst = max(worst, err)
                 n_in = sum(k for n, k in lk.IMU_INPUTS if n in x)
-                for cost_only in (False, True):
-                    ms = cuda_ms(lambda: lk.imu_rows(cfg, x, cost_only=cost_only))
+                for form, cost_only in (("linearize", False), ("cost-only", True)):
+                    call_ms = cuda_ms(lambda: lk.imu_rows(cfg, x, cost_only=cost_only))
+                    ms = graph_ms(lambda: lk.imu_rows(cfg, x, cost_only=cost_only))
                     plain_ms = cuda_ms(
                         lambda: lk.imu_rows_plain(cfg, x, cost_only=cost_only), reps=5)
                     nbytes = 8 * M * (n_in + 3 + (0 if cost_only else 3 * lk.imu_columns(cfg)))
                     ops = lk.imu_rows_ops(cfg, x, cost_only=cost_only)
                     b_ms, b_by = bound(nbytes, ops)
-                    form = "cost-only" if cost_only else "linearize"
-                    print(f"  imu_rows f64 {tag} {form}: kernel {ms:.4f} ms, plain "
-                          f"{plain_ms:.3f} ms, bound {b_ms:.5f} ms by {b_by} "
-                          f"({nbytes} bytes, {ops} operations)", flush=True)
-                    if not cost_only:
-                        total["max_abs_err"] = max(total["max_abs_err"], err)
-                        total["ms"] += ms
-                        total["plain_ms"] += plain_ms
-                        total["bytes"] += nbytes
-                        total["ops"] += ops
-    total["bound_ms"], total["bound_by"] = bound(total.pop("bytes"), total.pop("ops"))
-    total["library_ms"] = None  # no single PyTorch call computes B4
-    print(f"  imu_rows f64, one linearization of all three buckets: kernel "
-          f"{total['ms']:.4f} ms, plain {total['plain_ms']:.3f} ms, bound "
-          f"{total['bound_ms']:.5f} ms by {total['bound_by']}", flush=True)
-    return total
+                    print(f"  imu_rows f64 {name} {tag} {form} M={M}: kernel {ms:.4f} ms per "
+                          f"launch on the card ({call_ms:.4f} ms per call with the host's "
+                          f"enqueue), plain {plain_ms:.3f} ms, bound {b_ms:.5f} ms by {b_by} "
+                          f"({nbytes} bytes, {ops} operations) [{CARD}]", flush=True)
+                    if (name, bspec.kind) == ("config 2", "accel"):
+                        forms[form] = dict(ms=call_ms, graph_ms=ms, plain_ms=plain_ms,
+                                           bound_ms=b_ms, bound_by=b_by,
+                                           library_ms=None)  # no single PyTorch call
+    for r in forms.values():
+        r["max_abs_err"] = worst
+    return forms
 
 
 def phase_imu_solve(name, problem):
@@ -1321,49 +1385,73 @@ def plain_chunked(fn, *args, n):
 
 
 def phase_b5(q):
-    """B5 against its plain version on the user-size windows of each kind."""
+    """B5 against its plain version on the user-size windows of each kind,
+    in frame order and shuffled, on M = 1, 127 and 129 of them (partial
+    blocks) and, so3/se3, on a window of equal knots (the log/exp Taylor
+    branches); times per launch in both orders. Returns the frame order's
+    numbers."""
     from kontiki_tpu_torch.ops import linearize_kernels as lk
     from kontiki_tpu_torch.trajectories import spline_eval as ev
 
     dev = torch.device(QUERY_DEVICE)
-    ts = torch.tensor(q["ts"], device=dev)
-    M = ts.shape[0]
+    orders = {"frame order": torch.tensor(q["ts"], device=dev),
+              "shuffled": torch.tensor(q["ts"][q["perm"]], device=dev)}
     splines = {"r3": q["split"].R3_spline, "so3": q["split"].SO3_spline, "se3": q["se3"]}
     names = {"r3": ("p", "v", "a"), "so3": ("q", "w"), "se3": ("p", "v", "a", "q", "w")}
     out = {}
     for kind, sp in splines.items():
         knots = torch.tensor(sp.knots, device=dev)
-        i0, u = ev.index_and_u(ts, sp.t0, sp.dt, knots.shape[0])
-        win = ev.gather_windows(knots, i0).contiguous()
-        u = u.contiguous()
-        del i0
-        print(f"  evaluate_windows {kind}: windows {tuple(win.shape)}", flush=True)
-        for dtype in (torch.float64, torch.float32):
-            w, uu = win.to(dtype), u.to(dtype)
-            got = lk.evaluate_windows(kind, w, uu, sp.dt)
-            torch.cuda.synchronize()
-            want = plain_chunked(lk.evaluate_windows_plain, kind, w, uu, sp.dt, n=M)
-            err = compare(f"evaluate_windows {kind}", dtype, names[kind], got, want)
-            del got, want
-            if dtype != torch.float64:
-                continue
-            r = dict(max_abs_err=err)
-            r["ms"] = cuda_ms(lambda: lk.evaluate_windows(kind, w, uu, sp.dt))
-            r["plain_ms"] = cuda_ms(
-                lambda: plain_chunked(lk.evaluate_windows_plain, kind, w, uu, sp.dt, n=M),
-                reps=3, warmup=1)
-            n_out = sum(lk.EVAL_OUTPUTS[kind])
-            nbytes = 8 * M * (4 * lk.EVAL_KNOT_DIM[kind] + 1 + n_out)
-            t0 = time.time()
-            ops = lk.evaluate_windows_ops(kind, w, uu, sp.dt)
-            r["bound_ms"], r["bound_by"] = bound(nbytes, ops)
-            r["library_ms"] = None  # no single PyTorch call computes B5
-            print(f"  evaluate_windows {kind} f64 M={M}: kernel {r['ms']:.4f} ms, plain "
-                  f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms by {r['bound_by']} "
-                  f"({nbytes} bytes, {ops} operations, counted in "
-                  f"{time.time() - t0:.1f} s on the host)", flush=True)
-            out[kind] = r
-        del win, u, w, uu
+        for order, ts in orders.items():
+            M = ts.shape[0]
+            i0, u = ev.index_and_u(ts, sp.t0, sp.dt, knots.shape[0])
+            win = ev.gather_windows(knots, i0).contiguous()
+            u = u.contiguous()
+            del i0
+            print(f"  evaluate_windows {kind} {order}: windows {tuple(win.shape)}", flush=True)
+            for dtype in (torch.float64, torch.float32):
+                w, uu = win.to(dtype), u.to(dtype)
+                got = lk.evaluate_windows(kind, w, uu, sp.dt)
+                torch.cuda.synchronize()
+                want = plain_chunked(lk.evaluate_windows_plain, kind, w, uu, sp.dt, n=M)
+                err = compare(f"evaluate_windows {kind}", dtype, names[kind], got, want)
+                del got, want
+                if order == "frame order":
+                    for m in (1, 127, 129):
+                        print(f"  evaluate_windows {kind} M={m}:", flush=True)
+                        wm, um = w[:m].contiguous(), uu[:m].contiguous()
+                        err = max(err, compare(f"evaluate_windows {kind}", dtype, names[kind],
+                                               lk.evaluate_windows(kind, wm, um, sp.dt),
+                                               lk.evaluate_windows_plain(kind, wm, um, sp.dt)))
+                    if kind != "r3":
+                        print(f"  evaluate_windows {kind}, a window of equal knots:", flush=True)
+                        wm, um = w[:129].clone(), uu[:129].contiguous()
+                        wm[0] = wm[0, :1]
+                        err = max(err, compare(f"evaluate_windows {kind}", dtype, names[kind],
+                                               lk.evaluate_windows(kind, wm, um, sp.dt),
+                                               lk.evaluate_windows_plain(kind, wm, um, sp.dt)))
+                if dtype != torch.float64:
+                    continue
+                r = dict(max_abs_err=err)
+                r["ms"] = cuda_ms(lambda: lk.evaluate_windows(kind, w, uu, sp.dt))
+                r["plain_ms"] = cuda_ms(
+                    lambda: plain_chunked(lk.evaluate_windows_plain, kind, w, uu, sp.dt, n=M),
+                    reps=3, warmup=1)
+                n_out = sum(lk.EVAL_OUTPUTS[kind])
+                nbytes = 8 * M * (4 * lk.EVAL_KNOT_DIM[kind] + 1 + n_out)
+                t0 = time.time()
+                if order == "frame order":  # the same count in both orders
+                    ops = lk.evaluate_windows_ops(kind, w, uu, sp.dt)
+                r["bound_ms"], r["bound_by"] = bound(nbytes, ops)
+                r["library_ms"] = None  # no single PyTorch call computes B5
+                print(f"  evaluate_windows {kind} f64 {order} M={M}: kernel {r['ms']:.4f} ms "
+                      f"per launch, plain {r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms "
+                      f"by {r['bound_by']} ({nbytes} bytes, {ops} operations, counted in "
+                      f"{time.time() - t0:.1f} s on the host) [{CARD}]", flush=True)
+                if order == "frame order":
+                    out[kind] = r
+                else:
+                    out[kind]["max_abs_err"] = max(out[kind]["max_abs_err"], err)
+            del win, u, w, uu
     return out
 
 
@@ -1478,6 +1566,52 @@ def phase_readback(q, built4):
               flush=True)
         if not (rel_sum <= QUERY_RTOL and rel_rows <= QUERY_RTOL):
             fail(f"config 4 {name}: differs from the JAX package's values")
+
+
+def phase_readback_split(q):
+    """Where one read-back query call goes: the se3 trajectory's
+    ``position`` at the 4.8 M row times as a whole, then its stages one by
+    one on the host clock with a synchronize after each (the range check,
+    host -> device of the knots and times, ``index_and_u``,
+    ``gather_windows``, B5, device -> host of the five outputs, as the
+    trajectory's ``_eval`` returns them all)."""
+    import numpy as np
+
+    from kontiki_tpu_torch.ops import linearize_kernels as lk
+    from kontiki_tpu_torch.trajectories import spline_eval as ev
+
+    traj, ts = q["se3"], q["ts"]
+    traj.position(ts)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    whole = traj.position(ts)
+    total = time.perf_counter() - t0
+    stages = []
+    t = time.perf_counter()
+
+    def lap(stage, t):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        stages.append(f"{stage} {1e3 * (now - t):.3f}")
+        return now
+
+    ts_np, _ = traj._times(ts)
+    t = lap("range check", t)
+    knots = traj._knots_on(traj._resolve(None))
+    t_dev = torch.as_tensor(ts_np, device=knots.device)
+    t = lap("host -> device", t)
+    i0, u = ev.index_and_u(t_dev, traj.t0, traj.dt, knots.shape[0])
+    t = lap("index_and_u", t)
+    win, u = ev.gather_windows(knots, i0).contiguous(), u.contiguous()
+    t = lap("gather_windows", t)
+    outs = lk.evaluate_windows("se3", win, u, traj.dt)
+    t = lap("B5", t)
+    host = [o.cpu().numpy() for o in outs]
+    t = lap("device -> host", t)
+    print(f"read-back split, se3 position at {ts.shape[0]} row times: whole call "
+          f"{1e3 * total:.3f} ms; stages (ms) " + ", ".join(stages) + f" [{CARD}]", flush=True)
+    if not np.array_equal(host[0], whole):
+        fail("read-back split: the staged query differs from the whole call")
 
 
 def phase_scores(built_traj, prob4):
@@ -1872,6 +2006,7 @@ def main():
     b5 = phase_b5(queries)
     b7 = phase_b7(queries)
     phase_readback(queries, built4)
+    phase_readback_split(queries)
     phase_scores(built4["trajectory"], prob4)
     phase_pose_fit()
     big5 = config5_problem()
@@ -1909,10 +2044,12 @@ def main():
              replaces="kontiki_tpu/ops/linearize_kernels.py:1220",
              launches=n.get("cost_rows se3 pinhole static", 0)
              + n.get("cost_rows split pinhole static", 0), **b3),
-        dict(name="imu_rows", route="cuda",
-             source="kontiki_tpu_torch/csrc/imu_rows.cu",
-             replaces="kontiki_tpu/ops/linearize_kernels.py:1601",
-             launches=n["imu_rows"], **b4),
+        *[dict(name=f"imu_rows ({form}, per launch at config 2's accel bucket)",
+               route="cuda", source="kontiki_tpu_torch/csrc/imu_rows.cu",
+               replaces="kontiki_tpu/ops/linearize_kernels.py:1601",
+               launches=(n["imu_rows cost-only"] if form == "cost-only"
+                         else n["imu_rows"] - n["imu_rows cost-only"]), **b4[form])
+          for form in ("linearize", "cost-only")],
         *[dict(name=f"evaluate_windows ({kind})", route="cuda",
                source="kontiki_tpu_torch/csrc/eval_windows.cu",
                replaces="kontiki_tpu/ops/linearize_kernels.py:1368",

@@ -567,21 +567,6 @@ constexpr size_t b1_smem_bytes() {
                                sizeof(GroupRow<T, Lifting>));
 }
 
-// n values from shared src to global dst, in 16-byte stores where dst
-// allows (src is 16-byte aligned).
-template <typename T>
-__device__ void copy_out(const T* src, T* dst, int n) {
-  constexpr int V = 16 / sizeof(T);
-  int done = 0;
-  if (reinterpret_cast<unsigned long long>(dst) % 16 == 0) {
-    const int4* s = reinterpret_cast<const int4*>(src);
-    int4* d = reinterpret_cast<int4*>(dst);
-    for (int i = threadIdx.x; i < n / V; i += blockDim.x) d[i] = s[i];
-    done = n / V * V;
-  }
-  for (int i = done + threadIdx.x; i < n; i += blockDim.x) dst[i] = src[i];
-}
-
 // B1: a block of Lanes::rows rows, each on a group of Lanes::group lanes
 // of one warp (row_stage); the group's J tile is staged in shared memory
 // and the block's tiles, contiguous in J, are written out together.

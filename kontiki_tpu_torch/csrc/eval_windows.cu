@@ -18,27 +18,48 @@
 // SE3's a is the translation of P'', as in the reference (not body
 // acceleration).
 //
-// Design: one thread per query, no padding (the TPU kernel pads to
-// 128-query tiles with dt = 1 on the pad lanes; here the ragged edge is
-// masked by the thread index). The time derivatives are forward mode in s,
-// as the TPU kernel takes them with jvp:
+// Design: one thread per query in blocks of 128, no padding (the TPU
+// kernel pads to 128-query tiles with dt = 1 on the pad lanes; here the
+// ragged last block masks by its query count). The time derivatives are
+// forward mode in s, as the TPU kernel takes them with jvp:
 //   - r3: the standard basis and its analytic derivatives (rowmath.cuh
 //     r3_basis);
 //   - so3: the cumulative window chain on Jet<T, 1> seeded in s (first
-//     derivative only);
-//   - se3: B1's SE3 window chain (rowmath.cuh pq_se3, zero increments) on
-//     Taylor2<T> (jet.cuh) seeded in s, which carries the second
-//     derivative that a needs.
+//     derivative only), the knot pairs' logs on plain scalars;
+//   - se3: B1's SE3 window chain (rowmath.cuh pq_se3 at zero increments)
+//     split by what depends on s: the knot pairs' relative transforms,
+//     so3_log and V^-1 on plain scalars (se3_pair), and only the tail on
+//     Taylor2<T> (jet.cuh) seeded in s, which carries the second derivative
+//     that a needs (se3_tail). In the tail b = B(u + s/dt) is the one
+//     Taylor2 factor of b omega and b upsilon, so V_apply's and
+//     so3_exp_quat's vector products are constant and only scalar
+//     functions of b run on Taylor2, with one sincos per angle
+//     (V_apply_exp). Carrying the knot-only part on Taylor2 too would
+//     triple its values and add every one of its transcendentals'
+//     derivatives, all exactly zero.
+// Memory: a block stages its [128, 4 D] windows (contiguous in the input)
+// and u in shared memory with 16-byte loads, consecutive threads on
+// consecutive addresses (stage_windows), at an odd stride per query so a
+// thread's reads of its own window hit distinct banks; a thread's outputs
+// go back into the same shared memory and each output's [128, k] slice of
+// the block leaves as stores of consecutive addresses (a thread reading
+// its own window from global memory touches 32 lines per warp load).
+// cp.async staging measured no faster.
+// In frame order a warp's 32 queries nearly always share a window (a
+// frame's 480 rows span 0.02 s of a 0.1 s knot interval), so for se3 the
+// warp checks that by shuffles and lanes 0-2 compute one knot pair each,
+// handed over by shuffles (eval_se3_warp); shuffled queries compute their
+// own pairs.
 // The row code is __host__ __device__, so csrc/host_rows.cpp builds it for
 // the host (checks without a card, operation counts for the bound).
 //
 // Bound: bytes. A query reads 4 D + 1 values and writes K (r3 22, so3 24,
 // se3 45 in f64, 176-360 bytes); at the 4.8 M row times of a 10,000-frame
 // rolling-shutter sequence that is 0.85-1.73 GB, 0.25-0.52 ms at 3.35
-// TB/s. The se3 chain needs ~10^3 float64 operations per query (counted on
-// the host), ~0.1 ms at 67 TFLOP/s. A thread reads its window as 4 D
-// consecutive values, so a warp's loads are strided by 4 D values; L1 and
-// L2 keep every byte of the lines fetched in use.
+// TB/s. The se3 chain needs ~2.8 k float64 operations per query (counted
+// on the host), ~0.2 ms at 67 TFLOP/s, but f64 sin/cos/atan/sqrt are
+// long instruction sequences (each counted as one operation), so se3 is
+// bound by the arithmetic in practice and r3/so3 by bytes.
 #include "rowmath.cuh"
 
 namespace {
@@ -107,40 +128,168 @@ KT_HD void eval_so3_row(const T* win, T u, T dt, T* q_out, T* w_out) {
   omega_from(qv, dq, w_out);
 }
 
-// se3 query: win [4, 7] packed (q wxyz, t); out p, v, a (3 each), q (4), w (3)
+// sin and cos of x at once (one argument reduction on the card; the host's
+// operation counter takes them apart).
 template <typename T>
-KT_HD void eval_se3_row(const T* win, T u, T dt, T* p, T* v, T* a, T* q_out,
-                        T* w_out) {
+KT_HD void kt_sincos(T x, T* s, T* c) {
+  *s = kt_sin(x);
+  *c = kt_cos(x);
+}
+KT_HD void kt_sincos(float x, float* s, float* c) {
+#ifdef __CUDA_ARCH__
+  sincosf(x, s, c);
+#else
+  *s = sinf(x);
+  *c = cosf(x);
+#endif
+}
+KT_HD void kt_sincos(double x, double* s, double* c) {
+#ifdef __CUDA_ARCH__
+  sincos(x, s, c);
+#else
+  *s = sin(x);
+  *c = cos(x);
+#endif
+}
+
+// V_apply(b omega, b upsilon) and so3_exp_quat(b omega) for a Taylor2
+// scalar b and constant omega, upsilon, by the formulas and guards of
+// rowmath.cuh with b taken out of the vectors: theta^2 = b^2 |omega|^2,
+// (b omega) x (b upsilon) = b^2 (omega x upsilon) and (b omega) x
+// ((b omega) x (b upsilon)) = b^3 (omega x (omega x upsilon)), whose
+// vectors do not depend on s, so only scalar functions of b run on Taylor2;
+// each angle's sin and cos are taken at once.
+template <typename T>
+KT_HD void V_apply_exp(const Taylor2<T>& b, const V3<T>& omega, const V3<T>& ups,
+                       V3<Taylor2<T>>& vu, Q4<Taylor2<T>>& e) {
   using S = Taylor2<T>;
-  S delta[24], out[7];
-#pragma unroll
-  for (int k = 0; k < 24; ++k) delta[k] = S(T(0));
+  const S b2 = b * b;
+  const S theta2 = b2 * (omega.x * omega.x + omega.y * omega.y + omega.z * omega.z);
+  S a, c, k, w;
+  if (val(theta2) <= T(kEps3)) {
+    a = T(0.5) - theta2 / T(24);
+    c = T(1.0 / 6.0) - theta2 / T(120);
+    k = T(0.5) - theta2 / T(48);
+    w = T(1) - theta2 / T(8);
+  } else {
+    const S theta = kt_sqrt(theta2);
+    T st, ct;
+    kt_sincos(theta.a, &st, &ct);
+    const S sin_t = chain2(st, ct, -st, theta);
+    const S cos_t = chain2(ct, -st, -ct, theta);
+    a = (T(1) - cos_t) / theta2;
+    c = (theta - sin_t) / (theta2 * theta);
+    const S half = T(0.5) * theta;
+    T sh, ch;
+    kt_sincos(half.a, &sh, &ch);
+    k = chain2(sh, ch, -sh, half) / theta;
+    w = chain2(ch, -sh, -ch, half);
+  }
+  const V3<T> c1 = cross(omega, ups);
+  const V3<T> c2 = cross(omega, c1);
+  const S ab = a * b2, cb = c * (b2 * b), kb = k * b;
+  vu = {b * ups.x + ab * c1.x + cb * c2.x, b * ups.y + ab * c1.y + cb * c2.y,
+        b * ups.z + ab * c1.z + cb * c2.z};
+  e = {w, kb * omega.x, kb * omega.y, kb * omega.z};
+}
+
+// se3 query: win [4, 7] packed (q wxyz, t); o its p, v, a (3 each), q (4),
+// w (3). pq_se3's chain at zero increments, split by what depends on the
+// time shift s: the knots as read and, for each knot pair, the relative
+// transform, its so3_log and V^-1 (se3_pair, on T: their s-derivatives are
+// exactly zero, so carrying them as Taylor2 only multiplied the work); then
+// the tail on Taylor2<T> seeded in s (se3_tail): B(u + s/dt), V_apply and
+// so3_exp_quat of b omega (V_apply_exp), the rotation by Pq and the
+// cumulative products. Same formulas and guards as pq_se3 (the tail's
+// vector products regrouped), so the outputs change by rounding only.
+template <typename T>
+KT_HD void se3_pair(const T* win, int j, V3<T>& omega, V3<T>& ups) {
+  const T* ka = win + 7 * (j - 1);
+  const T* kb = win + 7 * j;
+  const Q4<T> qi = qconj(Q4<T>{ka[0], ka[1], ka[2], ka[3]});
+  const V3<T> ti = qrotate(qi, V3<T>{ka[4], ka[5], ka[6]});
+  const Q4<T> q_rel = qmul(qi, Q4<T>{kb[0], kb[1], kb[2], kb[3]});
+  const V3<T> rt = qrotate(qi, V3<T>{kb[4], kb[5], kb[6]});
+  const V3<T> t_rel = {rt.x + -ti.x, rt.y + -ti.y, rt.z + -ti.z};
+  omega = so3_log(q_rel);
+  ups = Vinv_apply(omega, t_rel);
+}
+
+template <typename T>
+KT_HD void se3_tail(const T* win, T u, T dt, const V3<T>* omega, const V3<T>* ups, T* o) {
+  using S = Taylor2<T>;
   const S s(T(0), T(1), T(0));
-  pq_se3<T, S>(win, u, dt, delta, s, out);
+  const S ue = u + s / dt;
+  const S u2 = ue * ue;
+  const S u3 = u2 * ue;
+  const S B[3] = {(T(5) + T(3) * ue - T(3) * u2 + u3) / T(6),
+                  (T(1) + T(3) * ue + T(3) * u2 - T(2) * u3) / T(6),
+                  u3 / T(6)};
+  Q4<S> Pq = {S(win[0]), S(win[1]), S(win[2]), S(win[3])};
+  V3<S> Pt = {S(win[4]), S(win[5]), S(win[6])};
+#pragma unroll
+  for (int j = 0; j < 3; ++j) {
+    V3<S> vu;
+    Q4<S> e;
+    V_apply_exp(B[j], omega[j], ups[j], vu, e);
+    const V3<S> rt2 = qrotate(Pq, vu);
+    Pt = {Pt.x + rt2.x, Pt.y + rt2.y, Pt.z + rt2.z};
+    Pq = qmul(Pq, e);
+  }
+  const S pt[3] = {Pt.x, Pt.y, Pt.z};
 #pragma unroll
   for (int k = 0; k < 3; ++k) {
-    p[k] = out[k].a;
-    v[k] = out[k].d;
-    a[k] = out[k].e;
+    o[k] = pt[k].a;
+    o[3 + k] = pt[k].d;
+    o[6 + k] = pt[k].e;
   }
-  const Q4<T> qv = {out[3].a, out[4].a, out[5].a, out[6].a};
-  const Q4<T> dq = {out[3].d, out[4].d, out[5].d, out[6].d};
-  q_out[0] = qv.w; q_out[1] = qv.x; q_out[2] = qv.y; q_out[3] = qv.z;
-  omega_from(qv, dq, w_out);
+  const Q4<T> qv = {Pq.w.a, Pq.x.a, Pq.y.a, Pq.z.a};
+  const Q4<T> dq = {Pq.w.d, Pq.x.d, Pq.y.d, Pq.z.d};
+  o[9] = qv.w; o[10] = qv.x; o[11] = qv.y; o[12] = qv.z;
+  omega_from(qv, dq, o + 13);
+}
+
+template <typename T>
+KT_HD void eval_se3_row(const T* win, T u, T dt, T* o) {
+  V3<T> omega[3], ups[3];
+#pragma unroll
+  for (int j = 0; j < 3; ++j) se3_pair(win, j + 1, omega[j], ups[j]);
+  se3_tail(win, u, dt, omega, ups, o);
+}
+
+// Output widths of a kind, in order (r3 p, v, a; so3 q, w; se3 p, v, a,
+// q, w), and their sum K, a query's values.
+constexpr KT_HD int eval_n_outs(int kind) {
+  return kind == kEvalR3 ? 3 : kind == kEvalSo3 ? 2 : 5;
+}
+constexpr KT_HD int eval_out_width(int kind, int i) {
+  return (kind == kEvalSo3 ? i == 0 : kind == kEvalSe3 && i == 3) ? 4 : 3;
+}
+constexpr KT_HD int eval_out_total(int kind) {
+  return kind == kEvalR3 ? 9 : kind == kEvalSo3 ? 7 : 16;
+}
+
+// One query: win its [4, D] window; o its K values, the outputs in order.
+template <typename T>
+KT_HD void eval_query(int kind, const T* win, T u, T dt, T* o) {
+  if (kind == kEvalR3) {
+    eval_r3_row(win, u, dt, o, o + 3, o + 6);
+  } else if (kind == kEvalSo3) {
+    eval_so3_row(win, u, dt, o, o + 4);
+  } else {
+    eval_se3_row(win, u, dt, o);
+  }
 }
 
 // Query m of the batch: win_m points at its [4, D] window; outs are the
 // kind's outputs ([M, k] each, row-major).
 template <typename T>
 KT_HD void eval_row(int kind, const T* win_m, T u, T dt, T* const* outs, int m) {
-  const size_t i3 = 3 * static_cast<size_t>(m), i4 = 4 * static_cast<size_t>(m);
-  if (kind == kEvalR3) {
-    eval_r3_row(win_m, u, dt, outs[0] + i3, outs[1] + i3, outs[2] + i3);
-  } else if (kind == kEvalSo3) {
-    eval_so3_row(win_m, u, dt, outs[0] + i4, outs[1] + i3);
-  } else {
-    eval_se3_row(win_m, u, dt, outs[0] + i3, outs[1] + i3, outs[2] + i3, outs[3] + i4,
-                 outs[4] + i3);
+  T o[16];
+  eval_query(kind, win_m, u, dt, o);
+  for (int i = 0, off = 0; i < eval_n_outs(kind); off += eval_out_width(kind, i++)) {
+    const int k = eval_out_width(kind, i);
+    for (int c = 0; c < k; ++c) outs[i][static_cast<size_t>(m) * k + c] = o[off + c];
   }
 }
 
@@ -150,40 +299,173 @@ KT_HD void eval_row(int kind, const T* win_m, T u, T dt, T* const* outs, int m) 
 
 #include <cuda_runtime.h>
 
+// KT_EVAL_WARP_SHARE=0 builds se3 without the warp-shared knot pairs, every
+// lane on its own three (tools/kernel_ab.py times the two builds).
+#ifndef KT_EVAL_WARP_SHARE
+#define KT_EVAL_WARP_SHARE 1
+#endif
+
 template <typename T>
 struct EvalOuts {
   T* o[5];
 };
 
-template <typename T, int Kind>
-__global__ void __launch_bounds__(128) eval_windows_kernel(
-    const T* __restrict__ win, const T* __restrict__ u, T dt, EvalOuts<T> outs, int M) {
-  const int m = blockIdx.x * blockDim.x + threadIdx.x;
-  if (m >= M) return;
-  constexpr int D = eval_knot_dim(Kind);
-  T w[4 * D];
+constexpr int kEvalThreads = 128;  // queries a block, one a thread
+
+// The block's n window values, contiguous at src, into shared dst at a
+// stride of W + 1 a window (odd, so the threads of a warp reading their own
+// windows hit distinct banks): 16-byte loads where src allows, consecutive
+// threads on consecutive addresses, all of a full block's loads issued
+// before the first store.
+template <typename T, int W>
+__device__ __forceinline__ void stage_windows(const T* __restrict__ src, int n, T* dst) {
+  constexpr int V = 16 / sizeof(T);  // values a 16-byte load
+  constexpr int P = W + 1;
+  const int t = threadIdx.x;
+  int done = 0;
+  if (reinterpret_cast<unsigned long long>(src) % 16 == 0) {
+    const int4* s = reinterpret_cast<const int4*>(src);
+    if (n == kEvalThreads * W) {
+      int4 x[W / V];
 #pragma unroll
-  for (int k = 0; k < 4 * D; ++k) w[k] = win[static_cast<size_t>(m) * 4 * D + k];
-  eval_row<T>(Kind, w, u[m], dt, outs.o, m);
+      for (int r = 0; r < W / V; ++r) x[r] = __ldg(s + r * kEvalThreads + t);
+#pragma unroll
+      for (int r = 0; r < W / V; ++r) {
+        const T* xv = reinterpret_cast<const T*>(&x[r]);
+#pragma unroll
+        for (int j = 0; j < V; ++j) {
+          const int e = (r * kEvalThreads + t) * V + j;
+          dst[e / W * P + e % W] = xv[j];
+        }
+      }
+      return;
+    }
+    for (int i = t; i < n / V; i += kEvalThreads) {
+      const int4 x = __ldg(s + i);
+      const T* xv = reinterpret_cast<const T*>(&x);
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        const int e = i * V + j;
+        dst[e / W * P + e % W] = xv[j];
+      }
+    }
+    done = n / V * V;
+  }
+  for (int e = done + t; e < n; e += kEvalThreads) dst[e / W * P + e % W] = src[e];
+}
+
+// se3 in the kernel, all 32 lanes of a warp: when they hold one window (the
+// frame order, where a frame's rows fall between the same knots), lanes
+// 0-2 each compute one knot pair and hand its omega and upsilon over by
+// shuffles, which takes two pairs' chains off every lane; otherwise each
+// lane computes its three. The other 27 values are compared only when the
+// first agrees on every lane, so shuffled queries pay one shuffle.
+template <typename T>
+__device__ __forceinline__ void eval_se3_warp(const T* win, T u, T dt, T* o) {
+  constexpr unsigned kAll = 0xffffffffu;
+  bool same = win[0] == __shfl_sync(kAll, win[0], 0);
+  if (__all_sync(kAll, same)) {
+#pragma unroll
+    for (int k = 1; k < 28; ++k) same = same & (win[k] == __shfl_sync(kAll, win[k], 0));
+  }
+  V3<T> omega[3], ups[3];
+  if (__all_sync(kAll, same)) {
+    V3<T> om, up;
+    se3_pair(win, threadIdx.x % 32 % 3 + 1, om, up);
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      omega[j] = {__shfl_sync(kAll, om.x, j), __shfl_sync(kAll, om.y, j),
+                  __shfl_sync(kAll, om.z, j)};
+      ups[j] = {__shfl_sync(kAll, up.x, j), __shfl_sync(kAll, up.y, j),
+                __shfl_sync(kAll, up.z, j)};
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < 3; ++j) se3_pair(win, j + 1, omega[j], ups[j]);
+  }
+  se3_tail(win, u, dt, omega, ups, o);
+}
+
+// A block of kEvalThreads queries: the windows and u staged into shared
+// memory (stage_windows), a thread's query read there, its K outputs back
+// into the same shared values at an odd stride, and each output's
+// [n, k] slice of the block written out by consecutive threads on
+// consecutive addresses. The ragged last block masks by n.
+template <typename T, int Kind>
+__device__ __forceinline__ void eval_windows_block(const T* __restrict__ win,
+                                                   const T* __restrict__ u, T dt,
+                                                   const EvalOuts<T>& outs, int M) {
+  constexpr int W = 4 * eval_knot_dim(Kind);
+  constexpr int P = W + 1;
+  constexpr int K = eval_out_total(Kind);
+  constexpr int PK = K | 1;  // odd, as P
+  static_assert(PK <= P, "the outputs reuse the windows' shared values");
+  __shared__ T sw[kEvalThreads * P];
+  __shared__ T su[kEvalThreads];
+  const int t = threadIdx.x;
+  const int m0 = blockIdx.x * kEvalThreads;
+  const int n = M - m0 < kEvalThreads ? M - m0 : kEvalThreads;
+  stage_windows<T, W>(win + static_cast<size_t>(m0) * W, n * W, sw);
+  if (t < n) su[t] = u[m0 + t];
+  __syncthreads();
+  T o[K];
+  if constexpr (Kind == kEvalSe3 && KT_EVAL_WARP_SHARE) {  // every lane, past n on n - 1
+    const int tq = t < n ? t : n - 1;
+    eval_se3_warp<T>(sw + tq * P, su[tq], dt, o);
+  } else if (t < n) {
+    eval_query<T>(Kind, sw + t * P, su[t], dt, o);
+  }
+  __syncthreads();
+  if (t < n) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) sw[t * PK + k] = o[k];
+  }
+  __syncthreads();
+  int off = 0;
+#pragma unroll
+  for (int i = 0; i < eval_n_outs(Kind); ++i) {
+    const int k = eval_out_width(Kind, i);
+    T* dst = outs.o[i] + static_cast<size_t>(m0) * k;
+    for (int e = t; e < n * k; e += kEvalThreads) dst[e] = sw[e / k * PK + off + e % k];
+    off += k;
+  }
+}
+
+template <typename T, int Kind>
+__global__ void __launch_bounds__(kEvalThreads) eval_windows_kernel(
+    const T* __restrict__ win, const T* __restrict__ u, T dt, EvalOuts<T> outs, int M) {
+  eval_windows_block<T, Kind>(win, u, dt, outs, M);
+}
+
+// f64 se3 capped at 128 registers (24 bytes of spill), four blocks an SM:
+// ~12% faster than at its own 164 registers (three blocks). The cap slows
+// f32 and the other kinds (even __launch_bounds__(128, 1) changes their
+// register allocation), so it has a kernel of its own.
+__global__ void __launch_bounds__(kEvalThreads, 4) eval_windows_capped_kernel(
+    const double* __restrict__ win, const double* __restrict__ u, double dt,
+    EvalOuts<double> outs, int M) {
+  eval_windows_block<double, kEvalSe3>(win, u, dt, outs, M);
 }
 
 template <typename T>
 static int launch_eval(int kind, const void* win, const void* u, double dt,
                        void* const* outs, int M, void* stream) {
   EvalOuts<T> o;
-  const int n_out = kind == kEvalR3 ? 3 : kind == kEvalSo3 ? 2 : 5;
-  for (int i = 0; i < 5; ++i) o.o[i] = i < n_out ? static_cast<T*>(outs[i]) : nullptr;
-  const int threads = 128;
-  const int blocks = (M + threads - 1) / threads;
+  for (int i = 0; i < 5; ++i) o.o[i] = i < eval_n_outs(kind) ? static_cast<T*>(outs[i]) : nullptr;
+  const int blocks = (M + kEvalThreads - 1) / kEvalThreads;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const T* w = static_cast<const T*>(win);
   const T* up = static_cast<const T*>(u);
   if (kind == kEvalR3) {
-    eval_windows_kernel<T, kEvalR3><<<blocks, threads, 0, st>>>(w, up, T(dt), o, M);
+    eval_windows_kernel<T, kEvalR3><<<blocks, kEvalThreads, 0, st>>>(w, up, T(dt), o, M);
   } else if (kind == kEvalSo3) {
-    eval_windows_kernel<T, kEvalSo3><<<blocks, threads, 0, st>>>(w, up, T(dt), o, M);
+    eval_windows_kernel<T, kEvalSo3><<<blocks, kEvalThreads, 0, st>>>(w, up, T(dt), o, M);
   } else if (kind == kEvalSe3) {
-    eval_windows_kernel<T, kEvalSe3><<<blocks, threads, 0, st>>>(w, up, T(dt), o, M);
+    if constexpr (sizeof(T) == 8) {
+      eval_windows_capped_kernel<<<blocks, kEvalThreads, 0, st>>>(w, up, T(dt), o, M);
+    } else {
+      eval_windows_kernel<T, kEvalSe3><<<blocks, kEvalThreads, 0, st>>>(w, up, T(dt), o, M);
+    }
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -222,26 +222,29 @@ struct CountCost {
 extern "C" {
 
 // B4 row code on double: ins as for kontiki_imu_rows_f64; J unused when
-// flags has the cost-only bit. wide = 0 runs the kernel's seed chunks,
-// wide = 1 the one full-width jet that the operation count runs.
+// flags has the cost-only bit. wide = 0 runs the kernel's lane group, lane
+// after lane; wide = 1 the one full-width jet that the operation count runs.
 void kontiki_host_imu_rows_f64(const double* const* ins, double* r, double* J,
                                int M, int flags, int wide) {
   const ImuInputs<double> in =
       make_imu_inputs<double>(reinterpret_cast<const void* const*>(ins), M, flags);
+  const int C = imu_columns(flags);
   for (int m = 0; m < M; ++m) {
     if (flags & kCostOnly) {
       imu_row_cost<double>(in, m, r);
     } else if (wide) {
-      imu_row_chunk<double, kSeeds>(in, m, 0, r, J);
+      imu_row_wide<double>(in, m, r, J);
     } else {
-      for (int c = 0; c < kChunks; ++c) imu_row_chunk<double>(in, m, c, r, J);
+      const ImuRow<double> row = load_row(in, m);
+      for (int lane = 0; lane < kImuGroup; ++lane)
+        imu_row_lane<double>(row, flags, lane, J + static_cast<size_t>(m) * 3 * C, r + 3 * m);
     }
   }
 }
 
 // Operations of B4's function on these inputs: each row once, all 13 seeds
-// in one jet (the kernel runs them in chunks of kN, each re-running the
-// primal chain).
+// in one jet (the kernel's lanes each run one, each re-running the primal
+// chain).
 long long kontiki_count_imu_rows(const double* const* ins, int M, int flags) {
   CountedInputs c(ins, kImuKs, 10, M);
   const ImuInputs<Counted> in = make_imu_inputs<Counted>(
@@ -253,7 +256,7 @@ long long kontiki_count_imu_rows(const double* const* ins, int M, int flags) {
     if (flags & kCostOnly) {
       imu_row_cost<Counted>(in, m, r.data());
     } else {
-      imu_row_chunk<Counted, kSeeds>(in, m, 0, r.data(), J.data());
+      imu_row_wide<Counted>(in, m, r.data(), J.data());
     }
   }
   return g_ops;

@@ -24,7 +24,7 @@
 //    exp(B_j w_j), or (0, dB_j w_j) in the |B_j w_j|^2 <= EPS Taylor branch
 //    where exp(v) is (1, v).
 //  - d2p/dt2 = sum_j d2B_j(u) p_j with the standard basis.
-//  - The outer Jet<T, kN> carries the 12 SO3 knot increments and s. B, dB
+//  - The outer Jet carries the 12 SO3 knot increments and s. B, dB
 //    and d2B are polynomials of the jet u + s/dt, so d(omega)/ds and
 //    d(d2p/dt2)/ds (second and third time derivatives) need no more code.
 //  - R3 knots enter d2p/dt2 linearly; their columns are written in closed
@@ -39,12 +39,24 @@
 // 3 + 3 * 37, ~1.2 KB in f64, ~1.2 MB per bucket (0.37 us at 3.35 TB/s);
 // the function needs ~8.3 k float64 operations per gyro row and ~4.1 k per
 // accel row (csrc/host_rows.cpp counts them), ~0.1 us at 67 TFLOP/s.
-// One thread per (row, seed chunk): the 13 seeds run in chunks of kN = 5
-// on blockIdx.y, so a row's three chunks run side by side instead of one
-// after another, which shortens the longest thread 3x at the price of
-// re-running the primal chain per chunk. Chunk 0 also writes the residual
-// and every column that is not a seed column. The cost-only variant runs
-// the primal chain once per row.
+// A bucket is far too small to fill the card one row per thread, so the
+// time is one row's chain: ~10 f64 transcendentals and their jets in
+// sequence. The design shortens that chain and spreads the rows:
+//  - a row runs on a group of 16 lanes (imu_row_lane), one seed a lane in
+//    Jet<T, 1> (13 busy): a 1,000-row bucket is 125 blocks of 128 threads
+//    on the 132 SMs, and a lane carries 2 values per number, not 6, so its
+//    four knots and the chain stay in registers (the first port's 5-seed
+//    chunks spilled 1.7 KB in f64; two seeds a lane on 8 lanes measured
+//    ~35% slower). Every lane repeats the primal chain; the lanes do not
+//    diverge until the write-out;
+//  - the three lanes that hold no seed write the residual, the sensor
+//    block's other columns (zeros; -w in the bias columns) and, on split
+//    rows, the R3 columns in closed form, one component a lane
+//    (imu_row_rest), while the seed lanes write theirs;
+//  - the block's rows, contiguous in J, go through a shared tile and leave
+//    in 16-byte stores (copy_out), not one strided value at a time.
+// The cost-only variant runs the primal chain once per row, one row a
+// thread.
 #include "rowmath.cuh"
 
 namespace {
@@ -52,8 +64,6 @@ namespace {
 constexpr double kGravityZ = -9.80665;
 constexpr int kSensorCols = 13;
 constexpr int kSeeds = 13;        // 12 SO3 knot increments + the time shift s
-constexpr int kN = 5;             // seed chunk
-constexpr int kChunks = (kSeeds + kN - 1) / kN;
 
 // flags of the C entry point
 constexpr int kAccel = 1;
@@ -191,19 +201,19 @@ KT_HD V3<S> imu_body(const ImuRow<T>& row, bool accel, const S* d, const S& s,
 // Jacobian width: 12 SO3 (+ 12 R3) window columns, then the sensor block.
 KT_HD int imu_columns(int flags) { return ((flags & kSplit) ? 24 : 12) + kSensorCols; }
 
-// Linearize seed chunk `chunk` (of width NC) of row m: J columns of the
-// chunk's seeds; chunk 0 also writes r [M, 3] and every other column of
-// J [M, 3, C]. The kernel runs NC = kN; NC = kSeeds is the whole row at once.
-template <typename T, int NC = kN>
-KT_HD void imu_row_chunk(const ImuInputs<T>& in, int m, int chunk, T* r_out, T* J_out) {
+// Seed chunk `chunk` of width NC of a row (seeds NC chunk .. NC chunk +
+// NC - 1 of the 13; a chunk past them carries none and computes the primal
+// alone): the body in Jet<T, NC>, the chunk's columns of the row's J [3, C]
+// (-w d(body)/d(seed); the time shift's in sensor column 6), and the primal
+// body and orientation q for the rest of the row.
+template <typename T, int NC>
+KT_HD void imu_row_seeds(const ImuRow<T>& row, int flags, int chunk, T* J, T* body_out,
+                         Q4<T>& q_out) {
   using S = Jet<T, NC>;
-  const ImuRow<T> row = load_row(in, m);
-  const bool accel = (in.flags & kAccel) != 0;
-  const bool split = (in.flags & kSplit) != 0;
-  const int C = imu_columns(in.flags);
+  const bool split = (flags & kSplit) != 0;
+  const int C = imu_columns(flags);
   const int nk = split ? 24 : 12;
-  const int off_so3 = split && (in.flags & kR3First) ? 12 : 0;
-  const int off_r3 = (in.flags & kR3First) ? 0 : 12;
+  const int off_so3 = split && (flags & kR3First) ? 12 : 0;
   const int s0 = chunk * NC;
 
   S d[12];
@@ -211,44 +221,93 @@ KT_HD void imu_row_chunk(const ImuInputs<T>& in, int m, int chunk, T* r_out, T* 
   for (int k = 0; k < 12; ++k) d[k] = seeded<T, NC>(T(0), k - s0);
   const S s = seeded<T, NC>(T(0), 12 - s0);
   Q4<S> q;
-  const V3<S> body = imu_body<T, S>(row, accel, d, s, q);
+  const V3<S> body = imu_body<T, S>(row, (flags & kAccel) != 0, d, s, q);
 
   const T wv = row.w * row.valid;  // d(r)/d(body) = -w, zeroed when invalid
-  T* J = J_out + static_cast<size_t>(m) * 3 * C;
   const S bc[3] = {body.x, body.y, body.z};
   for (int i = 0; i < NC && s0 + i < kSeeds; ++i) {
     const int c = (s0 + i < 12) ? off_so3 + s0 + i : nk + 6;
     for (int rr = 0; rr < 3; ++rr) J[rr * C + c] = -wv * bc[rr].v[i];
   }
-  if (chunk != 0) return;
+  for (int rr = 0; rr < 3; ++rr) body_out[rr] = bc[rr].a;
+  q_out = {q.w.a, q.x.a, q.y.a, q.z.a};
+}
 
-  for (int rr = 0; rr < 3; ++rr) {
-    r_out[3 * m + rr] = wv * (row.y[rr] - bc[rr].a - row.bias[rr]);
-    for (int c = nk; c < C; ++c) {
-      if (c != nk + 6) J[rr * C + c] = T(0);
+// Items of a row that are no seed's: 0, r [3] and the sensor block's
+// other columns (zeros, -w in the bias columns); on split rows 1 + k for
+// k = 0..2, the R3 knots' columns of component k (d(body)/d(p_jk) = d2B_j
+// R(q)^T e_k on accel rows, zeros on gyro rows, which do not see the R3
+// knots).
+KT_HD int imu_rest_items(int flags) { return (flags & kSplit) ? 4 : 1; }
+
+// Item `item` of the row from its primal body and q.
+template <typename T>
+KT_HD void imu_row_rest(const ImuRow<T>& row, int flags, const T* body, const Q4<T>& q,
+                        int item, T* J, T* r) {
+  const bool accel = (flags & kAccel) != 0;
+  const int C = imu_columns(flags);
+  const int nk = (flags & kSplit) ? 24 : 12;
+  const T wv = row.w * row.valid;
+  if (item == 0) {
+    for (int rr = 0; rr < 3; ++rr) {
+      r[rr] = wv * (row.y[rr] - body[rr] - row.bias[rr]);
+      for (int c = nk; c < C; ++c) {
+        if (c != nk + 6) J[rr * C + c] = T(0);
+      }
+      J[rr * C + nk + (accel ? 7 : 10) + rr] = -wv;
     }
-    J[rr * C + nk + (accel ? 7 : 10) + rr] = -wv;
-  }
-  if (!split) return;
-  if (!accel) {  // gyro rows do not see the R3 knots
-    for (int rr = 0; rr < 3; ++rr)
-      for (int c = 0; c < 12; ++c) J[rr * C + off_r3 + c] = T(0);
     return;
   }
-  // accel: d(body)/d(p_jk) = d2B_j R(q)^T e_k
-  const Q4<T> qc = {q.w.a, -q.x.a, -q.y.a, -q.z.a};
+  const int k = item - 1;
+  const int off_r3 = ((flags & kR3First) ? 0 : 12) + k;
+  if (!accel) {
+    for (int j = 0; j < 4; ++j)
+      for (int rr = 0; rr < 3; ++rr) J[rr * C + off_r3 + 3 * j] = T(0);
+    return;
+  }
   T d2[4];
   d2_standard_basis<T>(row.u_r3, d2);
   const T idt2 = T(1) / (row.dt_r3 * row.dt_r3);
-  for (int k = 0; k < 3; ++k) {
-    const V3<T> ek = {T(k == 0), T(k == 1), T(k == 2)};
-    const V3<T> col = qrotate(qc, ek);
-    const T cv[3] = {col.x, col.y, col.z};
-    for (int j = 0; j < 4; ++j) {
-      for (int rr = 0; rr < 3; ++rr)
-        J[rr * C + off_r3 + 3 * j + k] = -wv * d2[j] * idt2 * cv[rr];
-    }
+  const V3<T> ek = {T(k == 0), T(k == 1), T(k == 2)};
+  const V3<T> col = qrotate(qconj(q), ek);
+  const T cv[3] = {col.x, col.y, col.z};
+  for (int j = 0; j < 4; ++j) {
+    for (int rr = 0; rr < 3; ++rr) J[rr * C + off_r3 + 3 * j] = -wv * d2[j] * idt2 * cv[rr];
   }
+}
+
+// Linearize row m: r [M, 3] and J [M, 3, C], the 13 seeds in one
+// full-width jet, then the rest. The host runs it, as the operation count
+// runs it.
+template <typename T>
+KT_HD void imu_row_wide(const ImuInputs<T>& in, int m, T* r_out, T* J_out) {
+  const ImuRow<T> row = load_row(in, m);
+  T* J = J_out + static_cast<size_t>(m) * 3 * imu_columns(in.flags);
+  T body[3];
+  Q4<T> q;
+  imu_row_seeds<T, kSeeds>(row, in.flags, 0, J, body, q);
+  for (int item = 0; item < imu_rest_items(in.flags); ++item)
+    imu_row_rest<T>(row, in.flags, body, q, item, J, r_out + 3 * m);
+}
+
+// B4's lane group: a row on kImuGroup lanes, lane l < kImuSeedLanes on seed
+// chunk l of kImuPer seeds; every lane runs the same jet chain (lanes past
+// the seeds on no seed), so the group does not diverge until the lanes
+// that hold no seed write the rest's items, item i on free lane i % free.
+constexpr int kImuPer = 1;                                    // seeds a lane
+constexpr int kImuSeedLanes = (kSeeds + kImuPer - 1) / kImuPer;
+constexpr int kImuGroup = kImuSeedLanes < 8 ? 8 : kImuSeedLanes < 16 ? 16 : 32;
+
+// Lane `lane` of row `row`'s group: J its [3, C], r its [3].
+template <typename T>
+KT_HD void imu_row_lane(const ImuRow<T>& row, int flags, int lane, T* J, T* r) {
+  constexpr int free_lanes = kImuGroup - kImuSeedLanes;
+  T body[3];
+  Q4<T> q;
+  imu_row_seeds<T, kImuPer>(row, flags, lane, J, body, q);
+  if (lane < kImuSeedLanes) return;
+  for (int item = lane - kImuSeedLanes; item < imu_rest_items(flags); item += free_lanes)
+    imu_row_rest<T>(row, flags, body, q, item, J, r);
 }
 
 // Residual only of row m: r [M, 3].
@@ -277,14 +336,32 @@ KT_HD ImuInputs<T> make_imu_inputs(const void* const* ins, int M, int flags) {
 
 #include <cuda_runtime.h>
 
+constexpr int kImuThreads = 128;
+constexpr int kImuRows = kImuThreads / kImuGroup;  // rows a block
+
+// B4: a block of kImuRows rows, each on a lane group (imu_row_lane); the
+// rows' J [3, C] go to a shared tile, which the block writes out, its rows
+// contiguous in J, in 16-byte stores (copy_out).
 template <typename T>
-__global__ void __launch_bounds__(128) imu_rows_kernel(ImuInputs<T> in, T* r, T* J) {
-  const int m = blockIdx.x * blockDim.x + threadIdx.x;
-  if (m < in.M) imu_row_chunk<T>(in, m, blockIdx.y, r, J);
+__global__ void __launch_bounds__(kImuThreads) imu_rows_kernel(ImuInputs<T> in, T* r, T* J) {
+  __shared__ __align__(16) T tile[kImuRows * 3 * (24 + kSensorCols)];
+  const int C = imu_columns(in.flags);
+  const int grp = threadIdx.x / kImuGroup;
+  const int m0 = blockIdx.x * kImuRows;
+  const int m = m0 + grp;
+  if (m < in.M) {
+    imu_row_lane<T>(load_row(in, m), in.flags, threadIdx.x % kImuGroup, tile + grp * 3 * C,
+                    r + 3 * static_cast<size_t>(m));
+  }
+  __syncthreads();
+  const int rows = in.M - m0 < kImuRows ? in.M - m0 : kImuRows;
+  copy_out(tile, J + static_cast<size_t>(m0) * 3 * C, rows * 3 * C);
 }
 
+// Residual only: one row per thread (blocks of 32 rows, a 1,000-row bucket
+// over 32 SMs, measured no faster: ~5 us either way).
 template <typename T>
-__global__ void __launch_bounds__(128) imu_cost_kernel(ImuInputs<T> in, T* r) {
+__global__ void __launch_bounds__(kImuThreads) imu_cost_kernel(ImuInputs<T> in, T* r) {
   const int m = blockIdx.x * blockDim.x + threadIdx.x;
   if (m < in.M) imu_row_cost<T>(in, m, r);
 }
@@ -293,13 +370,12 @@ template <typename T>
 static int launch_imu(const void* const* ins, void* r, void* J, int M, int flags,
                       void* stream) {
   const ImuInputs<T> in = make_imu_inputs<T>(ins, M, flags);
-  const int threads = 128;
-  const int blocks = (M + threads - 1) / threads;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (flags & kCostOnly) {
-    imu_cost_kernel<T><<<blocks, threads, 0, st>>>(in, static_cast<T*>(r));
+    imu_cost_kernel<T><<<(M + kImuThreads - 1) / kImuThreads, kImuThreads, 0, st>>>(
+        in, static_cast<T*>(r));
   } else {
-    imu_rows_kernel<T><<<dim3(blocks, kChunks), threads, 0, st>>>(
+    imu_rows_kernel<T><<<(M + kImuRows - 1) / kImuRows, kImuThreads, 0, st>>>(
         in, static_cast<T*>(r), static_cast<T*>(J));
   }
   return static_cast<int>(cudaGetLastError());

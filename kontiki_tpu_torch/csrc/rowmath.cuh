@@ -224,4 +224,23 @@ KT_HD void r3_basis(T u, T dt, T* B, T* dB, T* d2B) {
   d2B[3] = dti2 * u;
 }
 
+#ifdef __CUDACC__
+
+// n values from shared src to global dst by the block's threads, in 16-byte
+// stores where dst allows (src is 16-byte aligned): B1's and B4's J tiles.
+template <typename T>
+__device__ void copy_out(const T* src, T* dst, int n) {
+  constexpr int V = 16 / sizeof(T);
+  int done = 0;
+  if (reinterpret_cast<unsigned long long>(dst) % 16 == 0) {
+    const int4* s = reinterpret_cast<const int4*>(src);
+    int4* d = reinterpret_cast<int4*>(dst);
+    for (int i = threadIdx.x; i < n / V; i += blockDim.x) d[i] = s[i];
+    done = n / V * V;
+  }
+  for (int i = done + threadIdx.x; i < n; i += blockDim.x) dst[i] = src[i];
+}
+
+#endif  // __CUDACC__
+
 }  // namespace

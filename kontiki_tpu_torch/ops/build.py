@@ -168,7 +168,13 @@ def build_host():
 def load_library():
     """Build (if needed) and load the kernels; returns the ``ctypes`` handle
     with ``argtypes``/``restype`` set for every ``_f32``/``_f64`` entry."""
-    lib = ctypes.CDLL(str(build()))
+    return bind_library(build())
+
+
+def bind_library(path):
+    """Load a library of the kernels' C entry points from ``path`` and set
+    the ``argtypes``/``restype`` of every ``_f32``/``_f64`` entry."""
+    lib = ctypes.CDLL(str(path))
     for name, argtypes in _ENTRIES.items():
         for suffix in ("_f32", "_f64"):
             fn = getattr(lib, name + suffix)

@@ -918,9 +918,9 @@ def _host_args(slots, ins):
 
 def imu_rows_host(cfg, ins, cost_only=False, wide=False):
     """B4's CUDA row code compiled for the host, in float64: the same
-    outputs as ``imu_rows`` (CPU tensors). ``wide`` runs each row in one
-    full-width jet, as ``imu_rows_ops`` counts it, instead of the kernel's
-    seed chunks."""
+    outputs as ``imu_rows`` (CPU tensors). Each row runs the kernel's lane
+    group, one lane after another; ``wide`` runs its seeds in one
+    full-width jet instead, as ``imu_rows_ops`` counts them."""
     from .build import load_host_library
 
     M = _check_imu_inputs(cfg, ins)

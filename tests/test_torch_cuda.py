@@ -137,13 +137,30 @@ def imu_problems(cuda):
             for k, g in gens.items()}
 
 
+def imu_rows_cut(ins, M):
+    """The first M of a bucket's [k, n] IMU inputs, its rows repeated as
+    needed, every third row with valid = 0 (the ragged-M cases)."""
+    n = ins["u_so3"].shape[1]
+    x = {k: v.repeat(1, -(-M // n))[:, :M].contiguous() for k, v in ins.items()}
+    valid = x.get("valid", torch.ones_like(x["u_so3"])).clone()
+    valid[:, ::3] = 0.0
+    x["valid"] = valid
+    return x
+
+
 @pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-10), (torch.float32, 1e-4)])
+@pytest.mark.parametrize("rows", [None, 1, 127, 129], ids=["bucket", "M1", "M127", "M129"])
 @pytest.mark.parametrize("which,kind", [("so3", "gyro"), ("split", "gyro"), ("split", "accel")])
-def test_imu_rows_kernel_matches_plain(imu_problems, which, kind, dtype, tol):
+def test_imu_rows_kernel_matches_plain(imu_problems, which, kind, rows, dtype, tol):
+    """B4 on a bucket's rows and on ragged M (1, 127, 129 rows: partial
+    blocks of the lane kernel and of the cost-only kernel) with rows of
+    valid = 0, which give exact zeros."""
     problem = imu_problems[which][1]
     spec, rt = kernels.problem_spec(problem), kernels.problem_runtime(problem)
     (i,) = [i for i, b in enumerate(spec.buckets) if b.kind == kind]
     cfg, ins, _ = kernels._imu_inputs(spec, spec.buckets[i], rt, problem.state0, rt["data"][i])
+    if rows is not None:
+        ins = imu_rows_cut(ins, rows)
     x = {k: v.to(dtype).contiguous() for k, v in ins.items()}
     for cost_only in (False, True):
         before = lk.imu_rows.launches
@@ -151,6 +168,10 @@ def test_imu_rows_kernel_matches_plain(imu_problems, which, kind, dtype, tol):
         assert lk.imu_rows.launches == before + 1
         want = lk.imu_rows_plain(cfg, x, cost_only=cost_only)
         _assert_close((got,) if cost_only else got, (want,) if cost_only else want, tol)
+        if rows is not None:
+            dead = x["valid"][0] == 0
+            for g in ((got,) if cost_only else got):
+                assert torch.count_nonzero(g[dead]) == 0
 
 
 @pytest.mark.parametrize("which", ["so3", "split"])
@@ -231,8 +252,9 @@ def test_estimator_on_cuda_matches_cpu(cuda):
     assert gpu.num_residual_blocks == cpu.num_residual_blocks
 
 
-def _query_windows(kind, cuda, M=5000, seed=0):
-    """Windows and u of M row times on a generated trajectory, on the card."""
+def _query_windows(kind, cuda, M=5000, seed=0, order="random"):
+    """Windows and u of M row times on a generated trajectory, on the card:
+    uniform random times, or the same sorted ("frame order")."""
     rng = np.random.default_rng(seed)
     if kind == "se3":
         knots = synthetic.make_se3_trajectory(20.0, seed=5).knots
@@ -240,16 +262,24 @@ def _query_windows(kind, cuda, M=5000, seed=0):
         traj = synthetic.make_split_trajectory(20.0, seed=5)
         knots = (traj.R3_spline if kind == "r3" else traj.SO3_spline).knots
     k = torch.tensor(knots, device=cuda)
-    ts = torch.tensor(rng.uniform(0.0, 20.0, M), device=cuda)
+    ts = rng.uniform(0.0, 20.0, M)
+    ts = torch.tensor(np.sort(ts) if order == "frame order" else ts, device=cuda)
     i0, u = spline_eval.index_and_u(ts, 0.0, 0.1, k.shape[0])
     return spline_eval.gather_windows(k, i0).contiguous(), u.contiguous()
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("M", [5000, 1, 127, 129])
+@pytest.mark.parametrize("order", ["random", "frame order"])
 @pytest.mark.parametrize("kind", ["r3", "so3", "se3"])
-def test_evaluate_windows_kernel_matches_plain(cuda, kind, dtype):
-    win, u = _query_windows(kind, cuda)
+def test_evaluate_windows_kernel_matches_plain(cuda, kind, order, M, dtype):
+    """B5 in both orders and on ragged M (partial blocks), with a window of
+    equal knots first where M > 1 (the log/exp Taylor branches; alone its
+    angular velocity is roundoff, which no relative gate can hold)."""
+    win, u = _query_windows(kind, cuda, M=M, order=order)
     win, u = win.to(dtype), u.to(dtype)
+    if kind != "r3" and M > 1:
+        win[0] = win[0, :1]
     before = dict(lk.evaluate_windows.launches)
     got = lk.evaluate_windows(kind, win, u, 0.1)
     assert lk.evaluate_windows.launches[kind] == before[kind] + 1

@@ -2,9 +2,10 @@
 compiler (``csrc/host_rows.cpp``), against the plain PyTorch versions in
 float64: B4 ``imu_rows`` in every variant, and B1 ``linearize_rows`` on a
 small config-4-shaped problem. This checks the kernels' arithmetic without
-a card (1e-12 relative to max |plain| per output), in the kernels' seed
-chunks and in the one full-width jet per row that the operation counts
-for the kernels' bounds in ``chip_smoke.py`` run."""
+a card (1e-12 relative to max |plain| per output), in the kernels' own
+schedules (B4: its lane group, lane after lane) and in the one full-width
+jet per row that the operation counts for the kernels' bounds in
+``chip_smoke.py`` run."""
 import shutil
 
 import pytest

@@ -1,0 +1,232 @@
+#!/usr/bin/env python3
+"""Time the port's hand-written kernels built from other sources against
+each other, in one process, in turns on the same inputs.
+
+A variant is ``NAME=CSRC`` or ``NAME=CSRC:DEFINE,...``: a ``csrc``
+directory (this checkout's, or another checkout's, e.g. unpacked from
+``git archive``) and ``-D`` defines for ``nvcc``. Each variant's ``.cu``
+files are compiled with the port's flags (``ops.build.NVCC_FLAGS``) into a
+library of its own under the git-ignored ``kontiki_tpu_torch/_build/ab``
+(kept under a hash of its sources and flags), all compiles started
+together, and ``ops.build.load_library`` is pointed at
+each library in turn, so this checkout's wrappers and solvers drive every
+variant (its C entry points must be this checkout's). Cases:
+
+- ``b4``: B4 (``imu_rows``) on every bucket of configs 1 and 2, float64,
+  linearize and cost-only: ms per launch on the card (a CUDA graph of
+  launches, ``chip_smoke.graph_ms``), ms per call (``chip_smoke.cuda_ms``)
+  and the host's microseconds to enqueue one call;
+- ``b5``: B5 (``evaluate_windows``) at ``chip_smoke.py``'s 4.8 M read-back
+  row times, in frame order and shuffled, each kind, float64: ms per call;
+- ``rates``: configs 1 and 2's 25-iteration fused solves (``chip_smoke``'s
+  timed solve), it/s on the host clock, five after a warm-up each round.
+
+A round runs the variants in order, the next round in reverse (A B, B A,
+...). Prints the card's name and power limit, each variant's ``ptxas``
+registers and spill, its largest normwise error against the plain version
+(b4, b5), every number of every round, and per variant the median and
+quartiles over rounds. Needs a CUDA card and ``nvcc``; run from anywhere:
+
+    python3 tools/kernel_ab.py --case b5 --rounds 10 \\
+        --variant shared=kontiki_tpu_torch/csrc \\
+        --variant own=kontiki_tpu_torch/csrc:KT_EVAL_WARP_SHARE=0
+"""
+import argparse
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+
+import torch  # noqa: E402
+
+import chip_smoke as cs  # noqa: E402
+from kontiki_tpu_torch.ops import build  # noqa: E402
+
+
+def build_variants(specs):
+    """{name: library} of each ``NAME=CSRC[:DEFINES]``, compiled in parallel
+    (kept under a hash of the sources and flags, and reused)."""
+    jobs = {}
+    for spec in specs:
+        name, _, rest = spec.partition("=")
+        csrc, _, defines = rest.partition(":")
+        flags = [*build.NVCC_FLAGS, *(f"-D{d}" for d in defines.split(",") if d)]
+        srcs = sorted(Path(csrc).resolve().glob("*.cu*"))
+        out = build._library_path(name, flags, srcs).with_suffix("")
+        out = out.parent / "ab" / out.name
+        procs = []
+        if not (out / "lib.so").exists():
+            out.mkdir(parents=True, exist_ok=True)
+            procs = [(cu, subprocess.Popen([build._nvcc(), *flags, "-c", str(cu), "-o",
+                                            str(out / f"{cu.stem}.o")],
+                                           stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                           text=True))
+                     for cu in srcs if cu.suffix == ".cu"]
+        jobs[name] = (out, procs)
+    libs = {}
+    for name, (out, procs) in jobs.items():
+        if procs:
+            log = ""
+            for cu, proc in procs:
+                log += proc.communicate()[0]
+                if proc.returncode:
+                    sys.exit(f"nvcc failed on {name} {cu.name}:\n{log}")
+            subprocess.run([build._nvcc(), "-shared", *build.NVCC_FLAGS[:2],
+                            *map(str, sorted(out.glob("*.o"))), "-o", str(out / "lib.so")],
+                           check=True)
+            (out / "ptxas.log").write_text(log)
+        for kernel, regs, spill in cs.ptxas_summary((out / "ptxas.log").read_text()):
+            print(f"ptxas {name} {kernel}: {regs} registers, {spill} bytes spill stores",
+                  flush=True)
+        libs[name] = build.bind_library(out / "lib.so")
+    return libs
+
+
+def use(lib):
+    build.load_library = lambda: lib
+
+
+def host_us(fn, reps=200):
+    """Host microseconds to enqueue one ``fn()`` (median of ``reps``)."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append(1e6 * (time.perf_counter() - t0))
+    torch.cuda.synchronize()
+    return sorted(times)[reps // 2]
+
+
+def normwise(got, want):
+    return max(((g - w).abs().max() / w.abs().max()).item() for g, w in zip(got, want))
+
+
+def case_b4():
+    from kontiki_tpu_torch.ops import linearize_kernels as lk
+    from kontiki_tpu_torch.solver import kernels
+
+    cases = {}
+    for name in cs.IMU_CONFIGS:
+        problem = cs.imu_problem(name)
+        spec, rt = kernels.problem_spec(problem), kernels.problem_runtime(problem)
+        for i, b in enumerate(spec.buckets):
+            cfg, x, _ = kernels._imu_inputs(spec, b, rt, problem.state0, rt["data"][i])
+            x = {k: v.to(torch.float64).contiguous() for k, v in x.items()}
+            for form, cost_only in (("linearize", False), ("cost-only", True)):
+                def fn(cfg=cfg, x=x, cost_only=cost_only):
+                    return lk.imu_rows(cfg, x, cost_only=cost_only)
+
+                def err(fn=fn, cfg=cfg, x=x, cost_only=cost_only):
+                    got = fn()
+                    want = lk.imu_rows_plain(cfg, x, cost_only=cost_only)
+                    return normwise([got] if cost_only else got,
+                                    [want] if cost_only else want)
+
+                cases[f"{name} {b.kind} {form}"] = (fn, err)
+    measures = {"ms per launch": lambda fn: cs.graph_ms(fn),
+                "ms per call": lambda fn: cs.cuda_ms(fn),
+                "host us per call": host_us}
+    return {f"{c} {m}": (lambda fn=fn, f=f: f(fn)) for c, (fn, _) in cases.items()
+            for m, f in measures.items()}, {c: err for c, (_, err) in cases.items()}
+
+
+def case_b5():
+    from kontiki_tpu_torch.ops import linearize_kernels as lk
+    from kontiki_tpu_torch.trajectories import spline_eval as ev
+
+    q = cs.query_setup()
+    splines = {"r3": q["split"].R3_spline, "so3": q["split"].SO3_spline, "se3": q["se3"]}
+    orders = {"frame order": q["ts"], "shuffled": q["ts"][q["perm"]]}
+    times, errs = {}, {}
+    for kind, sp in splines.items():
+        knots = torch.tensor(sp.knots, device="cuda")
+        for order, ts in orders.items():
+            i0, u = ev.index_and_u(torch.tensor(ts, device="cuda"), sp.t0, sp.dt,
+                                   knots.shape[0])
+            win, u = ev.gather_windows(knots, i0).contiguous(), u.contiguous()
+
+            def fn(kind=kind, win=win, u=u, dt=sp.dt):
+                return lk.evaluate_windows(kind, win, u, dt)
+
+            def err(fn=fn, kind=kind, win=win, u=u, dt=sp.dt, n=u.shape[0]):
+                return normwise(fn(), cs.plain_chunked(lk.evaluate_windows_plain, kind, win,
+                                                       u, dt, n=n))
+
+            times[f"{kind} {order} ms per call"] = lambda fn=fn: cs.cuda_ms(fn)
+            errs[f"{kind} {order}"] = err
+    return times, errs
+
+
+def case_rates():
+    from kontiki_tpu_torch.solver.lm import make_fused_solver
+
+    times = {}
+    for name in cs.IMU_CONFIGS:
+        problem = cs.imu_problem(name)
+
+        def rate(problem=problem):
+            solve = make_fused_solver(problem, 25, function_tolerance=0.0)
+            solve(problem.state0)
+            torch.cuda.synchronize()
+            rates = []
+            for _ in range(5):
+                t0 = time.perf_counter()
+                _, _, iters = solve(problem.state0)
+                torch.cuda.synchronize()
+                rates.append(iters / (time.perf_counter() - t0))
+            return statistics.median(rates)
+
+        times[f"{name} it/s"] = rate
+    return times, {}
+
+
+def quartiles(xs):
+    xs = sorted(xs)
+    if len(xs) < 2:
+        return xs[0], xs[0], xs[0]
+    q = statistics.quantiles(xs, n=4)
+    return q[0], statistics.median(xs), q[2]
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--variant", action="append", required=True,
+                    help="NAME=CSRC[:DEFINE,...]; two or more")
+    ap.add_argument("--case", choices=("b4", "b5", "rates"), required=True)
+    ap.add_argument("--rounds", type=int, default=10)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        sys.exit("tools/kernel_ab.py needs a CUDA card")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True)
+    print(f"card: {smi.stdout.strip() or smi.stderr.strip()}", flush=True)
+    libs = build_variants(args.variant)
+    use(next(iter(libs.values())))
+    times, errs = {"b4": case_b4, "b5": case_b5, "rates": case_rates}[args.case]()
+    for name, lib in libs.items():
+        use(lib)
+        for what, err in errs.items():
+            print(f"{name} {what}: max normwise error against plain {err():.2e}", flush=True)
+    got = {(v, t): [] for v in libs for t in times}
+    names = list(libs)
+    for r in range(args.rounds):
+        for name in names if r % 2 == 0 else names[::-1]:
+            use(libs[name])
+            for what, fn in times.items():
+                got[name, what].append(fn())
+                print(f"round {r} {name} {what}: {got[name, what][-1]:.5f}", flush=True)
+    for what in times:
+        for name in names:
+            lo, mid, hi = quartiles(got[name, what])
+            print(f"summary {what} {name}: median {mid:.5f} (quartiles {lo:.5f}-{hi:.5f}, "
+                  f"{args.rounds} rounds) [{smi.stdout.strip()}]", flush=True)
+
+
+if __name__ == "__main__":
+    main()
