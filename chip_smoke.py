@@ -11,7 +11,7 @@ Phases, in order; any failure exits non-zero without the final line:
 2. build: compiles the hand-written kernels (one nvcc per source, sm_90a,
    in parallel), loads them, and builds their row code for the host
    beside them (operation counts for the bounds); prints the registers and
-   spill of each B1-B5 instantiation from ``ptxas -v``;
+   spill of each B1-B5 and B7 instantiation from ``ptxas -v``;
 3. B1 (camera-row linearization) and 4. B2 (Schur assembly): each kernel
    against its plain PyTorch version on the same config-4 inputs on the
    card, in float64 and float32, with errors, median times and bounds;
@@ -27,7 +27,7 @@ Phases, in order; any failure exits non-zero without the final line:
    R3 + SO3 trajectory), float64 and float32, with time and bound;
 7. B3 (camera-row cost) against its plain version on config-3 (split) and
    config-4 (SE3) inputs, float64 and float32, and against B1's residual,
-   with times and bounds;
+   with times (per call and per launch on the card) and bounds;
 8. config 3 (``make_rsvi_problem`` with its split trajectory ->
    ``Problem`` -> ``make_fused_solver``, 'auto' -> Schur): structure,
    initial and 1-iteration costs against the JAX package's, an untimed
@@ -59,7 +59,8 @@ Phases, in order; any failure exits non-zero without the final line:
     ``make_big_ba_problem(n_views=10_000)`` sizes (3,352 knots per spline),
     float64 and float32, with times and bounds, B5 and B7 also on the same
     times shuffled, B5 on M = 1, 127 and 129 of them and on a window of
-    equal knots;
+    equal knots, B7 on 1, 255, 257, 1,023 and 1,025 times on splines of 4
+    and 40 knots from before t0 to past the last window;
 14. read-back through the entry points: the trajectory queries at those
     4.8 M times on both trajectories (B5, exact launches per query) and B7
     through ``ops.r3_evaluate_kernel`` in both orders; config 4's built
@@ -80,7 +81,8 @@ Phases, in order; any failure exits non-zero without the final line:
     obs_per_landmark=5, seed=5)``, a ``RawProblem`` of 500,000 camera
     rows), host seconds of generation and layout, structure against the
     JAX package's;
-17. B1 (split) and B3 against their plain versions at config 5's rows;
+17. B1 (split) and B3 against their plain versions at config 5's rows (B3
+    also per launch on the card);
     B6 (one-hot row expansion) against its plain version on config 5's
     rows at ``state0`` (and a random case with duplicates, ids -1 and WB,
     and a row count that is not a multiple of a block's rows; and no
@@ -105,7 +107,10 @@ Phases, in order; any failure exits non-zero without the final line:
     bound and plain time; B2 on the lifting bucket (rdim 3, C 62, the
     row times in the reduced system) against its plain version beside
     cuBLAS; B1 on M = 1, 7 and 129 rows of config 4 and config
-    3-atan-lifting with rows of valid = 0;
+    3-atan-lifting with rows of valid = 0; B3 on M = 1, 7, 129 and one wave
+    of its lane kernel less and plus one row of config 4's, config 3's and
+    config 3-atan-lifting's rows, every third row at valid = 0, against its
+    plain version and B1's residual;
 20. both through ``make_fused_solver(strategy="schur")``: initial and
     1-iteration costs against the JAX package's (1e-9), an untimed
     warm-up, the timed 25-iteration solve (final cost against the JAX
@@ -131,9 +136,11 @@ the kernel runs them); B2's from the shapes, the upper triangle of the
 symmetric H only. A kernel's
 ``launches`` in the JSON line is the sum over the main-path runs (the
 timed fused solves and the estimator solves). Its ``ms`` is the median
-CUDA-event time of one wrapper call; B4's two entries (linearize and
-cost-only, on config 2's accel bucket) also give ``graph_ms``, the time
-per launch on the card from a CUDA graph of launches.
+CUDA-event time of one wrapper call; B3's and B4's entries also give
+``graph_ms``, the time per launch on the card from a CUDA graph of
+launches (B4's two entries, linearize and cost-only, on config 2's accel
+bucket; B7's at 4.8 M times), and B7's the shuffled order's times beside
+the frame order's.
 
 The last two lines are a JSON object with the kernels' numbers and the JSON
 result ``{"ok": true, "device": {...}}``.
@@ -569,19 +576,21 @@ def phase_build():
         print(f"ptxas {name}: {regs} registers, {spill} bytes spill stores", flush=True)
 
 
-#: B1 (lane groups; one row per thread), B2, B3, B4 (linearize; cost-only)
-#: and B5's kernels in a mangled ptxas name: kernel, then the scalar and,
-#: for B1/B3, the Split, Atan and Lifting flags, for B5 the kind (B5's f64
-#: se3 kernel, eval_windows_capped_kernel, is no template)
-_KERNEL_NAME = re.compile(r"(linearize_rows_kernel|linearize_rows_thread_kernel|cost_rows_kernel"
+#: B1 and B3 (lane groups; one row per thread), B2, B4 (linearize;
+#: cost-only), B5 and B7's kernels in a mangled ptxas name: kernel, then the
+#: scalar and, for B1/B3, the Split, Atan and Lifting flags, for B5 the kind
+#: (B5's f64 se3 kernel, eval_windows_capped_kernel, is no template);
+#: cost_rows_kernel is B3's earlier single kernel (an older checkout's build)
+_KERNEL_NAME = re.compile(r"(linearize_rows_kernel|linearize_rows_thread_kernel"
+                          r"|cost_rows_lane_kernel|cost_rows_thread_kernel|cost_rows_kernel"
                           r"|assemble_schur_kernel|imu_rows_kernel|imu_cost_kernel"
-                          r"|eval_windows_kernel|eval_windows_capped_kernel)"
+                          r"|eval_windows_kernel|eval_windows_capped_kernel|r3_evaluate_kernel)"
                           r"(?:I([df])(?:Lb([01])ELb([01])ELb([01])E|Li([012])E)?E)?")
 
 
 def ptxas_summary(log):
     """[(kernel, registers, spill store bytes)] of each instantiation of
-    B1-B5 in the build's ``ptxas -v`` report."""
+    B1-B5 and B7 in the build's ``ptxas -v`` report."""
     out, name, spill = [], None, 0
     for line in log.splitlines():
         entry = re.search(r"Compiling entry function '(\S+)'", line)
@@ -697,14 +706,16 @@ def phase_b3(problems):
                     (lk.linearize_rows(cfg, x)[0],))
             out = dict(max_abs_err=err)
             out["ms"] = cuda_ms(lambda: lk.cost_rows(cfg, x))
+            out["graph_ms"] = graph_ms(lambda: lk.cost_rows(cfg, x))
             out["plain_ms"] = cuda_ms(lambda: lk.cost_rows_plain(cfg, x), reps=5)
             nbytes = 8 * M * (n_inputs(cfg, x) + lk.camera_shape(cfg)[0])
             ops = lk.cost_rows_ops(cfg, x)
             out["bound_ms"], out["bound_by"] = bound(nbytes, ops)
             out["library_ms"] = None  # no single PyTorch call computes B3
-            print(f"  cost_rows {cfg['kind']} f64 M={M}: kernel {out['ms']:.4f} ms, plain "
-                  f"{out['plain_ms']:.3f} ms, bound {out['bound_ms']:.5f} ms by "
-                  f"{out['bound_by']} ({nbytes} bytes, {ops} operations)", flush=True)
+            print(f"  cost_rows {cfg['kind']} f64 M={M}: kernel {out['graph_ms']:.5f} ms per "
+                  f"launch on the card ({out['ms']:.4f} ms per call with the host's enqueue), "
+                  f"plain {out['plain_ms']:.3f} ms, bound {out['bound_ms']:.5f} ms by "
+                  f"{out['bound_by']} ({nbytes} bytes, {ops} operations) [{CARD}]", flush=True)
             first = first or out
     return first
 
@@ -836,6 +847,35 @@ def phase_b1_ragged(problems):
                 off = x["valid"][0] == 0
                 if not all(bool((a[off] == 0).all()) for a in got):
                     fail(f"linearize_rows {name} M={M}: a row with valid = 0 is not zero")
+
+
+def phase_b3_ragged(problems):
+    """B3 against its plain version (and B1's residual in float64) on
+    M = 1, 7 and 129 rows and on one wave of its lane kernel less and plus
+    one row (the lane kernel's and the one-row-per-thread kernel's ragged
+    last blocks), each problem's camera rows repeated to length, every
+    third row with valid = 0 (its residual must be exactly zero), float64
+    and float32."""
+    from kontiki_tpu_torch.ops import linearize_kernels as lk
+
+    for name, problem in problems.items():
+        cfg, ins = camera_rows(problem)
+        n = ins["u_ref"].shape[1]
+        for dtype in (torch.float64, torch.float32):
+            wave = lk.cost_rows_wave(cfg, dtype)
+            for M in (1, 7, 129, wave - 1, wave + 1):
+                reps = -(-M // n)
+                x = {k: v.repeat(1, reps)[:, :M].to(dtype).contiguous() for k, v in ins.items()}
+                x["valid"] = (torch.arange(M, device="cuda") % 3 != 1).to(dtype)[None, :]
+                got = lk.cost_rows(cfg, x)
+                torch.cuda.synchronize()
+                print(f"  B3 {name} ({lk.camera_branch(cfg)}) M={M} (wave {wave}):", flush=True)
+                compare("cost_rows branch", dtype, ("r",), (got,), (lk.cost_rows_plain(cfg, x),))
+                if dtype == torch.float64:
+                    compare("cost_rows vs linearize_rows", dtype, ("r",), (got,),
+                            (lk.linearize_rows(cfg, x)[0],))
+                if not bool((got[x["valid"][0] == 0] == 0).all()):
+                    fail(f"cost_rows {name} M={M}: a row with valid = 0 is not zero")
 
 
 def phase_solve(name, problem):
@@ -974,13 +1014,18 @@ def phase_branches(branches):
                      lk.cost_rows_ops(cfg, x))):
                 rec = dict(max_abs_err=err, ms=cuda_ms(lambda: fn(cfg, x)),
                            plain_ms=cuda_ms(lambda: plain(cfg, x), reps=5))
+                per_launch = ""
+                if kernel == "cost_rows":
+                    rec["graph_ms"] = graph_ms(lambda: fn(cfg, x))
+                    per_launch = f", {rec['graph_ms']:.5f} ms per launch on the card"
                 nbytes = 8 * M * (n_in + n_out)
                 rec["bound_ms"], rec["bound_by"] = bound(nbytes, ops)
                 rec["library_ms"] = None  # no single PyTorch call computes B1 or B3
                 out[kernel, branch] = rec
-                print(f"  {kernel} {branch} f64 M={M}: kernel {rec['ms']:.4f} ms, plain "
-                      f"{rec['plain_ms']:.3f} ms, bound {rec['bound_ms']:.5f} ms by "
-                      f"{rec['bound_by']} ({nbytes} bytes, {ops} operations)", flush=True)
+                print(f"  {kernel} {branch} f64 M={M}: kernel {rec['ms']:.4f} ms per call"
+                      f"{per_launch}, plain {rec['plain_ms']:.3f} ms, bound "
+                      f"{rec['bound_ms']:.5f} ms by {rec['bound_by']} ({nbytes} bytes, {ops} "
+                      f"operations) [{CARD}]", flush=True)
     return out
 
 
@@ -1457,14 +1502,21 @@ def phase_b5(q):
 
 def phase_b7(q):
     """B7 against its plain version at the user-size times, in frame order
-    and shuffled; the numbers of the frame order."""
+    and shuffled (times and bound in both orders), then on the edges: B = 1,
+    255, 257, 1,023 and 1,025 times (about a block of 1,024), a spline of
+    one window (N = 4), times before t0 and past the last window (the
+    clamp), sorted and shuffled. Returns the frame order's numbers with the
+    shuffled order's beside them and the worst error of all."""
+    import numpy as np
+
     from kontiki_tpu_torch.ops import spline_kernels as sk
 
     dev = torch.device(QUERY_DEVICE)
     sp = q["split"].R3_spline
     orders = {"frame order": torch.tensor(q["ts"], device=dev),
               "shuffled": torch.tensor(q["ts"][q["perm"]], device=dev)}
-    out = None
+    out = {}
+    worst = 0.0
     for order, ts in orders.items():
         M = ts.shape[0]
         for dtype in (torch.float64, torch.float32):
@@ -1477,18 +1529,42 @@ def phase_b7(q):
             err = compare("r3_evaluate_kernel", dtype, ("p", "v", "a"), got, want)
             if dtype != torch.float64:
                 continue
+            worst = max(worst, err)
             ms = cuda_ms(lambda: sk.r3_evaluate_kernel(knots, sp.t0, sp.dt, t))
+            per_launch = graph_ms(lambda: sk.r3_evaluate_kernel(knots, sp.t0, sp.dt, t), n=10)
             plain_ms = cuda_ms(lambda: sk.r3_evaluate_plain(knots, sp.t0, sp.dt, t),
                                reps=3, warmup=1)
             nbytes = 8 * (M * (1 + 9) + knots.numel())
             ops = sk.r3_evaluate_ops(knots, sp.t0, sp.dt, t)
             b_ms, b_by = bound(nbytes, ops)
-            print(f"  r3_evaluate_kernel f64 {order} M={M}: kernel {ms:.4f} ms, plain "
-                  f"{plain_ms:.3f} ms, bound {b_ms:.4f} ms by {b_by} ({nbytes} bytes, "
-                  f"{ops} operations)", flush=True)
-            out = out or dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                              bound_by=b_by, library_ms=None)  # no single PyTorch call
-    return out
+            print(f"  r3_evaluate_kernel f64 {order} M={M}: kernel {ms:.4f} ms per call, "
+                  f"{per_launch:.4f} ms per launch on the card, plain {plain_ms:.3f} ms, bound "
+                  f"{b_ms:.4f} ms by {b_by} ({nbytes} bytes, {ops} operations) [{CARD}]",
+                  flush=True)
+            out[order] = dict(ms=ms, graph_ms=per_launch, plain_ms=plain_ms, bound_ms=b_ms,
+                              bound_by=b_by)
+    rng = np.random.default_rng(9)
+    t0, dt = 0.3, 0.25
+    for N in (4, 40):
+        for B in (1, 255, 257, 1023, 1025):
+            ts = np.sort(rng.uniform(t0 - 2 * dt, t0 + N * dt, B))
+            for dtype in (torch.float64, torch.float32):
+                knots = torch.tensor(rng.normal(size=(N, 3)), device=dev, dtype=dtype)
+                for order, tv in (("sorted", ts), ("shuffled", rng.permutation(ts))):
+                    t = torch.tensor(tv, device=dev, dtype=dtype)
+                    print(f"  r3_evaluate_kernel N={N} B={B} {order}, times on "
+                          f"[t0 - 2 dt, t0 + N dt]:", flush=True)
+                    err = compare("r3_evaluate_kernel", dtype, ("p", "v", "a"),
+                                  sk.r3_evaluate_kernel(knots, t0, dt, t),
+                                  sk.r3_evaluate_plain(knots, t0, dt, t))
+                    if dtype == torch.float64:
+                        worst = max(worst, err)
+    first = out["frame order"]
+    return dict(max_abs_err=worst, **first, shuffled_ms=out["shuffled"]["ms"],
+                shuffled_graph_ms=out["shuffled"]["graph_ms"],
+                shuffled_plain_ms=out["shuffled"]["plain_ms"],
+                shuffled_bound_ms=out["shuffled"]["bound_ms"],
+                library_ms=None)  # no single PyTorch call computes B7
 
 
 def check_launches(what, launches, want):
@@ -1736,11 +1812,10 @@ def config5_problem():
     return big
 
 
-def phase_config5_rows(problem):
-    """B1 (split) and B3 against their plain versions at config 5's 500,000
-    camera rows in the segment layout (padded knots, window bases clamped
-    at the real knot count, the ``valid`` input), float64 and float32."""
-    from kontiki_tpu_torch.ops import linearize_kernels as lk
+def config5_camera_rows(problem):
+    """(cfg, ins) of config 5's camera rows at state0 in the segment layout
+    (padded knots, window bases clamped at the real knot count, the
+    ``valid`` input), on the card."""
     from kontiki_tpu_torch.parallel.segments_ba import _build_segment_ba
     from kontiki_tpu_torch.solver import kernels
 
@@ -1750,6 +1825,16 @@ def phase_config5_rows(problem):
                                          rt["data"][0])
     if "valid" not in ins:
         fail("config 5 camera rows: the kernels' inputs lack the rows' valid flags")
+    return cfg, ins
+
+
+def phase_config5_rows(problem):
+    """B1 (split) and B3 against their plain versions at config 5's 500,000
+    camera rows in the segment layout (config5_camera_rows), float64 and
+    float32."""
+    from kontiki_tpu_torch.ops import linearize_kernels as lk
+
+    cfg, ins = config5_camera_rows(problem)
     M = ins["u_ref"].shape[1]
     for dtype in (torch.float64, torch.float32):
         x = {k: v.to(dtype).contiguous() for k, v in ins.items()}
@@ -1761,8 +1846,10 @@ def phase_config5_rows(problem):
         if dtype == torch.float64:
             ms = cuda_ms(lambda: lk.linearize_rows(cfg, x))
             ms_c = cuda_ms(lambda: lk.cost_rows(cfg, x))
+            graph_c = graph_ms(lambda: lk.cost_rows(cfg, x))
             print(f"  config 5 camera rows M={M} f64: linearize_rows split {ms:.3f} ms, "
-                  f"cost_rows {ms_c:.4f} ms", flush=True)
+                  f"cost_rows {ms_c:.4f} ms per call, {graph_c:.5f} ms per launch on the "
+                  f"card [{CARD}]", flush=True)
             # their bounds at these rows: bytes of the rows' inputs and outputs,
             # operations counted by the host row code in parallel chunks
             rdim, C = lk.camera_shape(cfg)
@@ -1991,6 +2078,8 @@ def main():
     branches = phase_branches(branch_inputs({name: p for name, (_, p) in atan.items()}))
     b2_lifting = phase_b2(atan["config 3-atan-lifting"][1])
     phase_b1_ragged({"config 4": problem4, "config 3-atan-lifting": atan["config 3-atan-lifting"][1]})
+    phase_b3_ragged({"config 4": problem4, "config 3": problem3,
+                     "config 3-atan-lifting": atan["config 3-atan-lifting"][1]})
     for name, (_, p) in atan.items():
         phase_solve(name, p)
     for name, (prob, _) in atan.items():

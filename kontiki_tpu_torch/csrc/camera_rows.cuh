@@ -6,14 +6,14 @@
 //  - B1 linearize_rows: residual, compressed Jacobian and landmark column.
 //    Replaces the Pallas TPU kernel kontiki_tpu/ops/linearize_kernels.py
 //    linearize_rows -> _linearize_call / _tile_linearize.
-//  - B3 cost_rows: the residual only, B1's primal chain with zero
-//    increments and no seeds (the LM re-cost). Replaces cost_rows ->
-//    _cost_only_call / _tile_cost.
+//  - B3 cost_rows: the residual only (the LM re-cost), each window's pose
+//    at u on the chain of window_chain.cuh, which B5 shares. Replaces
+//    cost_rows -> _cost_only_call / _tile_cost.
 // Their plain PyTorch versions are kontiki_tpu_torch/ops/linearize_kernels.py
 // linearize_rows_plain and cost_rows_plain, which the wrappers run for CPU
 // tensors. Rows with valid = 0 give zeros. A row is never padded (the TPU
-// kernels pad divisors with 1.0 to a 128-row tile): B3 runs one thread per
-// row, B1 one group of lanes per row, and a group past the last row idles.
+// kernels pad divisors with 1.0 to a 128-row tile): a group of lanes or a
+// thread past the last row idles.
 //
 // Branches, template parameters of the row code and the kernels, chosen by
 // the C entry points' flags:
@@ -80,15 +80,38 @@
 // registers per value); the price is re-running the primal chain once per
 // chunk.
 //
-// B3 design: the same row code instantiated on the plain scalar T instead
-// of a Jet, so the primal math is written once and checked on the host
-// (csrc/host_rows.cpp). A row reads 82-93 values and writes 2 or 3
-// (~0.7 KB in f64) and needs ~1 k operations: bytes bound it on paper, the
-// latency of one thread's chain of ~30 dependent transcendentals in
-// practice.
+// B3 design: the windows' poses at u with no increments, on the chain of
+// window_chain.cuh that B5 runs too: the knot pairs (knot-only) and their
+// factors at B(u), then the products from knot 0 (pair_factor,
+// window_products), then B1's residual_G on plain scalars (cost_residual).
+// B1's chain would multiply each knot by exp(0) and carry zero increments
+// through V and exp; with none, split rows give B1's r bit for bit and SE3
+// rows to rounding (the tail's products regrouped). A row reads 82-93
+// values and writes 2 or 3 (~0.7 KB in f64) and needs ~1 k operations:
+// bytes bound it on paper, the latency of the f64 transcendentals (~30 a
+// row) in practice. Two kernels, chosen by M (launch_cost):
+//  - lane groups while the rows fit one wave of them (configs 3, 3-atan(-
+//    lifting) and 4: 3,837-12,304 rows, where one row a thread fills 30-97
+//    blocks): a row on kB3Group lanes; lanes 0-5 run the 2 x 3 knot pairs
+//    and their factors, lanes 0-1 the two windows' products, lane 0 the
+//    residual, handing over in shared memory, so a row's latency is one
+//    pair, one tail and the residual (cost_stage). Registers are capped at
+//    80 so that 12,304 rows fit one wave; past one wave a second pass of
+//    lane groups costs more than the thread kernel's whole chain (measured
+//    crossover on an H100 between 12,182 and 15,348 rows);
+//  - one row per thread beyond (config 5: 500,000 rows), every lane busy,
+//    registers capped at 128 for four blocks an SM
+//    (cost_rows_thread_kernel).
+// Both read the inputs from global memory as the chain needs them: staging
+// a block's inputs in shared memory first (coalesced cp.async copies of the
+// [k, M] slices) measured slower in both, by ~4 us a launch in the lane
+// kernel (the block waits for every copy before its first pair) and by 2%
+// at 500,000 rows (shared memory cuts the blocks an SM holds).
+// The host runs both schedules (host_rows.cpp: the lane schedule lane
+// after lane).
 #pragma once
 
-#include "rowmath.cuh"
+#include "window_chain.cuh"
 
 #ifdef __CUDACC__
 #include <cuda_runtime.h>
@@ -125,13 +148,8 @@ KT_HD void pq_split(const T* win, T u_r3, T u_so3, T dt_r3, T dt_so3,
   const int off_r3 = r3_first ? 0 : 12;
   const int off_so3 = r3_first ? 12 : 0;
 
-  const S ur = u_r3 + s / dt_r3;
-  const S r2 = ur * ur;
-  const S r3 = r2 * ur;
-  const S Br[4] = {(T(1) - T(3) * ur + T(3) * r2 - r3) / T(6),
-                   (T(4) - T(6) * r2 + T(3) * r3) / T(6),
-                   (T(1) + T(3) * ur + T(3) * r2 - T(3) * r3) / T(6),
-                   r3 / T(6)};
+  S Br[4];
+  standard_basis<T>(u_r3 + s / dt_r3, Br);
 #pragma unroll
   for (int k = 0; k < 3; ++k) {
     S acc = Br[0] * (win[k] + delta[off_r3 + k]);
@@ -285,26 +303,10 @@ KT_HD Inputs<T> make_inputs(const void* const* p, int M, int flags) {
   return in;
 }
 
-template <typename T, bool Split, bool Atan, bool Lifting>
-KT_HD void load_row(const Inputs<T>& in, int m, Windows<T>& w, Row<T>& row) {
+// The row constants of row m (Row<T>).
+template <typename T, bool Atan, bool Lifting>
+KT_HD void load_consts(const Inputs<T>& in, int m, Row<T>& row) {
   const int M = in.M;
-  const T* win[2] = {in.win_ref, in.win_obs};
-  const T* win_so3[2] = {in.win_ref_so3, in.win_obs_so3};
-  const T* u[2] = {in.u_ref, in.u_obs};
-  const T* u_so3[2] = {in.u_ref_so3, in.u_obs_so3};
-  for (int i = 0; i < 2; ++i) {
-    if (Split) {
-      for (int k = 0; k < 12; ++k) w.win[i][k] = win[i][k * M + m];
-      for (int k = 0; k < 16; ++k) w.win[i][12 + k] = win_so3[i][k * M + m];
-      w.u[i][1] = u_so3[i][m];
-    } else {
-      for (int k = 0; k < 28; ++k) w.win[i][k] = win[i][k * M + m];
-      w.u[i][1] = T(0);
-    }
-    w.u[i][0] = u[i][m];
-  }
-  w.dt[0] = in.dts[m];
-  w.dt[1] = Split ? in.dts[M + m] : w.dt[0];
   for (int k = 0; k < 4; ++k) row.q_ct[k] = in.q_ct[k * M + m];
   for (int k = 0; k < 3; ++k) {
     row.p_ct[k] = in.p_ct[k * M + m];
@@ -327,6 +329,29 @@ KT_HD void load_row(const Inputs<T>& in, int m, Windows<T>& w, Row<T>& row) {
     row.rows = in.rows[m];
     row.readout = in.readout[m];
   }
+}
+
+template <typename T, bool Split, bool Atan, bool Lifting>
+KT_HD void load_row(const Inputs<T>& in, int m, Windows<T>& w, Row<T>& row) {
+  const int M = in.M;
+  const T* win[2] = {in.win_ref, in.win_obs};
+  const T* win_so3[2] = {in.win_ref_so3, in.win_obs_so3};
+  const T* u[2] = {in.u_ref, in.u_obs};
+  const T* u_so3[2] = {in.u_ref_so3, in.u_obs_so3};
+  for (int i = 0; i < 2; ++i) {
+    if (Split) {
+      for (int k = 0; k < 12; ++k) w.win[i][k] = win[i][k * M + m];
+      for (int k = 0; k < 16; ++k) w.win[i][12 + k] = win_so3[i][k * M + m];
+      w.u[i][1] = u_so3[i][m];
+    } else {
+      for (int k = 0; k < 28; ++k) w.win[i][k] = win[i][k * M + m];
+      w.u[i][1] = T(0);
+    }
+    w.u[i][0] = u[i][m];
+  }
+  w.dt[0] = in.dts[m];
+  w.dt[1] = Split ? in.dts[M + m] : w.dt[0];
+  load_consts<T, Atan, Lifting>(in, m, row);
 }
 
 // What a row's stages hand on: the primal (p, q) of both windows, the
@@ -531,22 +556,138 @@ KT_HD void linearize_row_lanes(const Inputs<T>& in, int m, T* r_out, T* J_out,
   row_finish<T, Lifting>(row, st, J, r_out + R * m, Jrho_out + R * m);
 }
 
-// Residual only of row m (B3): r [M, R], B1's primal chain at zero
-// increments.
+// ---- B3 cost_rows ----------------------------------------------------------
+
+// Window i (0 ref, 1 obs) of row m, indexed as Windows::win: SE3 knots 7 x 4;
+// split the R3 knots 3 x 4, then the SO3 knots 4 x 4.
+template <typename T, bool Split>
+struct WindowAt {
+  const Inputs<T>& in;
+  int i, m;
+  KT_HD T operator[](int k) const {
+    if (Split && k >= 12) return (i ? in.win_obs_so3 : in.win_ref_so3)[(k - 12) * in.M + m];
+    return (i ? in.win_obs : in.win_ref)[k * in.M + m];
+  }
+};
+
+// The cumulative basis B_0..B_2 at window i's u (the SO3 spline's, split).
+template <typename T, bool Split>
+KT_HD void window_basis(const Inputs<T>& in, int i, int m, T* B) {
+  cumulative_basis<T>(Split ? (i ? in.u_obs_so3 : in.u_ref_so3)[m] : (i ? in.u_obs : in.u_ref)[m],
+                      B);
+}
+
+// The factor of knot pair j (1..3) of window i of row m at b = B_{j-1}(u)
+// (window_chain.cuh; no increments, no time shift): SE3 V(b omega) b
+// upsilon in f[0..2] and exp(b omega) in f[3..6]; split expq(b w) of the
+// SO3 spline in f[3..6].
+template <typename T, bool Split>
+KT_HD void pair_factor(const Inputs<T>& in, int i, int j, int m, T b, T* f) {
+  const WindowAt<T, Split> win = {in, i, m};
+  Q4<T> e;
+  if (Split) {
+    const V3<T> w3 = so3_pair<T>(win, 12, j);
+    e = expq_pure(V3<T>{b * w3.x, b * w3.y, b * w3.z});
+  } else {
+    V3<T> omega, ups, vu;
+    se3_pair(win, j, omega, ups);
+    V_apply_exp(b, omega, ups, vu, e);
+    f[0] = vu.x; f[1] = vu.y; f[2] = vu.z;
+  }
+  f[3] = e.w; f[4] = e.x; f[5] = e.y; f[6] = e.z;
+}
+
+// Pose (p, q) at u of window i of row m from its pair factors f (knot 0,
+// then the products): pq_se3's and pq_split's chains at zero increments.
+template <typename T, bool Split>
+KT_HD void window_products(const Inputs<T>& in, int i, int m, const T (*f)[7], T* pq) {
+  const WindowAt<T, Split> win = {in, i, m};
+  if (Split) {
+    T Br[4];
+    standard_basis<T>((i ? in.u_obs : in.u_ref)[m], Br);
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      T acc = Br[0] * win[k];
+#pragma unroll
+      for (int j = 1; j < 4; ++j) acc = acc + Br[j] * win[3 * j + k];
+      pq[k] = acc;
+    }
+    Q4<T> q = {win[12], win[13], win[14], win[15]};
+#pragma unroll
+    for (int j = 0; j < 3; ++j) q = qmul(q, Q4<T>{f[j][3], f[j][4], f[j][5], f[j][6]});
+    pq[3] = q.w; pq[4] = q.x; pq[5] = q.y; pq[6] = q.z;
+  } else {
+    V3<T> Pt = {win[4], win[5], win[6]};
+    Q4<T> Pq = {win[0], win[1], win[2], win[3]};
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      se3_step(V3<T>{f[j][0], f[j][1], f[j][2]}, Q4<T>{f[j][3], f[j][4], f[j][5], f[j][6]},
+               Pt, Pq);
+    }
+    pq[0] = Pt.x; pq[1] = Pt.y; pq[2] = Pt.z;
+    pq[3] = Pq.w; pq[4] = Pq.x; pq[5] = Pq.y; pq[6] = Pq.z;
+  }
+}
+
+// Row m's residual from its windows' poses pq, times valid, into r_out [R].
+template <typename T, bool Atan, bool Lifting>
+KT_HD void cost_residual(const Inputs<T>& in, int m, const T (*pq)[7], T* r_out) {
+  constexpr int R = RowShape<Lifting>::R;
+  Row<T> row;
+  load_consts<T, Atan, Lifting>(in, m, row);
+  T zero[6], r[R];
+  for (int k = 0; k < 6; ++k) zero[k] = T(0);
+  const T zs = T(0);
+  residual_G<T, T, Atan, Lifting>(row, pq[0], pq[1], zero, zs, zs, r);
+  for (int rr = 0; rr < R; ++rr) r_out[rr] = r[rr] * row.valid;
+}
+
+// Residual only of row m (B3) into r_out [R]: each window's pairs and tail
+// in sequence, then the residual. The one-row-per-thread kernel's chain, and
+// the operation count's.
 template <typename T, bool Split, bool Atan, bool Lifting>
 KT_HD void cost_row(const Inputs<T>& in, int m, T* r_out) {
-  constexpr int R = RowShape<Lifting>::R;
-  Windows<T> w;
-  Row<T> row;
-  load_row<T, Split, Atan, Lifting>(in, m, w, row);
-  const bool r3_first = (in.flags & kCamR3First) != 0;
-  T zero[24], pq[2][7], r[R];
-  for (int k = 0; k < 24; ++k) zero[k] = T(0);
-  const T zs = T(0);
-  window_pq<T, Split, T>(w, 0, r3_first, zero, zs, pq[0]);
-  window_pq<T, Split, T>(w, 1, r3_first, zero, zs, pq[1]);
-  residual_G<T, T, Atan, Lifting>(row, pq[0], pq[1], zero, zs, zs, r);
-  for (int rr = 0; rr < R; ++rr) r_out[R * m + rr] = r[rr] * row.valid;
+  T pq[2][7];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    T f[3][7], B[3];
+    window_basis<T, Split>(in, i, m, B);
+#pragma unroll
+    for (int j = 1; j < 4; ++j) pair_factor<T, Split>(in, i, j, m, B[j - 1], f[j - 1]);
+    window_products<T, Split>(in, i, m, f, pq[i]);
+  }
+  cost_residual<T, Atan, Lifting>(in, m, pq, r_out);
+}
+
+// B3's lane kernel runs one row on kB3Group lanes, stage by stage:
+//   0. lanes 0-5: window lane / 3's knot pair lane % 3 + 1 and its factor;
+//   1. lanes 0-1: window lane's pose from knot 0 and its three factors;
+//   2. lane 0: the residual.
+constexpr int kB3Group = 8;                        // lanes a row
+constexpr int kB3LaneRows = kB1Threads / kB3Group;  // rows a block
+
+// What a B3 lane group hands on: each window's pair factors, then its pose.
+template <typename T>
+struct CostStages {
+  T f[2][3][7], pq[2][7];
+};
+
+// Lane `lane` of a row's group in stage `stage`, row m of in.
+template <typename T, bool Split, bool Atan, bool Lifting>
+KT_HD void cost_stage(int stage, int lane, const Inputs<T>& in, int m, CostStages<T>& st,
+                      T* r_out) {
+  if (stage == 0) {
+    if (lane < 6) {
+      const int i = lane / 3, j = lane % 3;
+      T B[3];
+      window_basis<T, Split>(in, i, m, B);
+      pair_factor<T, Split>(in, i, j + 1, m, j == 0 ? B[0] : j == 1 ? B[1] : B[2], st.f[i][j]);
+    }
+  } else if (stage == 1) {
+    if (lane < 2) window_products<T, Split>(in, lane, m, st.f[lane], st.pq[lane]);
+  } else if (lane == 0) {
+    cost_residual<T, Atan, Lifting>(in, m, st.pq, r_out);
+  }
 }
 
 #ifdef __CUDACC__
@@ -640,10 +781,70 @@ void launch_linearize(const Inputs<T>& in, T* r, T* J, T* J_rho, cudaStream_t st
   }
 }
 
+// B3 while its rows fit one wave of this kernel (launch_cost): kB3LaneRows
+// rows a block, each row on a group of kB3Group lanes (cost_stage), reading
+// its inputs as each stage needs them; registers capped at 80 (six blocks
+// an SM: config 4's 12,304 rows in one wave).
 template <typename T, bool Split, bool Atan, bool Lifting>
-__global__ void __launch_bounds__(128) cost_rows_kernel(Inputs<T> in, T* r) {
-  const int m = blockIdx.x * blockDim.x + threadIdx.x;
-  if (m < in.M) cost_row<T, Split, Atan, Lifting>(in, m, r);
+__global__ void __launch_bounds__(kB1Threads, 6) cost_rows_lane_kernel(Inputs<T> in, T* r) {
+  constexpr int R = RowShape<Lifting>::R;
+  __shared__ CostStages<T> stages[kB3LaneRows];
+  const int grp = threadIdx.x / kB3Group;
+  const int lane = threadIdx.x % kB3Group;
+  const int m = blockIdx.x * kB3LaneRows + grp;
+  for (int stage = 0; stage < 3; ++stage) {
+    if (m < in.M) cost_stage<T, Split, Atan, Lifting>(stage, lane, in, m, stages[grp], r + R * m);
+    __syncwarp();
+  }
+}
+
+constexpr int kB3Rows = 128;  // rows a block of the one-row-per-thread kernel
+
+// B3 beyond one wave of the lane kernel (config 5: 500,000 rows): one row
+// per thread (cost_row), reading its inputs as the chain needs them;
+// registers capped at 128 (four blocks an SM).
+template <typename T, bool Split, bool Atan, bool Lifting>
+__global__ void __launch_bounds__(kB3Rows, 4) cost_rows_thread_kernel(Inputs<T> in, T* r) {
+  constexpr int R = RowShape<Lifting>::R;
+  const int m = blockIdx.x * kB3Rows + threadIdx.x;
+  if (m < in.M) cost_row<T, Split, Atan, Lifting>(in, m, r + R * m);
+}
+
+// Rows B3's lane kernel holds on the card at once.
+template <typename T, bool Split, bool Atan, bool Lifting>
+int cost_lane_wave() {
+  static int wave = 0;
+  if (!wave) {
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, cost_rows_lane_kernel<T, Split, Atan, Lifting>, kB1Threads, 0);
+    wave = sms * (per_sm > 0 ? per_sm : 1) * kB3LaneRows;
+  }
+  return wave;
+}
+
+// B3 on the kernel that suits M: lane groups while all rows fit one wave of
+// them (a row's latency is one pair, one tail and the residual), one row
+// per thread beyond (a second wave of lane groups would cost more than the
+// thread kernel's whole chain).
+template <typename T, bool Split, bool Atan, bool Lifting>
+void launch_cost(const Inputs<T>& in, T* r, cudaStream_t st) {
+  if (in.M > cost_lane_wave<T, Split, Atan, Lifting>()) {
+    cost_rows_thread_kernel<T, Split, Atan, Lifting>
+        <<<(in.M + kB3Rows - 1) / kB3Rows, kB3Rows, 0, st>>>(in, r);
+  } else {
+    cost_rows_lane_kernel<T, Split, Atan, Lifting>
+        <<<(in.M + kB3LaneRows - 1) / kB3LaneRows, kB1Threads, 0, st>>>(in, r);
+  }
+}
+
+// The most rows B3 runs on its lane kernel, on the flags' window kind.
+template <typename T, bool Atan, bool Lifting>
+int cost_wave(int flags) {
+  return (flags & kCamSplit) ? cost_lane_wave<T, true, Atan, Lifting>()
+                             : cost_lane_wave<T, false, Atan, Lifting>();
 }
 
 // Launch B1 (J != nullptr) or B3 (J == nullptr) of one camera and row kind
@@ -652,16 +853,14 @@ template <typename T, bool Atan, bool Lifting>
 int launch_camera(const void* const* ins, void* r, void* J, void* J_rho, int M,
                   int flags, void* stream) {
   const Inputs<T> in = make_inputs<T>(ins, M, flags);
-  const int threads = 128;
-  const int blocks = (M + threads - 1) / threads;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   T* rp = static_cast<T*>(r);
   const bool split = (flags & kCamSplit) != 0;
   if (J == nullptr) {
     if (split) {
-      cost_rows_kernel<T, true, Atan, Lifting><<<blocks, threads, 0, st>>>(in, rp);
+      launch_cost<T, true, Atan, Lifting>(in, rp, st);
     } else {
-      cost_rows_kernel<T, false, Atan, Lifting><<<blocks, threads, 0, st>>>(in, rp);
+      launch_cost<T, false, Atan, Lifting>(in, rp, st);
     }
   } else if (split) {
     launch_linearize<T, true, Atan, Lifting>(in, rp, static_cast<T*>(J),

@@ -26,17 +26,12 @@
 //     r3_basis);
 //   - so3: the cumulative window chain on Jet<T, 1> seeded in s (first
 //     derivative only), the knot pairs' logs on plain scalars;
-//   - se3: B1's SE3 window chain (rowmath.cuh pq_se3 at zero increments)
-//     split by what depends on s: the knot pairs' relative transforms,
-//     so3_log and V^-1 on plain scalars (se3_pair), and only the tail on
-//     Taylor2<T> (jet.cuh) seeded in s, which carries the second derivative
-//     that a needs (se3_tail). In the tail b = B(u + s/dt) is the one
-//     Taylor2 factor of b omega and b upsilon, so V_apply's and
-//     so3_exp_quat's vector products are constant and only scalar
-//     functions of b run on Taylor2, with one sincos per angle
-//     (V_apply_exp). Carrying the knot-only part on Taylor2 too would
-//     triple its values and add every one of its transcendentals'
-//     derivatives, all exactly zero.
+//   - se3: the chain of window_chain.cuh, which B3 shares: the knot pairs'
+//     relative transforms, so3_log and V^-1 on plain scalars (se3_pair),
+//     and only the tail on Taylor2<T> (jet.cuh) seeded in s, which carries
+//     the second derivative that a needs (se3_tail). Carrying the
+//     knot-only part on Taylor2 too would triple its values and add every
+//     one of its transcendentals' derivatives, all exactly zero.
 // Memory: a block stages its [128, 4 D] windows (contiguous in the input)
 // and u in shared memory with 16-byte loads, consecutive threads on
 // consecutive addresses (stage_windows), at an odd stride per query so a
@@ -60,7 +55,7 @@
 // on the host), ~0.2 ms at 67 TFLOP/s, but f64 sin/cos/atan/sqrt are
 // long instruction sequences (each counted as one operation), so se3 is
 // bound by the arithmetic in practice and r3/so3 by bytes.
-#include "rowmath.cuh"
+#include "window_chain.cuh"
 
 namespace {
 
@@ -107,18 +102,12 @@ template <typename T>
 KT_HD void eval_so3_row(const T* win, T u, T dt, T* q_out, T* w_out) {
   using S = Jet<T, 1>;
   const S s = seeded<T, 1>(T(0), 0);
-  const S ue = u + s / dt;
-  const S u2 = ue * ue;
-  const S u3 = u2 * ue;
-  const S B[3] = {(T(5) + T(3) * ue - T(3) * u2 + u3) / T(6),
-                  (T(1) + T(3) * ue + T(3) * u2 - T(2) * u3) / T(6),
-                  u3 / T(6)};
+  S B[3];
+  cumulative_basis<T>(u + s / dt, B);
   Q4<S> q = {S(win[0]), S(win[1]), S(win[2]), S(win[3])};
 #pragma unroll
   for (int j = 1; j < 4; ++j) {
-    const Q4<T> qa = {win[4 * j - 4], win[4 * j - 3], win[4 * j - 2], win[4 * j - 1]};
-    const Q4<T> qb = {win[4 * j], win[4 * j + 1], win[4 * j + 2], win[4 * j + 3]};
-    const V3<T> w3 = logq_vec(qmul(qconj(qa), qb));
+    const V3<T> w3 = so3_pair<T>(win, 0, j);
     const S b = B[j - 1];
     q = qmul(q, expq_pure(V3<S>{b * w3.x, b * w3.y, b * w3.z}));
   }
@@ -126,71 +115,6 @@ KT_HD void eval_so3_row(const T* win, T u, T dt, T* q_out, T* w_out) {
   const Q4<T> dq = {q.w.v[0], q.x.v[0], q.y.v[0], q.z.v[0]};
   q_out[0] = qv.w; q_out[1] = qv.x; q_out[2] = qv.y; q_out[3] = qv.z;
   omega_from(qv, dq, w_out);
-}
-
-// sin and cos of x at once (one argument reduction on the card; the host's
-// operation counter takes them apart).
-template <typename T>
-KT_HD void kt_sincos(T x, T* s, T* c) {
-  *s = kt_sin(x);
-  *c = kt_cos(x);
-}
-KT_HD void kt_sincos(float x, float* s, float* c) {
-#ifdef __CUDA_ARCH__
-  sincosf(x, s, c);
-#else
-  *s = sinf(x);
-  *c = cosf(x);
-#endif
-}
-KT_HD void kt_sincos(double x, double* s, double* c) {
-#ifdef __CUDA_ARCH__
-  sincos(x, s, c);
-#else
-  *s = sin(x);
-  *c = cos(x);
-#endif
-}
-
-// V_apply(b omega, b upsilon) and so3_exp_quat(b omega) for a Taylor2
-// scalar b and constant omega, upsilon, by the formulas and guards of
-// rowmath.cuh with b taken out of the vectors: theta^2 = b^2 |omega|^2,
-// (b omega) x (b upsilon) = b^2 (omega x upsilon) and (b omega) x
-// ((b omega) x (b upsilon)) = b^3 (omega x (omega x upsilon)), whose
-// vectors do not depend on s, so only scalar functions of b run on Taylor2;
-// each angle's sin and cos are taken at once.
-template <typename T>
-KT_HD void V_apply_exp(const Taylor2<T>& b, const V3<T>& omega, const V3<T>& ups,
-                       V3<Taylor2<T>>& vu, Q4<Taylor2<T>>& e) {
-  using S = Taylor2<T>;
-  const S b2 = b * b;
-  const S theta2 = b2 * (omega.x * omega.x + omega.y * omega.y + omega.z * omega.z);
-  S a, c, k, w;
-  if (val(theta2) <= T(kEps3)) {
-    a = T(0.5) - theta2 / T(24);
-    c = T(1.0 / 6.0) - theta2 / T(120);
-    k = T(0.5) - theta2 / T(48);
-    w = T(1) - theta2 / T(8);
-  } else {
-    const S theta = kt_sqrt(theta2);
-    T st, ct;
-    kt_sincos(theta.a, &st, &ct);
-    const S sin_t = chain2(st, ct, -st, theta);
-    const S cos_t = chain2(ct, -st, -ct, theta);
-    a = (T(1) - cos_t) / theta2;
-    c = (theta - sin_t) / (theta2 * theta);
-    const S half = T(0.5) * theta;
-    T sh, ch;
-    kt_sincos(half.a, &sh, &ch);
-    k = chain2(sh, ch, -sh, half) / theta;
-    w = chain2(ch, -sh, -ch, half);
-  }
-  const V3<T> c1 = cross(omega, ups);
-  const V3<T> c2 = cross(omega, c1);
-  const S ab = a * b2, cb = c * (b2 * b), kb = k * b;
-  vu = {b * ups.x + ab * c1.x + cb * c2.x, b * ups.y + ab * c1.y + cb * c2.y,
-        b * ups.z + ab * c1.z + cb * c2.z};
-  e = {w, kb * omega.x, kb * omega.y, kb * omega.z};
 }
 
 // se3 query: win [4, 7] packed (q wxyz, t); o its p, v, a (3 each), q (4),
@@ -203,28 +127,11 @@ KT_HD void V_apply_exp(const Taylor2<T>& b, const V3<T>& omega, const V3<T>& ups
 // cumulative products. Same formulas and guards as pq_se3 (the tail's
 // vector products regrouped), so the outputs change by rounding only.
 template <typename T>
-KT_HD void se3_pair(const T* win, int j, V3<T>& omega, V3<T>& ups) {
-  const T* ka = win + 7 * (j - 1);
-  const T* kb = win + 7 * j;
-  const Q4<T> qi = qconj(Q4<T>{ka[0], ka[1], ka[2], ka[3]});
-  const V3<T> ti = qrotate(qi, V3<T>{ka[4], ka[5], ka[6]});
-  const Q4<T> q_rel = qmul(qi, Q4<T>{kb[0], kb[1], kb[2], kb[3]});
-  const V3<T> rt = qrotate(qi, V3<T>{kb[4], kb[5], kb[6]});
-  const V3<T> t_rel = {rt.x + -ti.x, rt.y + -ti.y, rt.z + -ti.z};
-  omega = so3_log(q_rel);
-  ups = Vinv_apply(omega, t_rel);
-}
-
-template <typename T>
 KT_HD void se3_tail(const T* win, T u, T dt, const V3<T>* omega, const V3<T>* ups, T* o) {
   using S = Taylor2<T>;
   const S s(T(0), T(1), T(0));
-  const S ue = u + s / dt;
-  const S u2 = ue * ue;
-  const S u3 = u2 * ue;
-  const S B[3] = {(T(5) + T(3) * ue - T(3) * u2 + u3) / T(6),
-                  (T(1) + T(3) * ue + T(3) * u2 - T(2) * u3) / T(6),
-                  u3 / T(6)};
+  S B[3];
+  cumulative_basis<T>(u + s / dt, B);
   Q4<S> Pq = {S(win[0]), S(win[1]), S(win[2]), S(win[3])};
   V3<S> Pt = {S(win[4]), S(win[5]), S(win[6])};
 #pragma unroll
@@ -232,9 +139,7 @@ KT_HD void se3_tail(const T* win, T u, T dt, const V3<T>* omega, const V3<T>* up
     V3<S> vu;
     Q4<S> e;
     V_apply_exp(B[j], omega[j], ups[j], vu, e);
-    const V3<S> rt2 = qrotate(Pq, vu);
-    Pt = {Pt.x + rt2.x, Pt.y + rt2.y, Pt.z + rt2.z};
-    Pq = qmul(Pq, e);
+    se3_step(vu, e, Pt, Pq);
   }
   const S pt[3] = {Pt.x, Pt.y, Pt.z};
 #pragma unroll

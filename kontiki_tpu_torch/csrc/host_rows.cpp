@@ -23,7 +23,7 @@
 // The count is per thread (thread_local), so callers may count chunks of
 // the rows in parallel threads and add the counts.
 // Built by kontiki_tpu_torch/ops/build.py build_host():
-//   c++ -std=c++17 -O2 -shared -fPIC -o libkontiki_host.so host_rows.cpp
+//   c++ -std=c++17 -O1 -shared -fPIC -o libkontiki_host.so host_rows.cpp
 #include <algorithm>
 #include <cmath>
 #include <vector>
@@ -168,10 +168,24 @@ struct HostLinearize {
   }
 };
 
+// B3's row code in its kernels' schedules: the one-row-per-thread kernel's
+// chain, or the lane kernel's stages, each row's lane group lane after lane.
 struct HostCost {
   template <bool Split, bool Atan, bool Lifting>
-  static void run(const Inputs<double>& in, double* r) {
-    for (int m = 0; m < in.M; ++m) cost_row<double, Split, Atan, Lifting>(in, m, r);
+  static void run(const Inputs<double>& in, double* r, int lanes) {
+    constexpr int R = RowShape<Lifting>::R;
+    for (int m = 0; m < in.M; ++m) {
+      if (!lanes) {
+        cost_row<double, Split, Atan, Lifting>(in, m, r + R * m);
+        continue;
+      }
+      CostStages<double> cs;
+      for (int stage = 0; stage < 3; ++stage) {
+        for (int lane = 0; lane < kB3Group; ++lane) {
+          cost_stage<double, Split, Atan, Lifting>(stage, lane, in, m, cs, r + R * m);
+        }
+      }
+    }
   }
 };
 
@@ -206,13 +220,16 @@ struct CountLinearize {
   }
 };
 
-// B3's operations: each row's primal chain once.
+// B3's operations: each row's chain once (its knot pairs, tails and
+// residual, in sequence as one thread runs them).
 struct CountCost {
   template <bool Split, bool Atan, bool Lifting>
   static long long run(const Inputs<Counted>& in) {
     std::vector<Counted> r(static_cast<size_t>(in.M) * RowShape<Lifting>::R);
     g_ops = 0;
-    for (int m = 0; m < in.M; ++m) cost_row<Counted, Split, Atan, Lifting>(in, m, r.data());
+    for (int m = 0; m < in.M; ++m) {
+      cost_row<Counted, Split, Atan, Lifting>(in, m, r.data() + RowShape<Lifting>::R * m);
+    }
     return g_ops;
   }
 };
@@ -299,11 +316,14 @@ void kontiki_host_assemble_schur_f64(const double* Jw, const int* cols, const do
   for (int t = 0; t < nv; ++t) reduce_head(ws.data(), blocks, P, Ph, t, H, g);
 }
 
-// B3 row code on double: ins and flags as for kontiki_cost_rows_f64.
-void kontiki_host_cost_rows_f64(const double* const* ins, double* r, int M, int flags) {
+// B3 row code on double: ins and flags as for kontiki_cost_rows_f64; lanes
+// = 0 runs the one-row-per-thread kernel's chain, 1 the lane kernel's
+// stages.
+void kontiki_host_cost_rows_f64(const double* const* ins, double* r, int M, int flags,
+                                int lanes) {
   const Inputs<double> in =
       make_inputs<double>(reinterpret_cast<const void* const*>(ins), M, flags);
-  camera_dispatch<HostCost>(flags, in, r);
+  camera_dispatch<HostCost>(flags, in, r, lanes);
 }
 
 // Operations of B1's function on these inputs.
@@ -348,11 +368,43 @@ long long kontiki_count_eval_windows(int kind, const double* win, const double* 
   return g_ops;
 }
 
-// B7 row code on double: knots [N, 3], ts [B]; p, v, a [B, 3].
+// B7 row code on double in its kernel's block schedule: knots [N, 3], ts
+// [B]; p, v, a [B, 3]. Each block of kR3Times times stages its knots when
+// they span at most kR3KnotsMax, and its outputs, each written from the
+// staged copy.
 void kontiki_host_r3_evaluate_f64(const double* knots, int N, double t0, double dt,
                                   const double* ts, double* p, double* v, double* a,
                                   int B) {
-  for (int b = 0; b < B; ++b) r3_evaluate_row<double>(knots, N, t0, dt, ts, b, p, v, a);
+  std::vector<double> sk(3 * kR3KnotsMax), so(3 * kR3Times);
+  double* outs[3] = {p, v, a};
+  for (int b0 = 0; b0 < B; b0 += kR3Times) {
+    const int n = std::min(kR3Times, B - b0);
+    std::vector<int> i0(n);
+    std::vector<double> u(n);
+    int lo = N, hi = -1;
+    for (int j = 0; j < n; ++j) {
+      i0[j] = r3_index(ts[b0 + j], N, t0, dt, &u[j]);
+      lo = std::min(lo, i0[j]);
+      hi = std::max(hi, i0[j]);
+    }
+    const bool staged = hi - lo + 4 <= kR3KnotsMax;
+    if (staged) std::copy(knots + 3 * lo, knots + 3 * (hi + 4), sk.begin());
+    const double* kb = staged ? sk.data() : knots;
+    const int base = staged ? lo : 0;
+    std::vector<double> o(9 * static_cast<size_t>(n));
+    for (int t = 0; t < kR3Threads; ++t) {
+      for (int q = 0; q < kR3PerThread; ++q) {
+        const int j = t * kR3PerThread + q;
+        if (j < n) r3_values(kb + 3 * (i0[j] - base), u[j], dt, &o[9 * j]);
+      }
+    }
+    for (int c = 0; c < 3; ++c) {
+      for (int j = 0; j < n; ++j) {
+        for (int k = 0; k < 3; ++k) so[3 * j + k] = o[9 * j + 3 * c + k];
+      }
+      std::copy(so.begin(), so.begin() + 3 * n, outs[c] + 3 * static_cast<size_t>(b0));
+    }
+  }
 }
 
 // Operations of B7's function on these times: each time once.
@@ -360,12 +412,11 @@ long long kontiki_count_r3_evaluate(const double* knots, int N, double t0, doubl
                                     const double* ts, int B) {
   std::vector<Counted> k(static_cast<size_t>(N) * 3);
   for (size_t i = 0; i < k.size(); ++i) k[i] = Counted::value(knots[i]);
-  Counted p[3], v[3], a[3];
+  Counted o[9];
   g_ops = 0;
   for (int b = 0; b < B; ++b) {
-    const Counted t = Counted::value(ts[b]);
-    r3_evaluate_row<Counted>(k.data(), N, Counted::value(t0), Counted::value(dt), &t, 0,
-                             p, v, a);
+    r3_time<Counted>(k.data(), N, Counted::value(t0), Counted::value(dt),
+                     Counted::value(ts[b]), o);
   }
   return g_ops;
 }

@@ -305,6 +305,10 @@ KT_HD Taylor2<T> chain2(T fa, T f1, T f2, const Taylor2<T>& x) {
   return {fa, f1 * x.d, f2 * (x.d * x.d) + f1 * x.e};
 }
 
+// the same for a plain scalar x: the value
+template <typename T>
+KT_HD T chain2(T fa, T, T, T) { return fa; }
+
 template <typename T>
 KT_HD Taylor2<T> kt_sqrt(const Taylor2<T>& x) {
   const T r = kt_sqrt(x.a);

@@ -10,6 +10,8 @@ extern "C" int kontiki_camera_atan_f32(const void* const* ins, void* r, void* J,
                                        void* J_rho, int M, int flags, void* stream);
 extern "C" int kontiki_camera_atan_f64(const void* const* ins, void* r, void* J,
                                        void* J_rho, int M, int flags, void* stream);
+extern "C" int kontiki_camera_atan_wave_f32(int flags);
+extern "C" int kontiki_camera_atan_wave_f64(int flags);
 
 namespace {
 
@@ -22,11 +24,18 @@ int launch_pinhole(const void* const* ins, void* r, void* J, void* J_rho, int M,
   return launch_camera<T, false, false>(ins, r, J, J_rho, M, flags, stream);
 }
 
+template <typename T>
+int pinhole_wave(int flags) {
+  return (flags & kCamLifting) ? cost_wave<T, false, true>(flags)
+                               : cost_wave<T, false, false>(flags);
+}
+
 }  // namespace
 
 // ins: kCameraSlots (23) pointers in the order of Inputs; flags: kCamSplit |
 // kCamR3First | kCamAtan | kCamLifting. r [M, R], J [M, R, C], J_rho [M, R]
-// with R, C of the rows' kind (RowShape).
+// with R, C of the rows' kind (RowShape). kontiki_cost_rows_wave: the most
+// rows B3 runs on its lane kernel (more take its one-row-per-thread kernel).
 #define KT_CAMERA_ENTRIES(SUFFIX, T)                                            \
   extern "C" int kontiki_linearize_rows##SUFFIX(const void* const* ins, void* r, \
                                                void* J, void* J_rho, int M,     \
@@ -43,6 +52,10 @@ int launch_pinhole(const void* const* ins, void* r, void* J, void* J_rho, int M,
                                          stream);                               \
     }                                                                           \
     return launch_pinhole<T>(ins, r, nullptr, nullptr, M, flags, stream);       \
+  }                                                                             \
+  extern "C" int kontiki_cost_rows_wave##SUFFIX(int flags) {                    \
+    return (flags & kCamAtan) ? kontiki_camera_atan_wave##SUFFIX(flags)         \
+                              : pinhole_wave<T>(flags);                         \
   }
 
 KT_CAMERA_ENTRIES(_f32, float)

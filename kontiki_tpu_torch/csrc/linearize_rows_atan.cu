@@ -15,6 +15,12 @@ int launch_atan(const void* const* ins, void* r, void* J, void* J_rho, int M,
   return launch_camera<T, true, false>(ins, r, J, J_rho, M, flags, stream);
 }
 
+template <typename T>
+int atan_wave(int flags) {
+  return (flags & kCamLifting) ? cost_wave<T, true, true>(flags)
+                               : cost_wave<T, true, false>(flags);
+}
+
 }  // namespace
 
 // As kontiki_linearize_rows_*, J == nullptr launching B3.
@@ -27,3 +33,8 @@ extern "C" int kontiki_camera_atan_f64(const void* const* ins, void* r, void* J,
                                        void* J_rho, int M, int flags, void* stream) {
   return launch_atan<double>(ins, r, J, J_rho, M, flags, stream);
 }
+
+// As kontiki_cost_rows_wave_*, on the atan camera.
+extern "C" int kontiki_camera_atan_wave_f32(int flags) { return atan_wave<float>(flags); }
+
+extern "C" int kontiki_camera_atan_wave_f64(int flags) { return atan_wave<double>(flags); }

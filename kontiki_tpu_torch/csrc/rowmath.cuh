@@ -163,7 +163,7 @@ KT_HD void se3_knot(const T* win, int j, const D& delta, Q4<S>& kq, V3<S>& kt) {
 // Cumulative SE3 window (p, q) at u + s/dt with right increments on the 4
 // knots (se3_knot). Lazy increments each knot when the chain reaches it, so
 // two are held at a time (B1's wide jets need that to fit their registers);
-// otherwise all four come first (B3's and B5's chains run faster so).
+// otherwise all four come first (B1's primal stage).
 template <typename T, typename S, typename D, bool Lazy = false>
 KT_HD void pq_se3(const T* win, T u, T dt, const D& delta, const S& s, S* out) {
   Q4<S> kq[4];

@@ -38,20 +38,24 @@ _D = ctypes.c_double
 _ENTRIES = {
     "kontiki_linearize_rows": [_P, _P, _P, _P, _I, _I, _P],
     "kontiki_cost_rows": [_P, _P, _I, _I, _P],
+    "kontiki_cost_rows_wave": [_I],
     "kontiki_assemble_schur": [_P] * 10 + [_I] * 6 + [_P, _P],
     "kontiki_imu_rows": [_P] * 10 + [_P, _P, _I, _I, _P],
     "kontiki_eval_windows": [_I, _P, _P, _D, _P, _I, _P],
     "kontiki_r3_evaluate": [_P, _I, _D, _D, _P, _P, _P, _P, _I, _P],
     "kontiki_onehot_expand": [_P, _P, _P, _I, _I, _I, _I, _P],
 }
-HOST_FLAGS = ("-std=c++17", "-O2", "-shared", "-fPIC")
+#: -O1: the row code runs as fast as at -O2 (the checks and operation counts
+#: are bound by the counting scalar's bookkeeping) and compiles in ~60% of
+#: the time, which the test workers that need the library wait for
+HOST_FLAGS = ("-std=c++17", "-O1", "-shared", "-fPIC")
 #: host entry points: name -> (argument types, return type)
 _HOST_ENTRIES = {
     "kontiki_host_imu_rows_f64": ([_P, _P, _P, _I, _I, _I], None),
     "kontiki_count_imu_rows": ([_P, _I, _I], ctypes.c_longlong),
     "kontiki_host_linearize_rows_f64": ([_P, _P, _P, _P, _I, _I, _I], None),
     "kontiki_count_linearize_rows": ([_P, _I, _I], ctypes.c_longlong),
-    "kontiki_host_cost_rows_f64": ([_P, _P, _I, _I], None),
+    "kontiki_host_cost_rows_f64": ([_P, _P, _I, _I, _I], None),
     "kontiki_count_cost_rows": ([_P, _I, _I], ctypes.c_longlong),
     "kontiki_host_eval_windows_f64": ([_I, _P, _P, _D, _P, _I], None),
     "kontiki_count_eval_windows": ([_I, _P, _P, _D, _I], ctypes.c_longlong),
@@ -173,11 +177,14 @@ def load_library():
 
 def bind_library(path):
     """Load a library of the kernels' C entry points from ``path`` and set
-    the ``argtypes``/``restype`` of every ``_f32``/``_f64`` entry."""
+    the ``argtypes``/``restype`` of every ``_f32``/``_f64`` entry it has (a
+    library built from an older checkout's sources may lack newer ones)."""
     lib = ctypes.CDLL(str(path))
     for name, argtypes in _ENTRIES.items():
         for suffix in ("_f32", "_f64"):
-            fn = getattr(lib, name + suffix)
+            fn = getattr(lib, name + suffix, None)
+            if fn is None:
+                continue
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
     for suffix in ("_f32", "_f64"):
@@ -190,9 +197,16 @@ def bind_library(path):
 @functools.lru_cache(maxsize=None)
 def load_host_library():
     """Build (if needed) and load ``csrc/host_rows.cpp``'s library."""
-    lib = ctypes.CDLL(str(build_host()))
+    return bind_host_library(build_host())
+
+
+def bind_host_library(path):
+    """Load a library of the host row code from ``path`` and bind the
+    entries it has, as ``bind_library`` does."""
+    lib = ctypes.CDLL(str(path))
     for name, (argtypes, restype) in _HOST_ENTRIES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = restype
+        fn = getattr(lib, name, None)
+        if fn is not None:
+            fn.argtypes = argtypes
+            fn.restype = restype
     return lib

@@ -556,7 +556,9 @@ linearize_rows.split_launches = 0
 def cost_rows(cfg, ins):
     """B3: the camera rows' residuals ``r [M, rdim]`` only (see
     ``cost_rows_plain``), from the inputs of ``linearize_rows``. CPU
-    tensors run the plain version, CUDA tensors the hand-written kernel."""
+    tensors run the plain version, CUDA tensors the hand-written kernel
+    (lane groups up to ``cost_rows_wave`` rows, one row per thread
+    beyond)."""
     M = _check_camera_inputs("cost_rows", cfg, ins)
     x = ins["u_ref"]
     if x.device.type == "cpu":
@@ -575,6 +577,17 @@ def cost_rows(cfg, ins):
 #: per branch (``camera_branch``)
 cost_rows.launches = 0
 cost_rows.branch_launches = {}
+
+
+def cost_rows_wave(cfg, dtype=torch.float64):
+    """The most rows B3 runs on its lane kernel on the current card (one
+    wave of it), for ``cfg``'s branch; more rows take its one-row-per-thread
+    kernel."""
+    from .build import load_library
+
+    fn = getattr(load_library(), "kontiki_cost_rows_wave"
+                 + ("_f64" if dtype == torch.float64 else "_f32"))
+    return fn(_camera_flags(cfg))
 
 
 # ---------------------------------------------------------------------------
@@ -961,14 +974,18 @@ def linearize_rows_host(cfg, ins, wide=False, lanes=False):
     return r, J, J_rho
 
 
-def cost_rows_host(cfg, ins):
-    """B3's CUDA row code compiled for the host, in float64."""
+def cost_rows_host(cfg, ins, lanes=False):
+    """B3's CUDA row code compiled for the host, in float64, in the
+    schedule of its one-row-per-thread kernel or, ``lanes``, of its lane
+    kernel (each row's lane group one lane after another, stage by
+    stage)."""
     from .build import load_host_library
 
     M = _check_camera_inputs("cost_rows", cfg, ins)
     keep, ptrs = _host_args(camera_inputs(cfg), ins)
     r = torch.zeros(M, camera_shape(cfg)[0], dtype=torch.float64)
-    load_host_library().kontiki_host_cost_rows_f64(ptrs, r.data_ptr(), M, _camera_flags(cfg))
+    load_host_library().kontiki_host_cost_rows_f64(ptrs, r.data_ptr(), M, _camera_flags(cfg),
+                                                   int(lanes))
     return r
 
 
@@ -984,7 +1001,8 @@ def linearize_rows_ops(cfg, ins):
 
 def cost_rows_ops(cfg, ins):
     """Floating-point operations B3's function needs on ``ins``: each row's
-    primal chain once, counted as ``imu_rows_ops`` counts B4's."""
+    chain once (knot pairs, tails, residual), counted as ``imu_rows_ops``
+    counts B4's."""
     from .build import load_host_library
 
     M = _check_camera_inputs("cost_rows", cfg, ins)

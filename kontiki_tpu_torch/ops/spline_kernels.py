@@ -39,8 +39,8 @@ def r3_evaluate_kernel(knots, t0, dt, ts):
     R3 spline with knots [N, 3] (N >= 4) starting at ``t0`` with spacing
     ``dt``, at times ts [B] in any order -> (p, v, a), each [B, 3], with
     ``spline_eval.r3_evaluate``'s clamped window rule. CPU tensors run the
-    plain version, CUDA tensors the hand-written kernel (one thread per
-    time, no sort, any span); B = 0 launches nothing."""
+    plain version, CUDA tensors the hand-written kernel (four times a
+    thread, no sort, any span); B = 0 launches nothing."""
     N, B = _check(knots, ts)
     if knots.device.type == "cpu":
         return r3_evaluate_plain(knots, t0, dt, ts)
@@ -69,7 +69,9 @@ r3_evaluate_kernel.launches = 0
 
 
 def r3_evaluate_host(knots, t0, dt, ts):
-    """B7's CUDA row code compiled for the host, in float64 (CPU tensors)."""
+    """B7's CUDA row code compiled for the host, in float64 (CPU tensors),
+    in its kernel's block schedule: knots staged when a block's times span
+    few, outputs written from a staged copy."""
     from .build import load_host_library
 
     N, B = _check(knots, ts)

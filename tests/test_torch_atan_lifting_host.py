@@ -4,7 +4,8 @@
 1e-12 relative to max |plain| per output, on every window x camera x rows
 branch: the seed chunks (a lifting row's 22nd seed in a fourth chunk),
 the one full-width jet per row that B1's operation count runs (``wide``),
-B1's kernel schedule lane after lane (``lanes``), B3's scalar chain, with and without ``valid``; and the
+B1's kernel schedule lane after lane (``lanes``), B3's chain in both its
+kernels' schedules, with and without ``valid``; and the
 operation counts the bounds use. The rows are those of a small atan
 lifting problem on each window kind (split on distinct R3/SO3 grids), with
 the atan or lifting inputs dropped for the other branches."""
@@ -65,6 +66,17 @@ def test_lane_schedule_matches_plain(host_library, rows, branch):
     for inputs in (ins, _valid(ins)):
         _assert_close(tlk.linearize_rows_host(cfg, inputs, lanes=True),
                       tlk.linearize_rows_plain(cfg, inputs))
+
+
+@pytest.mark.parametrize("branch", BRANCHES)
+def test_b3_lane_schedule_matches_plain(host_library, rows, branch):
+    """B3's lane kernel schedule (a row's knot pairs on six lanes, the two
+    windows' products on two, the residual on one), run lane after lane:
+    with and without ``valid``."""
+    cfg, ins = rows[branch]
+    for inputs in (ins, _valid(ins)):
+        _assert_close([tlk.cost_rows_host(cfg, inputs, lanes=True)],
+                      [tlk.cost_rows_plain(cfg, inputs)])
 
 
 @pytest.mark.parametrize("kind", ["se3", "split"])

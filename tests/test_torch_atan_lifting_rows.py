@@ -31,6 +31,8 @@ from kontiki_tpu.solver import kernels as jk
 from kontiki_tpu_torch.ops import linearize_kernels as tlk
 from kontiki_tpu_torch.solver import kernels as tk
 from kontiki_tpu_torch.synthetic import make_rsvi_problem
+from test_torch_camera_host import _assert_close as _assert_host_close
+from test_torch_camera_host import host_library  # noqa: F401
 from test_torch_split_camera import twin_pair
 
 torch.set_num_threads(1)
@@ -64,6 +66,7 @@ def atan_lifting_pair(trajectory, rs="lifting", camera_kind="atan"):
     return twin_pair(gen["trajectory"], gen["measurements"])
 
 
+@functools.lru_cache(maxsize=None)
 def branch_rows(trajectory):
     """Per branch: the JAX package's and the port's (cfg, ins) on the
     atan lifting problem's rows, without the inputs the branch lacks."""
@@ -83,12 +86,19 @@ def branch_rows(trajectory):
     return pair, cfg, ins, tcfg, tins, out
 
 
+@functools.lru_cache(maxsize=None)
+def jax_cost(trajectory, branch):
+    """The JAX package's B3 (its tile, eagerly) on one branch's rows."""
+    cfg, ins, _, _ = branch_rows(trajectory)[5][branch]
+    return np.asarray(jlk.cost_rows(cfg, ins, backend="xla"))
+
+
 @pytest.fixture(scope="module", params=["split", "se3"])
 def rows(request):
     return request.param, branch_rows(request.param)
 
 
-def check_camera(branches, camera):
+def check_camera(kind, branches, camera):
     """B1 and B3 plain on one camera's static and lifting branches against
     the JAX package's tile (B1 static: the lifting tile's slice)."""
     cfg, ins, tcfg, tins = branches[f"{camera} lifting"]
@@ -101,8 +111,8 @@ def check_camera(branches, camera):
         sliced = (want[0][:, :rdim], want[1][:, :rdim, :C], want[2][:, :rdim])
         for name, g, w in zip(("r", "J", "J_rho"), got, sliced):
             _close(g.numpy(), w, f"{rows} {name}")
-        _close(tlk.cost_rows_plain(tcfg, tins).numpy(),
-               jlk.cost_rows(cfg, ins, backend="xla"), f"{rows} B3 r")
+        _close(tlk.cost_rows_plain(tcfg, tins).numpy(), jax_cost(kind, f"{camera} {rows}"),
+               f"{rows} B3 r")
 
 
 def test_gather_matches_jax(rows):
@@ -120,7 +130,24 @@ def test_gather_matches_jax(rows):
 
 @pytest.mark.parametrize("camera", ["atan", "pinhole"])
 def test_plain_rows_match_jax(rows, camera):
-    check_camera(rows[1][5], camera)
+    check_camera(rows[0], rows[1][5], camera)
+
+
+@pytest.mark.parametrize("camera", ["atan", "pinhole"])
+def test_b3_host_schedules_match_jax(host_library, rows, camera):
+    """B3's CUDA row code built for the host (``cost_rows_host``) in both
+    its kernels' schedules, on one camera's static and lifting branches:
+    against the JAX package's tile (RTOL) and the plain version (1e-12,
+    ``test_torch_camera_host.py``'s gate)."""
+    kind, branches = rows[0], rows[1][5]
+    for rs in ("static", "lifting"):
+        _, _, tcfg, tins = branches[f"{camera} {rs}"]
+        want = jax_cost(kind, f"{camera} {rs}")
+        plain = tlk.cost_rows_plain(tcfg, tins)
+        for lanes in (False, True):
+            got = tlk.cost_rows_host(tcfg, tins, lanes=lanes)
+            _close(got.numpy(), want, f"{rs} lanes={lanes}")
+            _assert_host_close([got], [plain])
 
 
 def test_lifting_columns_match_jax(rows):

@@ -2,8 +2,8 @@
 and split branches and B3), compiled for the host with a plain C++ compiler
 (``csrc/host_rows.cpp``), against the plain PyTorch versions in float64, at
 1e-12 relative to max |plain| per output: the seed chunks, the one
-full-width jet per row that B1's operation count runs, and B3's scalar
-chain, with and without ``valid``. The split rows come from R3 and SO3
+full-width jet per row that B1's operation count runs, and B3's chain in
+both its kernels' schedules, with and without ``valid``. The split rows come from R3 and SO3
 splines on distinct grids, in both spline orders.
 
 Also B2's block accumulation (``csrc/assemble_schur.cu``, shared by its
@@ -97,6 +97,18 @@ def test_b3_row_code_matches_plain(host_library, rows, kind, with_valid):
     _assert_close([tlk.cost_rows_host(cfg, ins)], [want])
     if with_valid:
         assert torch.all(want[ins["valid"][0] == 0] == 0)
+
+
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("with_valid", [False, True])
+def test_b3_lane_schedule_matches_plain(host_library, rows, kind, with_valid):
+    """B3's row code in its lane kernel's schedule (a row's knot pairs on
+    six lanes, its windows' products on two, the residual on one), lane
+    after lane."""
+    cfg, ins = rows[kind]
+    if with_valid:
+        ins = _valid(ins)
+    _assert_close([tlk.cost_rows_host(cfg, ins, lanes=True)], [tlk.cost_rows_plain(cfg, ins)])
 
 
 def test_b1_valid_zeroes_rows(host_library, rows):

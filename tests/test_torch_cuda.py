@@ -472,6 +472,49 @@ def test_camera_branch_kernels_match_plain(branch_rows, branch, dtype, tol):
         _assert_close((lk.cost_rows(cfg, x),), (lk.linearize_rows(cfg, x)[0],), 1e-12)
 
 
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-10), (torch.float32, 1e-4)])
+@pytest.mark.parametrize("rows", ["M1", "M7", "M129", "wave-1", "wave+1"])
+@pytest.mark.parametrize("branch", ["se3 pinhole static", "split pinhole static",
+                                    "split atan lifting"])
+def test_cost_rows_ragged_rows(cuda, branch_rows, branch, rows, dtype, tol):
+    """B3 on M = 1, 7 and 129 rows and on one wave of its lane kernel less
+    and plus one row (the lane kernel's and the one-row-per-thread kernel's
+    ragged last blocks), the branch's rows repeated to length, every third
+    row at valid = 0 (exactly zero there); in float64 also against B1's
+    residual (1e-12)."""
+    cfg, ins = branch_rows[branch]
+    wave = lk.cost_rows_wave(cfg, dtype)
+    M = {"M1": 1, "M7": 7, "M129": 129, "wave-1": wave - 1, "wave+1": wave + 1}[rows]
+    reps = -(-M // ins["u_ref"].shape[1])
+    x = {k: v.repeat(1, reps)[:, :M].to(dtype).contiguous() for k, v in ins.items()}
+    x["valid"] = (torch.arange(M, device=cuda) % 3 != 1).to(dtype)[None, :]
+    before = lk.cost_rows.launches
+    r = lk.cost_rows(cfg, x)
+    assert lk.cost_rows.launches == before + 1 and r.shape == (M, lk.camera_shape(cfg)[0])
+    _assert_close((r,), (lk.cost_rows_plain(cfg, x),), tol)
+    assert torch.all(r[x["valid"][0] == 0] == 0)
+    if dtype == torch.float64:
+        _assert_close((r,), (lk.linearize_rows(cfg, x)[0],), 1e-12)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12), (torch.float32, 1e-4)])
+@pytest.mark.parametrize("B", [1, 255, 257, 1023, 1025, 4099])
+@pytest.mark.parametrize("N", [4, 40])
+def test_r3_evaluate_kernel_edges(cuda, N, B, dtype, tol):
+    """B7 on batch sizes about a block of 1,024 times, on a spline of one
+    window (N = 4) and of 40 knots, at sorted times from before t0 to past
+    the last window's end (the clamped windows), then the same times
+    shuffled."""
+    rng = np.random.default_rng(100 * N + B)
+    t0, dt = 0.3, 0.25
+    ts = np.sort(rng.uniform(t0 - 2 * dt, t0 + N * dt, B))
+    knots = torch.tensor(rng.normal(size=(N, 3)), dtype=dtype, device=cuda)
+    for order in (ts, rng.permutation(ts)):
+        t = torch.tensor(order, dtype=dtype, device=cuda)
+        _assert_close(sk.r3_evaluate_kernel(knots, t0, dt, t),
+                      sk.r3_evaluate_plain(knots, t0, dt, t), tol)
+
+
 def test_atan_lifting_solve_on_cuda_matches_cpu(cuda):
     """The fused Schur solve of an atan lifting problem on the card equals
     the CPU run; the row times stay in [0, 1]."""

@@ -9,7 +9,8 @@
   mode on one 256-time chunk (1e-12) and against scipy's ``BSpline`` in
   unsorted order (the JAX test's 1e-9 / 1e-8 / 1e-7), B7's host row code at
   1e-12 on shuffled times and on a span wider than the TPU kernel's
-  512-knot slice;
+  512-knot slice, and against the JAX ``spline_eval.r3_evaluate`` at 1e-12
+  about its kernel's blocks (sorted, shuffled, clamped ends, one window);
 - every trajectory kind's queries, ``from_world``/``to_world``, SE3
   ``evaluate``, ``extend_to``, ``__setitem__`` and the range errors against
   JAX objects holding the same knots (``interop.trajectory_from_numpy``),
@@ -32,6 +33,7 @@ from kontiki_tpu import synthetic as jsyn
 from kontiki_tpu import utils as jutils
 from kontiki_tpu.ops import r3_evaluate_pallas
 from kontiki_tpu.ops.linearize_kernels import evaluate_windows as jax_evaluate_windows
+from kontiki_tpu.trajectories import spline_eval as jax_spline_eval
 from kontiki_tpu.trajectories import (
     SplitTrajectory as JSplit,
     UniformR3SplineTrajectory as JR3,
@@ -174,6 +176,33 @@ def test_r3_evaluate_host_matches_plain(host_library, order):
     for g, w in zip(got, want):
         np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=TOL, atol=TOL)
     assert sk.r3_evaluate_ops(knots, 0.0, 1.0, ts) > 0
+
+
+@pytest.mark.parametrize("case,B", [("sorted", 1025), ("shuffled", 1025), ("ends", 1023),
+                                    ("one window", 257)])
+def test_r3_evaluate_host_matches_jax(host_library, case, B):
+    """B7's host row code in its kernel's block schedule (1,024 times a
+    block: knots staged when a block's times span few, outputs through a
+    staged copy) against the JAX package's ``spline_eval.r3_evaluate``
+    (1e-12): sorted times (each block's knots staged), the same shuffled
+    (read in place), times before t0 and past the last window (the clamp),
+    a spline of one window (N = 4); batches one past a block and one
+    short of it."""
+    rng = np.random.default_rng(B)
+    n = 4 if case == "one window" else 300
+    t0, dt = -0.4, 0.05
+    knots = rng.normal(size=(n, 3))
+    if case == "ends":
+        ts = np.sort(rng.uniform(t0 - 3 * dt, t0 + (n + 2) * dt, B))
+    else:
+        ts = np.sort(rng.uniform(t0, t0 + (n - 3) * dt - 1e-9, B))
+    if case == "shuffled":
+        ts = rng.permutation(ts)
+    got = sk.r3_evaluate_host(torch.tensor(knots), t0, dt, torch.tensor(ts))
+    want = jax_spline_eval.r3_evaluate(jnp.asarray(knots), t0, dt, jnp.asarray(ts))
+    for g, w in zip(got, want):
+        w = np.asarray(w)
+        np.testing.assert_allclose(g.numpy(), w, rtol=TOL, atol=TOL * np.abs(w).max())
 
 
 def test_r3_evaluate_kernel_edges():

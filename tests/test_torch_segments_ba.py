@@ -21,6 +21,8 @@ landmarks, 4 observations each, seed 11; ``tests/test_segments_ba.py``):
 ``tests/test_torch_segments_ba_imu.py`` repeats the step and the solve with
 gyro and accel rows at 50 Hz.
 """
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -45,7 +47,10 @@ LAY_SCALARS = ("nk", "nk_pad", "seg", "Hl", "Hr", "n", "Lb", "L", "t0", "dt", "P
 LAY_ARRAYS = ("lid_to_padded", "mask_l", "mask_sen", "lid_of_slot", "smask")
 
 
+@functools.lru_cache(maxsize=None)
 def _pair(imu_rate):
+    """Both packages' problems at SIZE, built once per rate (the tests only
+    read them)."""
     kw = dict(SIZE, imu_rate=imu_rate)
     return jax_make(**kw)["problem"], make_big_ba_problem(device="cpu", **kw)["problem"]
 

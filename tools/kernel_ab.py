@@ -18,6 +18,13 @@ variant (its C entry points must be this checkout's). Cases:
   and the host's microseconds to enqueue one call;
 - ``b5``: B5 (``evaluate_windows``) at ``chip_smoke.py``'s 4.8 M read-back
   row times, in frame order and shuffled, each kind, float64: ms per call;
+- ``b3``: B3 (``cost_rows``) at every size the main path runs it (configs
+  3-atan and 3-atan-lifting's 3,837 rows, config 3's 6,091, config 4's
+  12,304, config 5's 500,000), float64: ms per launch on the card, ms per
+  call and the host's microseconds to enqueue one call, as ``b4``;
+- ``b7``: B7 (``r3_evaluate_kernel``) at ``chip_smoke.py``'s 4.8 M
+  read-back row times, in frame order and shuffled, float64: ms per launch
+  on the card (a CUDA graph of 10 launches) and per call;
 - ``rates``: configs 1 and 2's 25-iteration fused solves (``chip_smoke``'s
   timed solve), it/s on the host clock, five after a warm-up each round.
 
@@ -25,7 +32,10 @@ A round runs the variants in order, the next round in reverse (A B, B A,
 ...). Prints the card's name and power limit, each variant's ``ptxas``
 registers and spill, its largest normwise error against the plain version
 (b4, b5), every number of every round, and per variant the median and
-quartiles over rounds. Needs a CUDA card and ``nvcc``; run from anywhere:
+quartiles over rounds; for b3 and b7 also the operations of the bound as
+each variant's own host row code (its ``host_rows.cpp``, built beside
+its kernels) counts them. Needs a CUDA card and ``nvcc``; run from
+anywhere:
 
     python3 tools/kernel_ab.py --case b5 --rounds 10 \\
         --variant shared=kontiki_tpu_torch/csrc \\
@@ -47,9 +57,14 @@ import chip_smoke as cs  # noqa: E402
 from kontiki_tpu_torch.ops import build  # noqa: E402
 
 
+#: {library: the same variant's host row code (csrc/host_rows.cpp)}
+HOSTS = {}
+
+
 def build_variants(specs):
     """{name: library} of each ``NAME=CSRC[:DEFINES]``, compiled in parallel
-    (kept under a hash of the sources and flags, and reused)."""
+    (kept under a hash of the sources and flags, and reused), each with its
+    host row code beside it (``HOSTS``) for the operation counts."""
     jobs = {}
     for spec in specs:
         name, _, rest = spec.partition("=")
@@ -66,6 +81,12 @@ def build_variants(specs):
                                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                            text=True))
                      for cu in srcs if cu.suffix == ".cu"]
+            host = Path(csrc).resolve() / "host_rows.cpp"
+            cxx = [build.shutil.which("c++") or "g++", *build.HOST_FLAGS,
+                   *(f"-D{d}" for d in defines.split(",") if d), str(host), "-o",
+                   str(out / "host.so")]
+            procs.append((host, subprocess.Popen(cxx, stdout=subprocess.PIPE,
+                                                 stderr=subprocess.STDOUT, text=True)))
         jobs[name] = (out, procs)
     libs = {}
     for name, (out, procs) in jobs.items():
@@ -83,11 +104,13 @@ def build_variants(specs):
             print(f"ptxas {name} {kernel}: {regs} registers, {spill} bytes spill stores",
                   flush=True)
         libs[name] = build.bind_library(out / "lib.so")
+        HOSTS[libs[name]] = build.bind_host_library(out / "host.so")
     return libs
 
 
 def use(lib):
     build.load_library = lambda: lib
+    build.load_host_library = lambda: HOSTS[lib]
 
 
 def host_us(fn, reps=200):
@@ -129,11 +152,8 @@ def case_b4():
                                     [want] if cost_only else want)
 
                 cases[f"{name} {b.kind} {form}"] = (fn, err)
-    measures = {"ms per launch": lambda fn: cs.graph_ms(fn),
-                "ms per call": lambda fn: cs.cuda_ms(fn),
-                "host us per call": host_us}
-    return {f"{c} {m}": (lambda fn=fn, f=f: f(fn)) for c, (fn, _) in cases.items()
-            for m, f in measures.items()}, {c: err for c, (_, err) in cases.items()}
+    return ({f"{c} {m}": f for c, (fn, _) in cases.items() for m, f in timed(fn).items()},
+            {c: err for c, (_, err) in cases.items()})
 
 
 def case_b5():
@@ -160,6 +180,60 @@ def case_b5():
 
             times[f"{kind} {order} ms per call"] = lambda fn=fn: cs.cuda_ms(fn)
             errs[f"{kind} {order}"] = err
+    return times, errs
+
+
+def timed(fn):
+    """The three measures of ``b3`` and ``b4``: per launch on the card, per
+    call, the host's enqueue."""
+    return {"ms per launch": lambda: cs.graph_ms(fn), "ms per call": lambda: cs.cuda_ms(fn),
+            "host us per call": lambda: host_us(fn)}
+
+
+def case_b3():
+    from kontiki_tpu_torch.ops import linearize_kernels as lk
+
+    rows = {}
+    for name in ("config 3-atan", "config 3-atan-lifting", "config 3", "config 4"):
+        rows[name] = cs.camera_rows(cs.phase_problem(name)[1])
+    big = cs.config5_problem()
+    rows["config 5"] = cs.config5_camera_rows(big["problem"])
+    del big
+    times, errs = {}, {}
+    for name, (cfg, ins) in rows.items():
+        x = {k: v.to(torch.float64).contiguous() for k, v in ins.items()}
+        case = f"{name} {lk.camera_branch(cfg)} M={x['u_ref'].shape[1]}"
+
+        def fn(cfg=cfg, x=x):
+            return lk.cost_rows(cfg, x)
+
+        times.update({f"{case} {m}": f for m, f in timed(fn).items()})
+        errs[case] = lambda fn=fn, cfg=cfg, x=x: normwise([fn()], [lk.cost_rows_plain(cfg, x)])
+        errs[f"{case} operations"] = lambda cfg=cfg, x=x: lk.count_in_chunks(
+            lambda a, b: lk.cost_rows_ops(cfg, {k: v[:, a:b].contiguous() for k, v in x.items()}),
+            x["u_ref"].shape[1])
+    return times, errs
+
+
+def case_b7():
+    from kontiki_tpu_torch.ops import spline_kernels as sk
+
+    q = cs.query_setup()
+    sp = q["split"].R3_spline
+    knots = torch.tensor(sp.knots, device="cuda")
+    times, errs = {}, {}
+    for order, ts in (("frame order", q["ts"]), ("shuffled", q["ts"][q["perm"]])):
+        t = torch.tensor(ts, device="cuda")
+
+        def fn(t=t):
+            return sk.r3_evaluate_kernel(knots, sp.t0, sp.dt, t)
+
+        times[f"{order} ms per launch"] = lambda fn=fn: cs.graph_ms(fn, n=10)
+        times[f"{order} ms per call"] = lambda fn=fn: cs.cuda_ms(fn)
+        errs[order] = lambda fn=fn, t=t: normwise(
+            fn(), cs.plain_chunked(sk.r3_evaluate_plain, knots, sp.t0, sp.dt, t, n=t.shape[0]))
+    t = torch.tensor(q["ts"], device="cuda")
+    errs["operations"] = lambda: sk.r3_evaluate_ops(knots, sp.t0, sp.dt, t)
     return times, errs
 
 
@@ -198,7 +272,7 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--variant", action="append", required=True,
                     help="NAME=CSRC[:DEFINE,...]; two or more")
-    ap.add_argument("--case", choices=("b4", "b5", "rates"), required=True)
+    ap.add_argument("--case", choices=("b3", "b4", "b5", "b7", "rates"), required=True)
     ap.add_argument("--rounds", type=int, default=10)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -208,11 +282,16 @@ def main():
     print(f"card: {smi.stdout.strip() or smi.stderr.strip()}", flush=True)
     libs = build_variants(args.variant)
     use(next(iter(libs.values())))
-    times, errs = {"b4": case_b4, "b5": case_b5, "rates": case_rates}[args.case]()
+    times, errs = {"b3": case_b3, "b4": case_b4, "b5": case_b5, "b7": case_b7,
+                   "rates": case_rates}[args.case]()
     for name, lib in libs.items():
         use(lib)
         for what, err in errs.items():
-            print(f"{name} {what}: max normwise error against plain {err():.2e}", flush=True)
+            if what.endswith("operations"):  # counted by the variant's host row code
+                print(f"{name} {what}: {err()}", flush=True)
+            else:
+                print(f"{name} {what}: max normwise error against plain {err():.2e}",
+                      flush=True)
     got = {(v, t): [] for v in libs for t in times}
     names = list(libs)
     for r in range(args.rounds):
