@@ -120,16 +120,38 @@ Phases, in order; any failure exits non-zero without the final line:
     times, the row times written back into the lifting measurements) and
     the solution's ATE through B5.
 
+21. config 4-Newton (``make_rsvi_problem(nviews=64, nlandmarks=200,
+    imu_rate=200.0, seed=4, rs="newton", trajectory="split")``, Newton
+    rolling-shutter rows on 6-knot readout-slack windows) built through the
+    entry points: structure against the JAX package's; B8 (Newton rows,
+    linearize and cost-only) on its four window x camera branches against
+    its plain version in float64 and float32 (split on config 4-Newton's
+    rows, SE3 on the same generator's rows at 16 views, the atan branches
+    with the atan camera's ``wc`` and ``gamma`` added to the same rows),
+    the cost-only residual against the linearize form's, the rows' Newton
+    steps, the main branch's times per call and per launch on the card,
+    plain time and bound; B8 on M = 1, 7, 129 and one wave of its
+    linearize kernel less and plus one row, every third row at valid = 0
+    (exact zeros there); B2 on its camera bucket (C 85) beside cuBLAS;
+22. config 4-Newton through ``make_fused_solver(strategy="schur")``:
+    initial and 1-iteration costs against the JAX package's (1e-6), an
+    untimed warm-up, the timed 25-iteration solve (final/initial under
+    1e-8, exact B8/B4/B2 launches, it/s), then ``TrajectoryEstimator.solve``
+    ('auto' -> Schur) against the JAX package's (costs, Summary counts,
+    steps, exact launches, the written-back objects, per-phase times, ATE
+    through B5).
+
 The JAX values of phases 19-20 come from ``JAX_PLATFORMS=cpu python3
-tools/atan_lifting_reference.py``.
+tools/atan_lifting_reference.py``, those of phases 21-22 from
+``JAX_PLATFORMS=cpu python3 tools/newton_reference.py``.
 
 Each path's launch counts are set to 0 just before its timed solve and
 read just after. A kernel's bound is the larger of its bytes (each input
 read once, each output written once) over 3.35 TB/s and the floating-point
 operations its function needs on these inputs over the H100 SXM's float64
-peak, 67 TFLOP/s on its tensor cores (NVIDIA's data sheet). B1's and B4's
-operations are counted by running their row code on the host once per row
-in one full-width jet, with structural zeros and ones free
+peak, 67 TFLOP/s on its tensor cores (NVIDIA's data sheet). B1's, B4's and
+B8's operations are counted by running their row code on the host once per
+row in one full-width jet (B8: one a stage), with structural zeros and ones free
 (``csrc/host_rows.cpp``), B3's as its scalar chain once per row, B5's and
 B7's as each query's chain once (B5's time derivatives in forward mode, as
 the kernel runs them); B2's from the shapes, the upper triangle of the
@@ -253,6 +275,37 @@ ATAN_SUMMARY_COUNTS = ("num_parameters", "num_parameter_blocks", "num_parameters
 # camera and lifting rows (camera rows only; no solve).
 SE3_ATAN_LIFTING = dict(CONFIG4, camera_kind="atan", rs="lifting")
 
+# BASELINE config 4-Newton (bench.py config4_newton): config 4's generator
+# on the split trajectory with Newton rolling-shutter rows (kernel B8). Its
+# structure and float64 values from the JAX package on the CPU
+# (tools/newton_reference.py, through its fused Newton tile): the camera
+# rows' readout-slack windows (6 knots on both splines) and the reduced
+# system's size; the Schur linearization's cost at state0; the final costs
+# of make_fused_solver(problem, n, function_tolerance=0.0,
+# strategy="schur") for n = 1 and 25; TrajectoryEstimator(trajectory).solve(
+# max_iterations=10, progress=False, function_tolerance=0.0): initial,
+# iteration-1 and final costs, the Summary's counts (ATAN_SUMMARY_COUNTS),
+# successful and unsuccessful steps, and the unaligned ATE (n = 200 on
+# [0.5, 0.5 + 63/30)) of the start and of the written-back trajectory. The
+# gates are config 4's: initial and 1-iteration costs 1e-6, final/initial
+# after 25 iterations under 1e-8 (the data are noise-free).
+CONFIG4_NEWTON = dict(CONFIG4, rs="newton", trajectory="split")
+CONFIG4_NEWTON_SHAPE = {"rs_newton": 12304, "gyro": 425, "accel": 425, "num_tangent": 394}
+NEWTON_WINDOWS, NEWTON_PC = (6, 6), 194
+JAX_NEWTON = dict(
+    cost0=181314.74731668772, cost1=2.405791759183384, cost25=3.9992258777303754e-23,
+    estimator=dict(cost0=181314.74731668772, cost1=2.4057917591949787,
+                   final=4.382790330509873e-23,
+                   counts=(342, 242, 326, 236, 27158, 13154, 27158, 13154), steps=(10, 0),
+                   ate_start=0.02379180398234376, ate=0.014660968596071631))
+# The SE3 rows of B8's four-branch check: the same generator on the SE3
+# spline, cut to 16 views; the atan branches take each problem's rows with
+# the atan camera's wc and gamma (synthetic.make_camera("atan")) added.
+NEWTON_SE3 = dict(CONFIG4_NEWTON, nviews=16, trajectory="se3")
+# B8's edge row counts, beside one wave of its linearize kernel less and
+# plus one row (newton_rows_wave)
+NEWTON_EDGES = (1, 7, 129)
+
 # BASELINE configs 1 and 2 (bench.py config1/config2), their structure as
 # the JAX package builds it, and their costs in float64 from the JAX package
 # on the CPU: total_cost at state0 and the final cost of
@@ -351,6 +404,15 @@ TOL = {
     # the split trajectory's position query (B5 r3) against B7 at the same
     # times: two kernels, one spline
     ("query vs r3_evaluate_kernel", torch.float64): 1e-12,
+    # Newton rows (B8): the same chain in another order in f64; in f32 each
+    # side rounds at ~1e-7 along up to five Newton steps, and the Jacobian's
+    # mixed second derivatives of the obs window (f' = dv/dt - rows /
+    # readout) cancel as the SE3 and SO3 logs do in B1's
+    ("newton_rows", torch.float64): 1e-10,
+    ("newton_rows", torch.float32): 1e-3,
+    ("newton_rows cost-only", torch.float64): 1e-10,
+    ("newton_rows cost-only", torch.float32): 1e-4,
+    ("newton_rows cost-only vs linearize", torch.float64): 1e-10,
     # one-hot expansion: each output sums at most two entries, so it equals
     # its plain version exactly; the gate allows the last bit
     ("onehot_expand_rows", torch.float64): 1e-14,
@@ -485,12 +547,16 @@ def reset_counts():
     lk.cost_rows.launches = 0
     lk.cost_rows.branch_launches.clear()
     ak.assemble_schur_blocks.launches = 0
+    ak.assemble_schur_blocks.shape_launches.clear()
     lk.imu_rows.launches = 0
     lk.imu_rows.cost_launches = 0
     for kind in lk.evaluate_windows.launches:
         lk.evaluate_windows.launches[kind] = 0
     sk.r3_evaluate_kernel.launches = 0
     lk.onehot_expand_rows.launches = 0
+    lk.newton_rows.launches = 0
+    lk.newton_rows.cost_launches = 0
+    lk.newton_rows.branch_launches.clear()
 
 
 def read_counts():
@@ -503,6 +569,8 @@ def read_counts():
         "linearize_rows split": lk.linearize_rows.split_launches,
         "cost_rows": lk.cost_rows.launches,
         "assemble_schur_blocks": ak.assemble_schur_blocks.launches,
+        **{f"assemble_schur_blocks {k}": n
+           for k, n in ak.assemble_schur_blocks.shape_launches.items()},
         "imu_rows": lk.imu_rows.launches,
         "imu_rows cost-only": lk.imu_rows.cost_launches,
         **{f"evaluate_windows {k}": n for k, n in lk.evaluate_windows.launches.items()},
@@ -510,6 +578,9 @@ def read_counts():
         "onehot_expand_rows": lk.onehot_expand_rows.launches,
         **{f"linearize_rows {b}": n for b, n in lk.linearize_rows.branch_launches.items()},
         **{f"cost_rows {b}": n for b, n in lk.cost_rows.branch_launches.items()},
+        "newton_rows": lk.newton_rows.launches,
+        "newton_rows cost-only": lk.newton_rows.cost_launches,
+        **{f"newton_rows {b}": n for b, n in lk.newton_rows.branch_launches.items()},
     }
     for name, n in counts.items():
         MAIN_PATH_LAUNCHES[name] = MAIN_PATH_LAUNCHES.get(name, 0) + n
@@ -588,13 +659,24 @@ _KERNEL_NAME = re.compile(r"(linearize_rows_kernel|linearize_rows_thread_kernel"
                           r"(?:I([df])(?:Lb([01])ELb([01])ELb([01])E|Li([012])E)?E)?")
 
 
+#: B8's kernels (linearize; cost-only): the scalar, the Split and Atan flags
+_NEWTON_NAME = re.compile(r"(newton_rows_kernel|newton_cost_kernel)I([df])Lb([01])ELb([01])EE")
+
+
 def ptxas_summary(log):
     """[(kernel, registers, spill store bytes)] of each instantiation of
-    B1-B5 and B7 in the build's ``ptxas -v`` report."""
+    B1-B5, B7 and B8 in the build's ``ptxas -v`` report."""
     out, name, spill = [], None, 0
     for line in log.splitlines():
         entry = re.search(r"Compiling entry function '(\S+)'", line)
         if entry:
+            nm = _NEWTON_NAME.search(entry.group(1))
+            if nm:
+                name = (f"{nm.group(1)}<{'double' if nm.group(2) == 'd' else 'float'}, "
+                        f"{('se3', 'split')[int(nm.group(3))]}, "
+                        f"{('pinhole', 'atan')[int(nm.group(4))]}>")
+                spill = 0
+                continue
             m = _KERNEL_NAME.search(entry.group(1))
             name = m and (m.group(1) if m.group(2) is None else
                           f"{m.group(1)}<{'double' if m.group(2) == 'd' else 'float'}"
@@ -735,7 +817,7 @@ def phase_b2(problem):
     out = {}
     for bspec, data in zip(spec.buckets, runtime["data"]):
         _, rows = whitened_rows(spec, bspec, runtime, problem.state0, data, mask_l)
-        with_rho = bspec.kind in kernels.CAMERA_KINDS
+        with_rho = bspec.kind in kernels.LANDMARK_KINDS
         for dtype in (torch.float64, torch.float32):
             x = tuple(a.to(dtype) if a.is_floating_point() else a for a in rows)
             kw = dict(P=Pc, L=L, with_rho=with_rho)
@@ -942,20 +1024,17 @@ def phase_solve(name, problem):
     want = {"linearize_rows": iters + 1, "linearize_rows split": (iters + 1) * split,
             f"linearize_rows {branch}": iters + 1,
             "assemble_schur_blocks": (iters + 1) * len(spec.buckets)}
+    if spec.num_vt:  # config 3-atan-lifting's only bucket
+        want[B2_LIFTING] = iters + 1
     got = {k: launches.get(k, 0) for k in want}
     if got != want:
         fail(f"{name}: launches {got}, expected {want}")
-    if spec.num_vt:
-        count_rdim3(launches)
     return launches
 
 
-def count_rdim3(launches):
-    """Main-path B2 launches on the lifting bucket (rdim 3, C 62): the
-    config 3-atan-lifting phases' only bucket."""
-    MAIN_PATH_LAUNCHES["assemble_schur_blocks rdim 3"] = (
-        MAIN_PATH_LAUNCHES.get("assemble_schur_blocks rdim 3", 0)
-        + launches["assemble_schur_blocks"])
+#: B2's per-shape counts of the lifting bucket and config 4-Newton's camera bucket
+B2_LIFTING = "assemble_schur_blocks rdim 3 C 62"
+B2_NEWTON = "assemble_schur_blocks rdim 2 C 85"
 
 
 def branch_inputs(problems):
@@ -1056,8 +1135,6 @@ def phase_atan_estimator(name, prob):
     summary = estimator.solve(max_iterations=10, progress=False, function_tolerance=0.0)
     seconds = time.perf_counter() - t0
     launches = read_counts()
-    if lifting:
-        count_rdim3(launches)
     n = len(summary.iterations) - 1
     print(f"{name} estimator: {summary.BriefReport()}; {n} iterations in {seconds:.3f} s "
           f"(with problem build and write-back); launches {launches}", flush=True)
@@ -1082,7 +1159,7 @@ def phase_atan_estimator(name, prob):
         fail(f"{name} estimator: Summary counts or steps differ from the JAX package's")
     branch = f"split atan {'lifting' if lifting else 'static'}"
     want = {f"cost_rows {branch}": n, f"linearize_rows {branch}": n,
-            "assemble_schur_blocks": n}
+            "assemble_schur_blocks": n, B2_LIFTING: n if lifting else 0}
     got = {k: launches.get(k, 0) for k in want}
     if got != want:
         fail(f"{name} estimator: launches {got}, expected {want} for {n} iterations")
@@ -1568,7 +1645,7 @@ def phase_b7(q):
 
 
 def check_launches(what, launches, want):
-    got = {k: launches[k] for k in want}
+    got = {k: launches.get(k, 0) for k in want}
     if got != want:
         fail(f"{what}: launches {got}, expected {want}")
 
@@ -2061,6 +2138,305 @@ def phase_config5(big):
     return launches
 
 
+def newton_problem(kwargs):
+    """A Newton-row problem built through the entry points on the card."""
+    from kontiki_tpu_torch.solver.problem import Problem
+    from kontiki_tpu_torch.synthetic import make_rsvi_problem
+
+    prob = make_rsvi_problem(**kwargs)
+    problem = Problem(prob["trajectory"], prob["measurements"])
+    if problem.device.type != "cuda":
+        fail(f"Newton rows: Problem built on {problem.device}, not on the card")
+    return prob, problem
+
+
+def phase_newton_problem():
+    """Config 4-Newton through the entry points on the card: its structure
+    against the JAX package's (tools/newton_reference.py)."""
+    from kontiki_tpu_torch.solver import kernels
+
+    t0 = time.time()
+    prob, problem = newton_problem(CONFIG4_NEWTON)
+    spec = kernels.problem_spec(problem)
+    shape = {b.kind: b.M for b in spec.buckets}
+    shape["num_tangent"] = spec.num_tangent
+    windows = {b.kind: b.windows for b in spec.buckets}
+    Pc = spec.num_tangent - spec.num_landmarks
+    print(f"config 4-Newton: {shape}, windows {windows}, splines "
+          f"{[(sp.kind, sp.n) for sp in spec.splines]}, Pc {Pc} ({time.time() - t0:.1f} s on "
+          f"the host)", flush=True)
+    if shape != CONFIG4_NEWTON_SHAPE or windows["rs_newton"] != NEWTON_WINDOWS or Pc != NEWTON_PC:
+        fail(f"config 4-Newton structure {shape}, {windows}, Pc {Pc} != "
+             f"{CONFIG4_NEWTON_SHAPE}, rs_newton {NEWTON_WINDOWS}, Pc {NEWTON_PC}")
+    return prob, problem
+
+
+def newton_inputs(problem):
+    """(cfg, ins) of the problem's Newton bucket at state0, on the card."""
+    from kontiki_tpu_torch.solver import kernels
+
+    spec = kernels.problem_spec(problem)
+    runtime = kernels.problem_runtime(problem)
+    (b,) = [i for i, bs in enumerate(spec.buckets) if bs.kind == "rs_newton"]
+    return kernels._newton_inputs(spec, spec.buckets[b], runtime, problem.state0,
+                                  runtime["data"][b])[:2]
+
+
+def newton_branches(problem4n):
+    """(cfg, ins) on the card of B8's four branches: split on config
+    4-Newton's rows, SE3 on NEWTON_SE3's; the atan branches with the atan
+    camera's wc and gamma added to the same rows."""
+    from kontiki_tpu_torch.ops import linearize_kernels as lk
+    from kontiki_tpu_torch.synthetic import make_camera
+
+    t0 = time.time()
+    _, se3 = newton_problem(NEWTON_SE3)
+    print(f"Newton SE3 rows ({NEWTON_SE3['nviews']} views): {time.time() - t0:.1f} s on the host",
+          flush=True)
+    atan = make_camera("atan")
+    out = {}
+    for cfg, ins in (newton_inputs(problem4n), newton_inputs(se3)):
+        M = ins["u_ref"].shape[1]
+        opts = dict(dtype=ins["u_ref"].dtype, device=ins["u_ref"].device)
+        for camera in ("PinholeCamera", "AtanCamera"):
+            c = dict(cfg, camera=camera)
+            x = dict(ins)
+            if camera == "AtanCamera":
+                x["wc"] = torch.tensor(atan.wc, **opts)[:, None].expand(2, M).contiguous()
+                x["gamma"] = torch.full((1, M), atan.gamma, **opts)
+            out[lk.newton_branch(c)] = (c, x)
+    return out
+
+
+def newton_bound(cfg, x, cost_only, ops):
+    """B8's bound: each input read once and each output written once, and
+    ``ops`` float64 operations."""
+    from kontiki_tpu_torch.ops import linearize_kernels as lk
+
+    M = x["u_ref"].shape[1]
+    n_in = sum(slot[1] for slot in lk.newton_inputs(cfg) if slot is not None and slot[0] in x)
+    n_out = 2 if cost_only else 2 * (lk.newton_shape(cfg)[1] + 2)
+    nbytes = 8 * M * (n_in + n_out)
+    return nbytes, bound(nbytes, ops)
+
+
+def phase_b8(branches):
+    """B8 linearize and cost-only on each branch against the plain version
+    (f64, f32), the cost-only residual against the linearize form's; the
+    Newton steps the rows take (the host row code's f64 primal path); on
+    the main branch (split pinhole, config 4-Newton's rows) the times per
+    call and per launch, the plain version's and the bound."""
+    from kontiki_tpu_torch.ops import linearize_kernels as lk
+
+    out = {}
+    for branch, (cfg, ins) in branches.items():
+        M = ins["u_ref"].shape[1]
+        print(f"  B8 branch {branch}: M={M}, windows {cfg['Ws']}, C {lk.newton_shape(cfg)[1]}",
+              flush=True)
+        for dtype in (torch.float64, torch.float32):
+            x = {k: v.to(dtype).contiguous() for k, v in ins.items()}
+            got = lk.newton_rows(cfg, x)
+            r = lk.newton_rows(cfg, x, cost_only=True)
+            torch.cuda.synchronize()
+            err = compare("newton_rows", dtype, ("r", "J", "J_rho"), got,
+                          lk.newton_rows_plain(cfg, x))
+            err_c = compare("newton_rows cost-only", dtype, ("r",), (r,),
+                            (lk.newton_rows_plain(cfg, x, cost_only=True),))
+            if dtype != torch.float64:
+                continue
+            compare("newton_rows cost-only vs linearize", dtype, ("r",), (r,), (got[0],))
+            host = {k: v.cpu() for k, v in x.items()}
+            _, steps, margin = lk.newton_rows_host(cfg, host, cost_only=True, steps=True)
+            hist = torch.bincount(steps.long(), minlength=6)[1:].tolist()
+            print(f"  B8 {branch}: rows by Newton steps 1..5 {hist}, smallest convergence-test "
+                  f"margin {margin.min().item():.3e}, rows within 1e-6 of it "
+                  f"{int((margin < 1e-6).sum())}", flush=True)
+            if branch != "split pinhole":
+                continue
+            for form, cost_only, e in (("linearize", False, err), ("cost-only", True, err_c)):
+                rec = dict(max_abs_err=e,
+                           ms=cuda_ms(lambda: lk.newton_rows(cfg, x, cost_only=cost_only)),
+                           graph_ms=graph_ms(lambda: lk.newton_rows(cfg, x, cost_only=cost_only),
+                                             n=20),
+                           plain_ms=cuda_ms(lambda: lk.newton_rows_plain(cfg, x,
+                                                                         cost_only=cost_only),
+                                            reps=3, warmup=1))
+                ops = lk.newton_rows_ops(cfg, host, cost_only=cost_only)
+                nbytes, (rec["bound_ms"], rec["bound_by"]) = newton_bound(cfg, x, cost_only, ops)
+                rec["library_ms"] = None  # no single PyTorch call computes B8
+                rec["steps"] = hist
+                out[form] = rec
+                print(f"  newton_rows ({form}) {branch} f64 M={M}: kernel {rec['graph_ms']:.4f} "
+                      f"ms per launch on the card ({rec['ms']:.4f} ms per call with the host's "
+                      f"enqueue), plain {rec['plain_ms']:.3f} ms, bound {rec['bound_ms']:.5f} ms "
+                      f"by {rec['bound_by']} ({nbytes} bytes, {ops} operations) [{CARD}]",
+                      flush=True)
+    return out
+
+
+def phase_b8_edges(cfg, ins):
+    """B8 on the first M rows of config 4-Newton's, for M in NEWTON_EDGES
+    and one wave of the linearize kernel less and plus one row, every third
+    row at valid = 0, against the plain version (f64, f32): the invalid
+    rows exactly zero."""
+    from kontiki_tpu_torch.ops import linearize_kernels as lk
+
+    wave = {dt: lk.newton_rows_wave(cfg, dt) for dt in (torch.float64, torch.float32)}
+    print(f"  B8 linearize kernel: one wave {wave[torch.float64]} rows in f64, "
+          f"{wave[torch.float32]} in f32", flush=True)
+    for dtype in (torch.float64, torch.float32):
+        for M in (*NEWTON_EDGES, wave[dtype] - 1, wave[dtype], wave[dtype] + 1):
+            x = {k: v[:, :M].to(dtype).contiguous() for k, v in ins.items()}
+            valid = (torch.arange(M, device=x["u_ref"].device) % 3 != 1).to(dtype)
+            x["valid"] = valid[None].contiguous()
+            got = lk.newton_rows(cfg, x)
+            r = lk.newton_rows(cfg, x, cost_only=True)
+            torch.cuda.synchronize()
+            print(f"  B8 edge M={M} {str(dtype)[6:]}", flush=True)
+            compare("newton_rows", dtype, ("r", "J", "J_rho"), got, lk.newton_rows_plain(cfg, x))
+            compare("newton_rows cost-only", dtype, ("r",), (r,),
+                    (lk.newton_rows_plain(cfg, x, cost_only=True),))
+            off = valid == 0
+            if any(bool(a[off].abs().max() > 0) for a in (*got, r) if off.any()):
+                fail(f"newton_rows M={M} {dtype}: rows with valid = 0 are not zero")
+
+
+def newton_launches(n_lin, n_cost, buckets):
+    """Main-path launches of ``n_lin`` Newton-bucket linearizations (B8,
+    and B4 and B2 on the IMU buckets and B2 on all) and ``n_cost`` re-costs."""
+    return {"newton_rows": n_lin + n_cost, "newton_rows cost-only": n_cost,
+            "newton_rows split pinhole": n_lin,
+            "newton_rows split pinhole cost-only": n_cost,
+            "imu_rows": 2 * (n_lin + n_cost), "imu_rows cost-only": 2 * n_cost,
+            "assemble_schur_blocks": buckets * n_lin, B2_NEWTON: n_lin,
+            "linearize_rows": 0, "cost_rows": 0}
+
+
+def phase_newton_solve(problem):
+    """Config 4-Newton through make_fused_solver(strategy="schur"): the
+    initial and 1-iteration costs against the JAX package's, an untimed
+    warm-up, the timed 25-iteration solve with exact launches, its
+    final/initial cost and iterations per second."""
+    from kontiki_tpu_torch.solver import kernels
+    from kontiki_tpu_torch.solver.lm import make_fused_solver
+    from kontiki_tpu_torch.solver.schur import build_schur_parts
+
+    name = "config 4-Newton"
+    spec = kernels.problem_spec(problem)
+    runtime = kernels.problem_runtime(problem)
+    cost0 = build_schur_parts(spec)["linearize"](runtime, problem.state0)[0].item()
+    _, cost1, _ = make_fused_solver(problem, 1, function_tolerance=0.0,
+                                    strategy="schur")(problem.state0)
+    for what, got, key in (("initial", cost0, "cost0"), ("1-iteration", cost1.item(), "cost1")):
+        want = JAX_NEWTON[key]
+        rel = abs(got - want) / want
+        print(f"{name}: {what} cost {got!r} (JAX {want!r}, rel {rel:.2e}, tol "
+              f"{COST_RTOL:.0e})", flush=True)
+        if not rel <= COST_RTOL:
+            fail(f"{name}: {what} cost differs from the JAX package by {rel:.2e}")
+    solve = make_fused_solver(problem, 25, function_tolerance=0.0, strategy="schur")
+    t0 = time.perf_counter()
+    solve(problem.state0)
+    torch.cuda.synchronize()
+    print(f"{name}: warm-up solve {time.perf_counter() - t0:.3f} s", flush=True)
+    reset_counts()
+    t0 = time.perf_counter()
+    state, cost, iters = solve(problem.state0)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_counts()
+    cost = cost.item()
+    ratio = cost / cost0
+    print(f"{name}: {iters} iterations in {seconds:.3f} s = {iters / seconds:.2f} it/s; initial "
+          f"cost {cost0:.6e} final cost {cost!r} (JAX {JAX_NEWTON['cost25']!r}) ratio "
+          f"{ratio:.3e} (gate {FINAL_RATIO:.0e}); launches {launches}", flush=True)
+    for k, v in state.items():
+        if v.shape != problem.state0[k].shape or not torch.isfinite(v).all():
+            fail(f"{name}: final state {k}: bad shape or non-finite values")
+    if not (math.isfinite(ratio) and ratio <= FINAL_RATIO):
+        fail(f"{name}: final/initial cost {ratio:.3e} > {FINAL_RATIO:.0e}")
+    if iters != 25:
+        fail(f"{name}: ran {iters} iterations, expected 25")
+    want = newton_launches(iters + 1, 0, len(spec.buckets))
+    check_launches(name, launches, want)
+    return dict(it_per_s=iters / seconds)
+
+
+def phase_newton_estimator(prob):
+    """``TrajectoryEstimator`` on config 4-Newton's measurement objects (on
+    the card by default, 'auto' -> Schur): the Summary against the JAX
+    package's, exact launches, the written-back objects, the per-phase
+    times and the solution's ATE through B5."""
+    from kontiki_tpu_torch import TrajectoryEstimator
+    from kontiki_tpu_torch.solver import kernels
+    from kontiki_tpu_torch.solver.lm import _resolve_strategy
+    from kontiki_tpu_torch.solver.lm import solve as lm_solve
+    from kontiki_tpu_torch.solver.problem import Problem
+    from kontiki_tpu_torch.synthetic import trajectory_ate
+
+    name = "config 4-Newton"
+    ref = JAX_NEWTON["estimator"]
+    truth, span = prob["true_trajectory"], (0.5, 0.5 + 63 / 30)
+    ate_start = trajectory_ate(prob["trajectory"], truth, *span)
+    estimator = TrajectoryEstimator(prob["trajectory"])
+    for m in prob["measurements"]:
+        estimator.add_measurement(m)
+    problem = Problem(prob["trajectory"], prob["measurements"])
+    if _resolve_strategy(problem, "auto") != "schur":
+        fail(f"{name} estimator: 'auto' does not choose the Schur strategy")
+    t0 = time.perf_counter()
+    lm_solve(problem, max_iterations=1)
+    torch.cuda.synchronize()
+    print(f"{name} estimator: warm-up solve {time.perf_counter() - t0:.3f} s", flush=True)
+    reset_counts()
+    t0 = time.perf_counter()
+    summary = estimator.solve(max_iterations=10, progress=False, function_tolerance=0.0)
+    seconds = time.perf_counter() - t0
+    launches = read_counts()
+    n = len(summary.iterations) - 1
+    print(f"{name} estimator: {summary.BriefReport()}; {n} iterations in {seconds:.3f} s "
+          f"(with problem build and write-back); launches {launches}", flush=True)
+    times = (("jacobian", summary.jacobian_evaluation_time_in_seconds),
+             ("linear solver", summary.linear_solver_time_in_seconds),
+             ("residual", summary.residual_evaluation_time_in_seconds))
+    print(f"{name} estimator per-phase times per iteration: "
+          + ", ".join(f"{k} {1e3 * v / max(n, 1):.3f} ms" for k, v in times), flush=True)
+    for what, got, key in (("initial", summary.initial_cost, "cost0"),
+                           ("iteration-1", summary.iterations[1].cost, "cost1")):
+        rel = abs(got - ref[key]) / ref[key]
+        print(f"{name} estimator: {what} cost {got!r} (JAX {ref[key]!r}, rel {rel:.2e}, tol "
+              f"{COST_RTOL:.0e})", flush=True)
+        if not rel <= COST_RTOL:
+            fail(f"{name} estimator: {what} cost differs from the JAX package by {rel:.2e}")
+    print(f"{name} estimator: final cost {summary.final_cost!r} (JAX {ref['final']!r})",
+          flush=True)
+    counts = tuple(getattr(summary, k) for k in ATAN_SUMMARY_COUNTS)
+    steps = (summary.num_successful_steps, summary.num_unsuccessful_steps)
+    print(f"{name} estimator: counts {counts}, steps {steps} (JAX {ref['counts']}, "
+          f"{ref['steps']})", flush=True)
+    if counts != tuple(ref["counts"]) or steps != tuple(ref["steps"]):
+        fail(f"{name} estimator: Summary counts or steps differ from the JAX package's")
+    check_launches(f"{name} estimator", launches,
+                   newton_launches(n, n, len(kernels.problem_spec(problem).buckets)))
+    problem = Problem(prob["trajectory"], prob["measurements"])
+    spec = kernels.problem_spec(problem)
+    written = kernels.total_cost(spec, kernels.problem_runtime(problem), problem.state0).item()
+    if not abs(written - summary.final_cost) <= 1e-9 * summary.initial_cost:
+        fail(f"{name} estimator: the written-back objects do not hold the final state "
+             f"({written!r} vs {summary.final_cost!r})")
+    reset_counts()
+    ate = trajectory_ate(prob["trajectory"], truth, *span)
+    check_launches(f"{name} ATE", read_counts(),
+                   {"evaluate_windows r3": 2, "evaluate_windows so3": 2})
+    for what, got, key in (("start", ate_start, "ate_start"), ("solution", ate, "ate")):
+        rel = abs(got - ref[key]) / ref[key]
+        print(f"{name}: ATE vs truth on {span}, {what}: {got!r} (JAX {ref[key]!r}, rel "
+              f"{rel:.2e})", flush=True)
+        if not rel <= 1e-6:
+            fail(f"{name}: {what} ATE differs from the JAX package's by {rel:.2e}")
+    return dict(times, iterations=n)
+
+
 def main():
     phase_device()
     phase_build()
@@ -2084,6 +2460,13 @@ def main():
         phase_solve(name, p)
     for name, (prob, _) in atan.items():
         phase_atan_estimator(name, prob)
+    prob4n, problem4n = phase_newton_problem()
+    b8 = phase_b8(newton_branches(problem4n))
+    phase_b8_edges(*newton_inputs(problem4n))
+    b2_newton = phase_b2(problem4n)
+    phase_newton_solve(problem4n)
+    phase_newton_estimator(prob4n)
+    del problem4n
     imu = {name: imu_problem(name) for name in IMU_CONFIGS}
     b4 = phase_b4(imu)
     for name, p in imu.items():
@@ -2124,11 +2507,21 @@ def main():
         dict(name="assemble_schur_blocks (rdim 3, C 62)", route="cuda",
              source="kontiki_tpu_torch/csrc/assemble_schur.cu",
              replaces="kontiki_tpu/ops/assembly_kernels.py:102",
-             launches=n.get("assemble_schur_blocks rdim 3", 0), **b2_lifting),
+             launches=n.get(B2_LIFTING, 0), **b2_lifting),
         dict(name="assemble_schur_blocks", route="cuda",
              source="kontiki_tpu_torch/csrc/assemble_schur.cu",
              replaces="kontiki_tpu/ops/assembly_kernels.py:102",
              launches=n["assemble_schur_blocks"], **b2),
+        dict(name="assemble_schur_blocks (C 85, config 4-Newton's camera bucket)", route="cuda",
+             source="kontiki_tpu_torch/csrc/assemble_schur.cu",
+             replaces="kontiki_tpu/ops/assembly_kernels.py:102",
+             launches=n.get(B2_NEWTON, 0), **b2_newton),
+        *[dict(name=f"newton_rows ({form})", route="cuda",
+               source="kontiki_tpu_torch/csrc/newton_rows.cu",
+               replaces="kontiki_tpu/ops/linearize_kernels.py:1114",
+               launches=n.get("newton_rows split pinhole"
+                              + (" cost-only" if form == "cost-only" else ""), 0), **b8[form])
+          for form in ("linearize", "cost-only")],
         dict(name="cost_rows", **b1_source,
              replaces="kontiki_tpu/ops/linearize_kernels.py:1220",
              launches=n.get("cost_rows se3 pinhole static", 0)

@@ -138,18 +138,22 @@ struct RowShape {
   static constexpr int NS = 21 + (Lifting ? 1 : 0);
 };
 
-// Split window (p, q): the R3 spline at u_r3 + s/dt_r3 (win[0..11], knots
-// additive) and the cumulative SO3 spline at u_so3 + s/dt_so3 (win[12..27],
-// knots left exp(w) q). delta holds the first spline's 12 increments, then
-// the second's.
-template <typename T, typename S, typename D, bool Lazy = false>
-KT_HD void pq_split(const T* win, T u_r3, T u_so3, T dt_r3, T dt_so3,
-                    const D& delta, const S& s, bool r3_first, S* out) {
+// Split window (p, q): the R3 spline at u_r3 + s/dt_r3 (win [4, 3], knots
+// additive) and the cumulative SO3 spline at u_so3 + s/dt_so3 (win_so3
+// [4, 4], knots left exp(w) q). delta holds the first spline's 12
+// increments, then the second's. SK and the sub-window's first knots jr
+// and jq as pq_se3's SK and j0.
+template <typename T, typename S, typename D, bool Lazy = false, typename SK = S>
+KT_HD void pq_split(const T* win, const T* win_so3, T u_r3, T u_so3, T dt_r3, T dt_so3,
+                    const D& delta, const S& s, bool r3_first, S* out, int jr = 0,
+                    int jq = 0) {
   const int off_r3 = r3_first ? 0 : 12;
   const int off_so3 = r3_first ? 12 : 0;
 
+  S ur = u_r3 + s / dt_r3;
+  if (jr != 0) ur = ur - T(jr);
   S Br[4];
-  standard_basis<T>(u_r3 + s / dt_r3, Br);
+  standard_basis<T>(ur, Br);
 #pragma unroll
   for (int k = 0; k < 3; ++k) {
     S acc = Br[0] * (win[k] + delta[off_r3 + k]);
@@ -160,26 +164,27 @@ KT_HD void pq_split(const T* win, T u_r3, T u_so3, T dt_r3, T dt_so3,
 
   // knot j of the SO3 spline with its increment; Lazy as for pq_se3
   auto knot = [&](int j) {
-    const T* w = win + 12 + 4 * j;
-    const Q4<S> qj = {S(w[0]), S(w[1]), S(w[2]), S(w[3])};
-    const V3<S> dw = {delta[off_so3 + 3 * j], delta[off_so3 + 3 * j + 1],
-                      delta[off_so3 + 3 * j + 2]};
+    const T* w = win_so3 + 4 * j;
+    const Q4<SK> qj = {SK(w[0]), SK(w[1]), SK(w[2]), SK(w[3])};
+    const V3<SK> dw = {delta[off_so3 + 3 * j], delta[off_so3 + 3 * j + 1],
+                       delta[off_so3 + 3 * j + 2]};
     return qmul(so3_exp_quat(dw), qj);
   };
-  Q4<S> kq[4];
+  Q4<SK> kq[4];
 #pragma unroll
   for (int j = 0; j < (Lazy ? 1 : 4); ++j) kq[j] = knot(j);
-  const S uq = u_so3 + s / dt_so3;
+  S uq = u_so3 + s / dt_so3;
+  if (jq != 0) uq = uq - T(jq);
   const S q2 = uq * uq;
   const S q3 = q2 * uq;
   const S B[3] = {(T(5) + T(3) * uq - T(3) * q2 + q3) / T(6),
                   (T(1) + T(3) * uq + T(3) * q2 - T(2) * q3) / T(6),
                   q3 / T(6)};
-  Q4<S> q = kq[0];
+  Q4<S> q = {S(kq[0].w), S(kq[0].x), S(kq[0].y), S(kq[0].z)};
 #pragma unroll
   for (int j = 1; j < 4; ++j) {
     if (Lazy) kq[j] = knot(j);
-    const V3<S> w3 = logq_vec(qmul(qconj(kq[j - 1]), kq[j]));
+    const V3<SK> w3 = logq_vec(qmul(qconj(kq[j - 1]), kq[j]));
     const S b = B[j - 1];
     q = qmul(q, expq_pure(V3<S>{b * w3.x, b * w3.y, b * w3.z}));
   }
@@ -198,8 +203,8 @@ template <typename T, bool Split, typename S, bool Lazy = false, typename D>
 KT_HD void window_pq(const Windows<T>& w, int i, bool r3_first, const D& delta,
                      const S& s, S* out) {
   if (Split) {
-    pq_split<T, S, D, Lazy>(w.win[i], w.u[i][0], w.u[i][1], w.dt[0], w.dt[1], delta, s,
-                            r3_first, out);
+    pq_split<T, S, D, Lazy>(w.win[i], w.win[i] + 12, w.u[i][0], w.u[i][1], w.dt[0], w.dt[1],
+                            delta, s, r3_first, out);
   } else {
     pq_se3<T, S, D, Lazy>(w.win[i], w.u[i][0], w.dt[0], delta, s, out);
   }

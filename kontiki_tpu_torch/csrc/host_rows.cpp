@@ -1,5 +1,6 @@
 // The row kernels' per-row code (camera_rows.cuh: B1 and B3; imu_rows.cu:
-// B4; eval_windows.cu: B5; r3_evaluate.cu: B7) and B2's block accumulation
+// B4; eval_windows.cu: B5; r3_evaluate.cu: B7; newton_rows.cuh: B8) and
+// B2's block accumulation
 // (assemble_schur.cu), compiled for the host with a plain C++ compiler. Two
 // uses:
 //   - on double, the same row functions the CUDA kernels run, to check the
@@ -10,7 +11,8 @@
 // The count is of the function, not of the kernel's schedule:
 //   - each row runs once with one jet as wide as all its seeds, so the
 //     primal chain is counted once and not once per seed chunk (B1's
-//     separate primal stage, which its jets recompute, is subtracted);
+//     separate primal stage, which its jets recompute, is subtracted; B8's
+//     ref primal is its ref window jet's value);
 //     B3 runs the primal chain on the scalar alone; B5 and B7 run each
 //     query once as the kernels do;
 //   - a constant 0 or 1 in the code (a jet lane no seed reaches, a seed's
@@ -76,6 +78,8 @@ inline Counted operator/(Counted a, Counted b) {
 }
 inline bool operator<=(Counted a, Counted b) { return a.x <= b.x; }
 inline bool operator>=(Counted a, Counted b) { return a.x >= b.x; }
+inline bool operator<(Counted a, Counted b) { return a.x < b.x; }
+inline bool operator>(Counted a, Counted b) { return a.x > b.x; }
 inline Counted val(Counted a) { return a; }
 inline Counted kt_sqrt(Counted a) { return a.kind == Counted::kZero ? a : counted(std::sqrt(a.x)); }
 inline Counted kt_sin(Counted a) { return a.kind == Counted::kZero ? a : counted(std::sin(a.x)); }
@@ -92,6 +96,7 @@ inline Counted kt_abs(Counted a) {
 #include "eval_windows.cu"
 #include "imu_rows.cu"
 #include "camera_rows.cuh"
+#include "newton_rows.cuh"
 #include "r3_evaluate.cu"
 #include "assemble_schur.cu"
 
@@ -234,9 +239,140 @@ struct CountCost {
   }
 };
 
+// Leading sizes of B8's input slots (NewtonInputs order).
+void newton_ks(int W0, int W1, int flags, int* ks) {
+  const bool split = (flags & kNewtonSplit) != 0;
+  const int win = split ? 3 * W0 : 7 * W0, win_so3 = split ? 4 * W1 : 0, u_so3 = split ? 1 : 0;
+  const int head[9] = {win, win_so3, 1, u_so3, win, win_so3, 1, u_so3, split ? 2 : 1};
+  static const int rest[kNewtonSlots - 9] = {4, 3, 1, 3, 2, 1, 9, 2, 1, 1, 1, 1, 1};
+  for (int i = 0; i < 9; ++i) ks[i] = head[i];
+  for (int i = 9; i < kNewtonSlots; ++i) ks[i] = rest[i - 9];
+}
+
+// Fn::run<Split, Atan>(args...) on the flags' branch.
+template <typename Fn, typename... A>
+auto newton_dispatch(int flags, A&&... a) {
+  const bool atan = (flags & kNewtonAtan) != 0;
+  if (flags & kNewtonSplit) {
+    return atan ? Fn::template run<true, true>(a...) : Fn::template run<true, false>(a...);
+  }
+  return atan ? Fn::template run<false, true>(a...) : Fn::template run<false, false>(a...);
+}
+
+// B8's row m in one full-width jet a stage: the ref sub-window over its 25
+// seeds (its value the ref side's primal (p, q)), then the chain over all
+// NS seeds, the ref block chained as stage 2 chains it; the operation
+// count's schedule. Returns the Newton steps.
+template <typename T, bool Split, bool Atan>
+int newton_row_wide(const NewtonInputs<T>& in, int m, T* r_out, T* J_out, T* Jrho_out) {
+  const NewtonShape sh = newton_shape(in.W[0], in.W[1], in.cam.flags);
+  const bool r3_first = (in.cam.flags & kNewtonR3First) != 0;
+  NewtonWindows<T> w;
+  NewtonRow<T> row;
+  load_newton_row<T, Split, Atan>(in, m, w, row);
+  NewtonStages<T> st;
+  ref_sub_window<T, Split>(w, sh, st.sub, st.j_ref);
+  using S1 = Jet<T, 25>;
+  const SeededDelta<T, 25> delta = {0, 24};
+  S1 pq[7];
+  window_pq<T, Split, S1, true>(st.sub, 0, r3_first, delta, seeded<T, 25>(T(0), 24), pq);
+  for (int k = 0; k < 7; ++k) st.pq_ref[k] = pq[k].a;
+  using S2 = Jet<T, kNewtonMaxNS>;
+  S2 r[2];
+  st.steps = newton_chain<T, Split, Atan, S2>(w, row, st.pq_ref, sh, 0, r);
+  for (int i = 0; i < sh.NS; ++i) {
+    st.JG[i][0] = r[0].v[i];
+    st.JG[i][1] = r[1].v[i];
+  }
+  st.r[0] = r[0].a;
+  st.r[1] = r[1].a;
+  T* J = J_out + static_cast<size_t>(m) * 2 * sh.C;
+  for (int rr = 0; rr < 2; ++rr) {
+    for (int c = 0; c < sh.Ct; ++c) J[rr * sh.C + c] = T(0);
+    for (int sd = 0; sd < 25; ++sd) {
+      T acc = T(0);
+      for (int k = 0; k < 7; ++k) acc = acc + st.JG[k][rr] * pq[k].v[sd];
+      if (sd < 24) {
+        J[rr * sh.C + ref_column(sh, Split, r3_first, st.j_ref, sd)] = acc * row.valid;
+      } else {
+        st.t_ref[rr] = acc;
+      }
+    }
+  }
+  newton_stage<T, Split, Atan>(3, 0, 1, w, row, sh, r3_first, st, J, r_out + 2 * m,
+                               Jrho_out + 2 * m);
+  return st.steps;
+}
+
+// B8's row code on double: the cost-only chain, the kernel's lane group
+// lane after lane (kB1Lanes), or one full-width jet a stage (kB1Wide).
+struct HostNewton {
+  template <bool Split, bool Atan>
+  static void run(const NewtonInputs<double>& in, double* r, double* J, double* J_rho,
+                  int* steps, double* margin, int mode) {
+    for (int m = 0; m < in.cam.M; ++m) {
+      double rc[2];
+      steps[m] = newton_cost_row<double, Split, Atan>(in, m, rc, margin + m);
+      if (in.cam.flags & kNewtonCostOnly) {
+        r[2 * m] = rc[0];
+        r[2 * m + 1] = rc[1];
+      } else if (mode == kB1Wide) {
+        newton_row_wide<double, Split, Atan>(in, m, r, J, J_rho);
+      } else {
+        newton_row_lanes<double, Split, Atan>(in, m, r, J, J_rho);
+      }
+    }
+  }
+};
+
+// B8's operations: each row once in one full-width jet a stage, or the
+// cost-only chain once.
+struct CountNewton {
+  template <bool Split, bool Atan>
+  static long long run(const NewtonInputs<Counted>& in) {
+    const int C = newton_shape(in.W[0], in.W[1], in.cam.flags).C;
+    const size_t M = static_cast<size_t>(in.cam.M);
+    std::vector<Counted> r(M * 2), J_rho(M * 2), J(M * 2 * C);
+    g_ops = 0;
+    for (int m = 0; m < in.cam.M; ++m) {
+      if (in.cam.flags & kNewtonCostOnly) {
+        newton_cost_row<Counted, Split, Atan>(in, m, r.data() + 2 * m);
+      } else {
+        newton_row_wide<Counted, Split, Atan>(in, m, r.data(), J.data(), J_rho.data());
+      }
+    }
+    return g_ops;
+  }
+};
+
 }  // namespace
 
 extern "C" {
+
+// B8 row code on double: ins, W0, W1 and flags as for
+// kontiki_newton_rows_f64 (the cost-only bit runs the cost chain; J and
+// J_rho unused); mode kB1Lanes or kB1Wide; steps [M] and margin [M]: the
+// Newton steps each row took and the smallest margin of their convergence
+// tests, |dt^2 - bound| / bound, from the cost chain.
+void kontiki_host_newton_rows_f64(const double* const* ins, double* r, double* J,
+                                  double* J_rho, int* steps, double* margin, int M, int W0,
+                                  int W1, int flags, int mode) {
+  const NewtonInputs<double> in = make_newton_inputs<double>(
+      reinterpret_cast<const void* const*>(ins), M, W0, W1, flags);
+  newton_dispatch<HostNewton>(flags, in, r, J, J_rho, steps, margin, mode);
+}
+
+// Operations of B8's function on these inputs (the cost-only bit: of its
+// cost-only form).
+long long kontiki_count_newton_rows(const double* const* ins, int M, int W0, int W1,
+                                    int flags) {
+  int ks[kNewtonSlots];
+  newton_ks(W0, W1, flags, ks);
+  CountedInputs c(ins, ks, kNewtonSlots, M);
+  const NewtonInputs<Counted> in = make_newton_inputs<Counted>(
+      reinterpret_cast<const void* const*>(c.ptrs.data()), M, W0, W1, flags);
+  return newton_dispatch<CountNewton>(flags, in);
+}
 
 // B4 row code on double: ins as for kontiki_imu_rows_f64; J unused when
 // flags has the cost-only bit. wide = 0 runs the kernel's lane group, lane

@@ -344,3 +344,76 @@ KT_HD Taylor2<T> kt_atan2(const Taylor2<T>& y, const Taylor2<T>& x) {
   r.e = (x.a * y.e - y.a * x.e - r.d * dn) / n;
   return r;
 }
+
+// ---- first-order duals in time over any scalar --------------------------
+//
+// TD<S> carries f(t) = a + d t to first order in one direction, the time,
+// with parts a and d of any scalar type S: a plain T, or a Jet<T, N> over
+// parameter seeds, so that d's tangents are the mixed second derivatives
+// (parameters x time). It is jvp in time inside forward mode over the
+// seeds, as the TPU tile nests jax.jvp inside jax.linearize. B8's Newton
+// rows (newton_rows.cuh) evaluate the observed window on it. A plain T or
+// an S mixes with a TD as a constant in time.
+
+template <typename S>
+struct TD {
+  S a, d;
+  KT_HD TD() {}
+  KT_HD TD(const S& x, const S& dx) : a(x), d(dx) {}
+  // a constant in time, from a T or an S
+  template <typename U>
+  KT_HD TD(const U& x) : a(x), d(typename BaseT<S>::type(0)) {}
+};
+
+template <typename S>
+struct BaseT<TD<S>> { using type = typename BaseT<S>::type; };
+
+template <typename S>
+KT_HD auto val(const TD<S>& x) { return val(x.a); }
+
+template <typename S>
+KT_HD TD<S> operator+(const TD<S>& x, const TD<S>& y) { return {x.a + y.a, x.d + y.d}; }
+template <typename S>
+KT_HD TD<S> operator-(const TD<S>& x, const TD<S>& y) { return {x.a - y.a, x.d - y.d}; }
+template <typename S>
+KT_HD TD<S> operator-(const TD<S>& x) { return {-x.a, -x.d}; }
+template <typename S>
+KT_HD TD<S> operator*(const TD<S>& x, const TD<S>& y) {
+  return {x.a * y.a, x.d * y.a + x.a * y.d};
+}
+template <typename S>
+KT_HD TD<S> operator/(const TD<S>& x, const TD<S>& y) {
+  const S q = x.a / y.a;
+  return {q, (x.d - q * y.d) / y.a};
+}
+
+// with a constant in time (a T or an S)
+template <typename S, typename U>
+KT_HD TD<S> operator+(const TD<S>& x, const U& y) { return {x.a + y, x.d}; }
+template <typename S, typename U>
+KT_HD TD<S> operator+(const U& x, const TD<S>& y) { return {x + y.a, y.d}; }
+template <typename S, typename U>
+KT_HD TD<S> operator-(const TD<S>& x, const U& y) { return {x.a - y, x.d}; }
+template <typename S, typename U>
+KT_HD TD<S> operator-(const U& x, const TD<S>& y) { return {x - y.a, -y.d}; }
+template <typename S, typename U>
+KT_HD TD<S> operator*(const TD<S>& x, const U& y) { return {x.a * y, x.d * y}; }
+template <typename S, typename U>
+KT_HD TD<S> operator*(const U& x, const TD<S>& y) { return {x * y.a, x * y.d}; }
+template <typename S, typename U>
+KT_HD TD<S> operator/(const TD<S>& x, const U& y) { return {x.a / y, x.d / y}; }
+template <typename S, typename U>
+KT_HD TD<S> operator/(const U& x, const TD<S>& y) {
+  const S q = x / y.a;
+  return {q, -(q * y.d) / y.a};
+}
+
+template <typename S>
+KT_HD TD<S> kt_sqrt(const TD<S>& x) {
+  const S r = kt_sqrt(x.a);
+  return {r, x.d / (typename BaseT<S>::type(2) * r)};
+}
+template <typename S>
+KT_HD TD<S> kt_sin(const TD<S>& x) { return {kt_sin(x.a), kt_cos(x.a) * x.d}; }
+template <typename S>
+KT_HD TD<S> kt_cos(const TD<S>& x) { return {kt_cos(x.a), -(kt_sin(x.a) * x.d)}; }

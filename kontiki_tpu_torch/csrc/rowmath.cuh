@@ -163,33 +163,38 @@ KT_HD void se3_knot(const T* win, int j, const D& delta, Q4<S>& kq, V3<S>& kt) {
 // Cumulative SE3 window (p, q) at u + s/dt with right increments on the 4
 // knots (se3_knot). Lazy increments each knot when the chain reaches it, so
 // two are held at a time (B1's wide jets need that to fit their registers);
-// otherwise all four come first (B1's primal stage).
-template <typename T, typename S, typename D, bool Lazy = false>
-KT_HD void pq_se3(const T* win, T u, T dt, const D& delta, const S& s, S* out) {
-  Q4<S> kq[4];
-  V3<S> kt[4];
+// otherwise all four come first (B1's primal stage). The knots and their
+// pairs run on SK, the basis and the products on S (B8 takes the knots on
+// jets and the rest on a time dual of them). A 4-knot sub-window of a wider
+// window starts at knot j0: win and delta start there, and the basis is
+// taken at u + s/dt - j0.
+template <typename T, typename S, typename D, bool Lazy = false, typename SK = S>
+KT_HD void pq_se3(const T* win, T u, T dt, const D& delta, const S& s, S* out, int j0 = 0) {
+  Q4<SK> kq[4];
+  V3<SK> kt[4];
 #pragma unroll
-  for (int j = 0; j < (Lazy ? 1 : 4); ++j) se3_knot<T, S, D>(win, j, delta, kq[j], kt[j]);
+  for (int j = 0; j < (Lazy ? 1 : 4); ++j) se3_knot<T, SK, D>(win, j, delta, kq[j], kt[j]);
 
-  const S ue = u + s / dt;
+  S ue = u + s / dt;
+  if (j0 != 0) ue = ue - T(j0);
   const S u2 = ue * ue;
   const S u3 = u2 * ue;
   const S B[3] = {(T(5) + T(3) * ue - T(3) * u2 + u3) / T(6),
                   (T(1) + T(3) * ue + T(3) * u2 - T(2) * u3) / T(6),
                   u3 / T(6)};
 
-  Q4<S> Pq = kq[0];
-  V3<S> Pt = kt[0];
+  Q4<S> Pq = {S(kq[0].w), S(kq[0].x), S(kq[0].y), S(kq[0].z)};
+  V3<S> Pt = {S(kt[0].x), S(kt[0].y), S(kt[0].z)};
 #pragma unroll
   for (int j = 1; j < 4; ++j) {
-    if (Lazy) se3_knot<T, S, D>(win, j, delta, kq[j], kt[j]);
-    const Q4<S> qi = qconj(kq[j - 1]);
-    const V3<S> ti = qrotate(qi, kt[j - 1]);
-    const Q4<S> q_rel = qmul(qi, kq[j]);
-    const V3<S> rt = qrotate(qi, kt[j]);
-    const V3<S> t_rel = {rt.x + -ti.x, rt.y + -ti.y, rt.z + -ti.z};
-    const V3<S> omega = so3_log(q_rel);
-    const V3<S> ups = Vinv_apply(omega, t_rel);
+    if (Lazy) se3_knot<T, SK, D>(win, j, delta, kq[j], kt[j]);
+    const Q4<SK> qi = qconj(kq[j - 1]);
+    const V3<SK> ti = qrotate(qi, kt[j - 1]);
+    const Q4<SK> q_rel = qmul(qi, kq[j]);
+    const V3<SK> rt = qrotate(qi, kt[j]);
+    const V3<SK> t_rel = {rt.x + -ti.x, rt.y + -ti.y, rt.z + -ti.z};
+    const V3<SK> omega = so3_log(q_rel);
+    const V3<SK> ups = Vinv_apply(omega, t_rel);
     const S b = B[j - 1];
     const V3<S> bo = {b * omega.x, b * omega.y, b * omega.z};
     const V3<S> bu = {b * ups.x, b * ups.y, b * ups.z};

@@ -1,6 +1,6 @@
 """Measurement (residual) definitions (counterpart of
 ``kontiki_tpu.measurements``): the pose kinds, the IMU kinds and the
-static and lifting rolling-shutter camera kinds.
+static, Newton and lifting rolling-shutter camera kinds.
 
 Each class carries its data and sensors and exposes ``measure(trajectory)``
 / ``error(trajectory)`` like the reference bindings
@@ -16,6 +16,11 @@ struct-of-arrays compilation lives in ``kontiki_tpu_torch.solver.problem``.
 - StaticRsCameraMeasurement: ``w * (uv - reproject(...))`` with Huber c=5
   and weight 1 defaults (static_rscamera_measurement.h:65-69). Row time is
   ``view.t0 + time_offset + v * readout / rows``.
+- NewtonRsCameraMeasurement: ``w * (uv - y)`` where ``y`` is the
+  reprojection at the observed row time found by at most five Newton steps
+  on ``v(t) - rows (t - t0) / readout`` from the observation's row, each
+  time clamped to the frame's readout until a step is under half a row
+  (newton_rscamera_measurement.h:23-120).
 - LiftingRsCameraMeasurement: the observed row time lifted to a parameter
   ``vt`` in [0, 1] (observed time ``view.t0 + time_offset + vt * readout``);
   ``w * (uv - reproject, rows (vt - vt_orig))`` (3,)
@@ -32,6 +37,7 @@ __all__ = [
     "GyroscopeMeasurement",
     "AccelerometerMeasurement",
     "StaticRsCameraMeasurement",
+    "NewtonRsCameraMeasurement",
     "LiftingRsCameraMeasurement",
 ]
 
@@ -145,6 +151,77 @@ class StaticRsCameraMeasurement:
         return _reproject_static(
             lm.reference, self.observation, lm.inverse_depth, trajectory, self.camera
         )
+
+    def measure(self, trajectory):
+        return self.project(trajectory)
+
+    def error(self, trajectory):
+        return self.weight * (self.observation.uv - self.project(trajectory))
+
+
+class NewtonRsCameraMeasurement:
+    """Rolling-shutter reprojection solving the row-time constraint with a
+    bounded Newton iteration inside the residual (reference
+    newton_rscamera_measurement.h:23-120)."""
+
+    def __init__(self, camera, obs, huber_loss=5.0, weight=1.0):
+        self.camera = camera
+        self.observation = obs
+        self.huber_loss = float(huber_loss)
+        self.weight = float(weight)
+        self.max_iterations = 5
+
+    def project(self, trajectory):
+        cam = self.camera
+        obs = self.observation
+        lm = obs.landmark
+        ref = lm.reference
+        rho = lm.inverse_depth
+
+        d = cam.time_offset
+        row_delta = cam.readout / cam.rows
+        t0_obs = obs.view.t0 + d
+        t_ref = ref.view.t0 + d + ref.v * row_delta
+        t_obs = t0_obs + obs.v * row_delta
+
+        q_ct, p_ct = cam.relative_pose
+        yh = cam.unproject(ref.uv)
+        X_ref = _qrot(quat_conj(q_ct), yh - rho * p_ct)
+        X = _qrot(trajectory.orientation(t_ref), X_ref) + rho * trajectory.position(t_ref)
+
+        max_dt = 0.5 * cam.readout / cam.rows
+        min_bound, max_bound = t0_obs, t0_obs + cam.readout
+        R_ct = quat_to_rotation_matrix(q_ct)
+
+        def sandwich(qa, x, qb):
+            return quat_mult(qa, quat_mult(np.concatenate([[0.0], x]), qb))[1:]
+
+        y_out = None
+        for _ in range(self.max_iterations):
+            p = trajectory.position(t_obs)
+            dp = trajectory.velocity(t_obs)
+            q = trajectory.orientation(t_obs)
+            w = trajectory.angular_velocity(t_obs)
+            dq = 0.5 * quat_mult(np.concatenate([[0.0], w]), q)
+
+            s = X - rho * p
+            ds = -rho * dp
+            X_obs_cam = R_ct @ (quat_to_rotation_matrix(q).T @ s) + rho * p_ct
+            dX_obs = (sandwich(quat_conj(dq), s, q) + sandwich(quat_conj(q), ds, q)
+                      + sandwich(quat_conj(q), s, dq))
+            # the reference adds the constant offset to the time derivative
+            # too (newton_rscamera_measurement.h:91); kept for parity
+            dX_obs_cam = R_ct @ dX_obs + rho * p_ct
+
+            y_out, dy = cam.evaluate_projection(X_obs_cam, dX_obs_cam, True)
+            f = y_out[1] - cam.rows * (t_obs - t0_obs) / cam.readout
+            df = dy[1] - cam.rows / cam.readout
+            dt = f / df
+            t_obs = t_obs - dt
+            if dt * dt < max_dt * max_dt:
+                break
+            t_obs = np.clip(t_obs, min_bound, max_bound)
+        return y_out
 
     def measure(self, trajectory):
         return self.project(trajectory)

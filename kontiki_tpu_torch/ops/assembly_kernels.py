@@ -105,13 +105,18 @@ def assemble_schur_blocks(Jw, cols, rw, J_rho, lid, *, P, L, with_rho):
                 f"assemble_schur_blocks: kernel launch failed (CUDA error {err})"
             )
         assemble_schur_blocks.launches += 1
+        shape = f"rdim {rdim} C {C}"
+        assemble_schur_blocks.shape_launches[shape] = (
+            assemble_schur_blocks.shape_launches.get(shape, 0) + 1)
     if not with_rho:
         return H, g, None, None, None
     return H, g, E, D, g_l
 
 
-#: kernel launches since the count was last reset (CUDA tensors only)
+#: kernel launches since the count was last reset (CUDA tensors only), and
+#: per row shape ("rdim 2 C 85")
 assemble_schur_blocks.launches = 0
+assemble_schur_blocks.shape_launches = {}
 
 
 def assemble_schur_blocks_host(Jw, cols, rw, J_rho, lid, *, P, L, with_rho, head, blocks,

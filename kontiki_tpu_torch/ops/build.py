@@ -44,6 +44,8 @@ _ENTRIES = {
     "kontiki_eval_windows": [_I, _P, _P, _D, _P, _I, _P],
     "kontiki_r3_evaluate": [_P, _I, _D, _D, _P, _P, _P, _P, _I, _P],
     "kontiki_onehot_expand": [_P, _P, _P, _I, _I, _I, _I, _P],
+    "kontiki_newton_rows": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "kontiki_newton_rows_wave": [_I, _I, _I],
 }
 #: -O1: the row code runs as fast as at -O2 (the checks and operation counts
 #: are bound by the counting scalar's bookkeeping) and compiles in ~60% of
@@ -62,6 +64,8 @@ _HOST_ENTRIES = {
     "kontiki_host_r3_evaluate_f64": ([_P, _I, _D, _D, _P, _P, _P, _P, _I], None),
     "kontiki_count_r3_evaluate": ([_P, _I, _D, _D, _P, _I], ctypes.c_longlong),
     "kontiki_host_assemble_schur_f64": ([_P] * 10 + [_I] * 9, None),
+    "kontiki_host_newton_rows_f64": ([_P] * 6 + [_I] * 5, None),
+    "kontiki_count_newton_rows": ([_P] + [_I] * 4, ctypes.c_longlong),
 }
 
 

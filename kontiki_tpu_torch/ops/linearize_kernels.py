@@ -10,7 +10,10 @@ of ``kontiki_tpu.ops.linearize_kernels``):
   (values and time derivatives), CUDA kernel ``csrc/eval_windows.cu``;
 - B6 ``onehot_expand_rows``: compressed row Jacobians expanded to dense
   pair-window rows for the banded segment-BA assembly, CUDA kernel
-  ``csrc/onehot_expand.cu``.
+  ``csrc/onehot_expand.cu``;
+- B8 ``newton_rows``: Newton rolling-shutter rows, linearize and cost-only
+  forms, CUDA kernels ``csrc/newton_rows.cuh`` (described at
+  ``newton_rows_plain`` and there).
 
 B1, camera rows:
 
@@ -54,7 +57,8 @@ import torch
 from ..constants import GRAVITY
 from ..math.quaternion import EPS as _EPS
 from ..math.se3 import _EPS as _EPS3
-from ..sensors.camera_models import atan_project, pinhole_project
+from ..sensors.camera_models import (atan_evaluate, atan_project, pinhole_evaluate,
+                                     pinhole_project)
 from ..trajectories import spline_eval as ev
 
 _WINDOWS = {
@@ -69,6 +73,8 @@ _ROW = (("q_ct", 4), ("p_ct", 3), ("rho", 1), ("yh_ref", 3), ("uv_obs", 2),
 _ATAN = (("wc", 2), ("gamma", 1))
 _LIFTING = (("vt0", 1), ("vt_orig", 1), ("rows", 1), ("readout", 1))
 _CAMERAS = ("PinholeCamera", "AtanCamera")
+#: the sensor block's columns: q_ct(3), p_ct(3), d, accel bias(3), gyro bias(3)
+SENSOR_COLS = 13
 
 
 def _atan(cfg):
@@ -456,13 +462,19 @@ def cost_rows_plain(cfg, ins):
 
 
 def _check_camera_inputs(who, cfg, ins):
+    return _check_slots(who, cfg, camera_inputs(cfg), ins)
+
+
+def _check_slots(who, cfg, slots, ins):
+    """Check the [k, M] inputs of a camera or Newton kernel's ``slots``
+    (``valid`` optional); returns M."""
     x = ins["u_ref"]
     if x.dtype not in (torch.float32, torch.float64):
         raise TypeError(f"{who}: unsupported dtype {x.dtype}")
     if cfg["kind"] == "split" and "r3_first" not in cfg:
         raise ValueError(f"{who}: a split cfg needs r3_first")
     M = x.shape[-1]
-    for slot in camera_inputs(cfg):
+    for slot in slots:
         if slot is None:
             continue
         name, k = slot
@@ -591,10 +603,326 @@ def cost_rows_wave(cfg, dtype=torch.float64):
 
 
 # ---------------------------------------------------------------------------
+# B8: Newton rolling-shutter rows
+# ---------------------------------------------------------------------------
+
+#: the widest readout-slack window B8's kernel takes (knots per spline)
+NEWTON_MAX_W = 8
+
+
+def newton_shape(cfg):
+    """``(Ct, C)`` of ``cfg``'s Newton rows: the window tangents of one side
+    (ref or obs) and the Jacobian columns ``2 Ct + 13``."""
+    td = 6 if cfg["kind"] == "se3" else 3
+    Ct = td * sum(cfg["Ws"])
+    return Ct, 2 * Ct + SENSOR_COLS
+
+
+def _newton_windows(cfg):
+    """``(W_r3, W_so3)`` of a split cfg (``Ws`` is in spline order)."""
+    W0, W1 = cfg["Ws"]
+    return (W0, W1) if cfg["r3_first"] else (W1, W0)
+
+
+def newton_inputs(cfg):
+    """B8's input slots, in the C entry points' order: ``(name, leading
+    size)``, or None where ``cfg``'s window kind or camera has no such
+    input. The windows are ``W``-knot readout-slack windows (``cfg["Ws"]``)
+    and the obs side's ``u`` is at the frame start; the last slot,
+    ``valid``, is optional."""
+    if cfg["kind"] == "se3":
+        (W,) = cfg["Ws"]
+        windows = (("win_ref", 7 * W), None, ("u_ref", 1), None, ("win_obs", 7 * W), None,
+                   ("u_obs", 1), None, ("dts", 1))
+    elif cfg["kind"] == "split":
+        Wr, Wq = _newton_windows(cfg)
+        windows = (("win_ref_r3", 3 * Wr), ("win_ref_so3", 4 * Wq), ("u_ref", 1),
+                   ("u_ref_so3", 1), ("win_obs_r3", 3 * Wr), ("win_obs_so3", 4 * Wq),
+                   ("u_obs", 1), ("u_obs_so3", 1), ("dts", 2))
+    else:
+        raise ValueError(f"newton_rows: unsupported window kind {cfg['kind']!r}")
+    atan = _ATAN if _atan(cfg) else (None,) * len(_ATAN)
+    return (*windows, *_ROW, *atan, ("v_obs", 1), ("rows", 1), ("readout", 1), ("valid", 1))
+
+
+def newton_branch(cfg):
+    """B8's branch of ``cfg``, as its launch counts name it: window kind
+    and camera, e.g. ``'split pinhole'``."""
+    return f"{cfg['kind']} {'atan' if _atan(cfg) else 'pinhole'}"
+
+
+def _blend_sub4(win, delta, u_in, s_over_dt, W, D, td):
+    """The 4-knot sub-window of a ``W``-knot window at ``u_in + s/dt``: knots
+    ``j .. j + 3`` and their increments, ``j = clip(floor(u_in + s/dt), 0,
+    W - 4)`` held constant (``floor`` of the detached value), selected by
+    0/1 masks as the JAX tile does. ``win``: W knots of D components;
+    ``delta``: W * td increments. Returns (4 * D knot components, 4 * td
+    increments, u of the sub-window)."""
+    s_rel = u_in + s_over_dt
+    j = torch.clamp(torch.floor(s_rel.detach()), 0.0, float(W - 4))
+    u_loc = s_rel - j
+    masks = [(j == float(jj)).to(s_rel.dtype) for jj in range(W - 3)]
+
+    def pick(values, width, k, c):
+        acc = masks[0] * values[k * width + c]
+        for jj in range(1, W - 3):
+            acc = acc + masks[jj] * values[(jj + k) * width + c]
+        return acc
+
+    sub = [pick(win, D, k, c) for k in range(4) for c in range(D)]
+    sub_delta = [pick(delta, td, k, c) for k in range(4) for c in range(td)]
+    return sub, sub_delta, u_loc
+
+
+def _newton_window_fns(cfg, ins):
+    """``(f_ref, f_obs)``: each ``f(delta [Ct, M], s [M]) -> (p, q) [7, M]``
+    of one side's ``W``-knot window at ``u + s/dt`` through its masked
+    4-knot sub-window (the JAX tile's ``_newton_prelude``)."""
+    if cfg["kind"] == "se3":
+        (W,) = cfg["Ws"]
+        dt = ins["dts"][0]
+
+        def make(tag):
+            win, u = ins[f"win_{tag}"], ins[f"u_{tag}"][0]
+
+            def f(delta, s):
+                sub, sd, uu = _blend_sub4(win, delta, u, s / dt, W, 7, 6)
+                return torch.stack(_pq_se3(sub, uu, dt, sd, torch.zeros_like(uu)))
+            return f
+        return make("ref"), make("obs")
+
+    r3_first = cfg["r3_first"]
+    Wr, Wq = _newton_windows(cfg)
+    dt_r3, dt_so3 = ins["dts"][0], ins["dts"][1]
+    off_r3 = 0 if r3_first else 3 * Wq
+    off_so3 = 3 * Wr if r3_first else 0
+
+    def make(tag):
+        wr, wq = ins[f"win_{tag}_r3"], ins[f"win_{tag}_so3"]
+        ur, uq = ins[f"u_{tag}"][0], ins[f"u_{tag}_so3"][0]
+
+        def f(delta, s):
+            sub_r3, sd_r3, u3 = _blend_sub4(wr, delta[off_r3:off_r3 + 3 * Wr], ur, s / dt_r3,
+                                            Wr, 3, 3)
+            sub_so3, sd_so3, u4 = _blend_sub4(wq, delta[off_so3:off_so3 + 3 * Wq], uq,
+                                              s / dt_so3, Wq, 4, 3)
+            d24 = (sd_r3 + sd_so3) if r3_first else (sd_so3 + sd_r3)
+            return torch.stack(_pq_split(sub_r3, sub_so3, u3, u4, dt_r3, dt_so3, d24,
+                                         torch.zeros_like(u3), r3_first))
+        return f
+    return make("ref"), make("obs")
+
+
+def _newton_chain(cfg, ins, f_obs):
+    """``chain(u_ref [7, M], delta_obs [Ct, M], dsen [6, M], drho, ds) -> r
+    [2, M]``: the rows' residual from the ref side's (p, q), the JAX tile's
+    ``_newton_chain``. Five Newton steps on ``f(t) = v(t) - rows t /
+    readout`` in the row time ``t`` relative to the frame start, each
+    evaluating the obs window at ``ds + t`` and its time derivative (a
+    ``torch.func.jvp`` in time); ``dX_cam`` carries the reference's
+    ``+ rho p_ct`` (newton_rscamera_measurement.h:91); the time is clamped
+    to [0, readout] until a step passes ``dt^2 < (readout / (2 rows))^2``,
+    and the projection of the first step that passes is kept (of the
+    fifth if none does)."""
+    rows, readout = ins["rows"][0], ins["readout"][0]
+    K = ins["K"].T.reshape(-1, 3, 3)
+
+    def evaluate(X, dX):
+        """(y, dy) [2, M]: the projection of X and its time derivative."""
+        X, dX = torch.stack(X, dim=-1), torch.stack(dX, dim=-1)
+        if _atan(cfg):
+            y, dy = atan_evaluate(K, ins["wc"].T, ins["gamma"][0], X, dX)
+        else:
+            y, dy = pinhole_evaluate(K, X, dX)
+        return y.T, dy.T
+
+    def chain(u_ref, delta_obs, dsen, drho, ds):
+        p_ref, q_ref = u_ref[:3], u_ref[3:]
+        q_ct = _qmul(_so3_exp_quat((dsen[0], dsen[1], dsen[2])), tuple(ins["q_ct"]))
+        p_ct = tuple(ins["p_ct"][k] + dsen[3 + k] for k in range(3))
+        rho = ins["rho"][0] + drho
+        yh = ins["yh_ref"]
+        a = (yh[0] - rho * p_ct[0], yh[1] - rho * p_ct[1], yh[2] - rho * p_ct[2])
+        Xw = _qrotate(q_ref, _qrotate(_qconj(q_ct), a))
+        X = (Xw[0] + rho * p_ref[0], Xw[1] + rho * p_ref[1], Xw[2] + rho * p_ref[2])
+        row_delta = readout / rows
+        max_dt2 = (0.5 * row_delta) * (0.5 * row_delta)
+
+        def obs_X_cam(t_shift):
+            pq = f_obs(delta_obs, t_shift)
+            sv = (X[0] - rho * pq[0], X[1] - rho * pq[1], X[2] - rho * pq[2])
+            Xc = _qrotate(q_ct, _qrotate(_qconj(tuple(pq[3:])), sv))
+            return torch.stack((Xc[0] + rho * p_ct[0], Xc[1] + rho * p_ct[1],
+                                Xc[2] + rho * p_ct[2]))
+
+        t_rel = ins["v_obs"][0] * row_delta
+        y0 = y1 = torch.zeros_like(t_rel)
+        done = torch.zeros_like(t_rel, dtype=torch.bool)
+        for _ in range(5):
+            Xc, dX0 = torch.func.jvp(obs_X_cam, (ds + t_rel,), (torch.ones_like(t_rel),))
+            dXc = (dX0[0] + rho * p_ct[0], dX0[1] + rho * p_ct[1], dX0[2] + rho * p_ct[2])
+            y, dy = evaluate(tuple(Xc), dXc)
+            dtn = (y[1] - rows * t_rel / readout) / (dy[1] - rows / readout)
+            now_done = dtn * dtn < max_dt2
+            new_t = t_rel - dtn
+            new_t = torch.where(now_done, new_t,
+                                torch.clamp(new_t, torch.zeros_like(new_t), readout))
+            t_rel = torch.where(done, t_rel, new_t)
+            y0 = torch.where(done, y0, y[0])
+            y1 = torch.where(done, y1, y[1])
+            done = done | now_done
+        w = ins["weight"][0]
+        uv = ins["uv_obs"]
+        return torch.stack((w * (uv[0] - y0), w * (uv[1] - y1)))
+
+    return chain
+
+
+def newton_rows_plain(cfg, ins, cost_only=False):
+    """Plain PyTorch B8 (the JAX tile's ``_tile_newton_linearize`` and
+    ``_tile_newton_cost``): rows are the batch dimension, seeds a vmapped
+    dimension of ``torch.func.jvp``.
+
+    - stage 1: the ref window in forward mode over its Ct knot tangents and
+      the time shift ``s`` (Ct + 1 seeds) -> (p, q) and their columns;
+    - stage 2: the Newton chain over 7 + Ct + 8 seeds: the ref (p, q), the
+      obs window's knot tangents, the sensor rotation and translation, the
+      inverse depth and ``s``;
+    - the chain rule through the ref (p, q) bottleneck gives the ref block;
+      the sensor block is ``[q_ct(3), p_ct(3), d = s column + ref time
+      chain, biases = 0]``.
+
+    Returns ``(r [M, 2], J [M, 2, C], J_rho [M, 2])`` with C = 2 Ct + 13
+    (columns: ref window, obs window, sensor), or ``r`` with ``cost_only``;
+    rows with ``valid = 0`` give zeros."""
+    M = ins["u_ref"].shape[1]
+    opts = dict(dtype=ins["u_ref"].dtype, device=ins["u_ref"].device)
+    Ct, _ = newton_shape(cfg)
+    f_ref, f_obs = _newton_window_fns(cfg, ins)
+    chain = _newton_chain(cfg, ins, f_obs)
+    zerosC, zerosM = torch.zeros(Ct, M, **opts), torch.zeros(M, **opts)
+    zeros6 = torch.zeros(6, M, **opts)
+    valid = ins["valid"][0] if "valid" in ins else None
+    if cost_only:
+        r = chain(f_ref(zerosC, zerosM), zerosC, zeros6, zerosM, zerosM)
+        if valid is not None:
+            r = r * valid
+        return r.T.contiguous()
+
+    eye = torch.eye(Ct + 1, **opts)
+    pq_ref, Jw_ref = _jvp_seeds(f_ref, (zerosC, zerosM), (eye[:, :Ct], eye[:, Ct:]))
+
+    def chain7(du_ref, delta_obs, dsen, drho, ds):
+        return chain(pq_ref + du_ref, delta_obs, dsen, drho, ds)
+
+    NS = 7 + Ct + 8
+    eye = torch.eye(NS, **opts)
+    r, JG = _jvp_seeds(
+        chain7, (torch.zeros(7, M, **opts), zerosC, zeros6, zerosM, zerosM),
+        (eye[:, :7], eye[:, 7:7 + Ct], eye[:, 7 + Ct:13 + Ct], eye[:, 13 + Ct:14 + Ct],
+         eye[:, 14 + Ct:]),
+    )  # [2, M], [NS, 2, M]
+    J_ref = torch.zeros(2, Ct, M, **opts)
+    t_ref = torch.zeros(2, M, **opts)
+    for k in range(7):
+        J_ref = J_ref + JG[k][:, None, :] * Jw_ref[:Ct, k][None, :, :]
+        t_ref = t_ref + JG[k] * Jw_ref[Ct, k][None, :]
+    J_sen = torch.cat([JG[7 + Ct:13 + Ct].transpose(0, 1), (JG[14 + Ct] + t_ref)[:, None, :],
+                       torch.zeros(2, 6, M, **opts)], dim=1)
+    J = torch.cat([J_ref, JG[7:7 + Ct].transpose(0, 1), J_sen], dim=1)  # [2, C, M]
+    J_rho = JG[13 + Ct]
+    if valid is not None:
+        r, J, J_rho = r * valid, J * valid, J_rho * valid
+    return r.T.contiguous(), J.permute(2, 0, 1).contiguous(), J_rho.T.contiguous()
+
+
+def _check_newton_inputs(cfg, ins):
+    if len(cfg["Ws"]) != (1 if cfg["kind"] == "se3" else 2) or min(cfg["Ws"]) < 4:
+        raise ValueError(f"newton_rows: bad window widths {cfg['Ws']!r}")
+    return _check_slots("newton_rows", cfg, newton_inputs(cfg), ins)
+
+
+def _newton_flags(cfg, cost_only=False):
+    """Flags of the C entry points (bits of ``csrc/newton_rows.cuh``): split
+    windows, R3 spline first, atan camera, cost only."""
+    return ((1 if cfg["kind"] == "split" else 0) | (2 if cfg.get("r3_first") else 0)
+            | (4 if _atan(cfg) else 0) | (8 if cost_only else 0))
+
+
+def _newton_ws(cfg):
+    """The C entry points' window widths: SE3 ``(W, W)``, split ``(W_r3,
+    W_so3)``."""
+    return (cfg["Ws"][0],) * 2 if cfg["kind"] == "se3" else _newton_windows(cfg)
+
+
+def newton_rows(cfg, ins, cost_only=False):
+    """B8: ``(r [M, 2], J [M, 2, C], J_rho [M, 2])``, or ``r`` with
+    ``cost_only``, of Newton rolling-shutter rows (see
+    ``newton_rows_plain``) from ``ins`` (dict of [k, M] tensors named as in
+    ``newton_inputs(cfg)``); ``cfg``: ``kind`` ('se3' | 'split'), split
+    ``r3_first``, ``camera`` ('PinholeCamera' | 'AtanCamera') and ``Ws``,
+    the window widths in spline order. CPU tensors run the plain version,
+    CUDA tensors the hand-written kernel (windows of at most
+    ``NEWTON_MAX_W`` knots)."""
+    M = _check_newton_inputs(cfg, ins)
+    x = ins["u_ref"]
+    if x.device.type == "cpu":
+        return newton_rows_plain(cfg, ins, cost_only=cost_only)
+    if x.device.type != "cuda":
+        raise ValueError(f"newton_rows: unsupported device {x.device}")
+    if max(cfg["Ws"]) > NEWTON_MAX_W:
+        raise NotImplementedError(
+            f"newton_rows: the kernel takes windows of at most {NEWTON_MAX_W} knots, "
+            f"got {cfg['Ws']!r}")
+    from .build import load_library
+
+    _, C = newton_shape(cfg)
+    r = torch.empty(M, 2, dtype=x.dtype, device=x.device)
+    J = torch.empty(0 if cost_only else M, 2, C, dtype=x.dtype, device=x.device)
+    J_rho = torch.empty(0 if cost_only else M, 2, dtype=x.dtype, device=x.device)
+    if M == 0:
+        return r if cost_only else (r, J, J_rho)
+    lib = load_library()
+    fn = lib.kontiki_newton_rows_f64 if x.dtype == torch.float64 else lib.kontiki_newton_rows_f32
+    ptrs = _slot_ptrs(newton_inputs(cfg), ins)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(ptrs, ctypes.c_void_p(r.data_ptr()),
+                 ctypes.c_void_p(None if cost_only else J.data_ptr()),
+                 ctypes.c_void_p(None if cost_only else J_rho.data_ptr()), ctypes.c_int(M),
+                 *(ctypes.c_int(w) for w in _newton_ws(cfg)),
+                 ctypes.c_int(_newton_flags(cfg, cost_only)), ctypes.c_void_p(stream))
+    if err:
+        raise RuntimeError(f"newton_rows: kernel launch failed (CUDA error {err})")
+    newton_rows.launches += 1
+    newton_rows.cost_launches += int(cost_only)
+    branch = newton_branch(cfg) + (" cost-only" if cost_only else "")
+    newton_rows.branch_launches[branch] = newton_rows.branch_launches.get(branch, 0) + 1
+    return r if cost_only else (r, J, J_rho)
+
+
+def newton_rows_wave(cfg, dtype=torch.float64):
+    """The rows B8's linearize kernel holds on the current card at once
+    (one wave of its blocks), for ``cfg``'s branch and window widths."""
+    from .build import load_library
+
+    fn = getattr(load_library(), "kontiki_newton_rows_wave"
+                 + ("_f64" if dtype == torch.float64 else "_f32"))
+    return fn(*_newton_ws(cfg), _newton_flags(cfg))
+
+
+#: kernel launches since the count was last reset (CUDA tensors only), how
+#: many of them were the cost-only form, and per branch (``newton_branch``,
+#: then `` cost-only`` for that form)
+newton_rows.launches = 0
+newton_rows.cost_launches = 0
+newton_rows.branch_launches = {}
+
+
+# ---------------------------------------------------------------------------
 # B4: gyro / accel rows on SO3 or split R3 + SO3 splines
 # ---------------------------------------------------------------------------
 
-SENSOR_COLS = 13
 #: input names, in the kernel's argument order, with their leading sizes;
 #: the r3 inputs are absent for SO3-only problems and ``valid`` is optional
 IMU_INPUTS = (
@@ -1008,6 +1336,55 @@ def cost_rows_ops(cfg, ins):
     M = _check_camera_inputs("cost_rows", cfg, ins)
     keep, ptrs = _host_args(camera_inputs(cfg), ins)
     return load_host_library().kontiki_count_cost_rows(ptrs, M, _camera_flags(cfg))
+
+
+def newton_rows_host(cfg, ins, cost_only=False, wide=False, steps=False):
+    """B8's CUDA row code compiled for the host, in float64: the same
+    outputs as ``newton_rows`` (CPU tensors). Each row runs the kernel's
+    lane group, one lane after another, stage by stage; ``wide`` runs one
+    full-width jet a stage instead, as ``newton_rows_ops`` counts it;
+    ``cost_only`` the cost-only kernel's chain. With ``steps``, the Newton
+    steps each row took (int32 [M]) and the smallest margin of their
+    convergence tests, ``|dt^2 - b| / b`` with ``b = (readout / (2
+    rows))^2`` (float64 [M]), come last."""
+    from .build import load_host_library
+
+    M = _check_newton_inputs(cfg, ins)
+    keep, ptrs = _host_args(newton_inputs(cfg), ins)
+    _, C = newton_shape(cfg)
+    r = torch.zeros(M, 2, dtype=torch.float64)
+    J = torch.zeros(M, 2, C, dtype=torch.float64)
+    J_rho = torch.zeros(M, 2, dtype=torch.float64)
+    n = torch.zeros(M, dtype=torch.int32)
+    margin = torch.zeros(M, dtype=torch.float64)
+    load_host_library().kontiki_host_newton_rows_f64(
+        ptrs, r.data_ptr(), J.data_ptr(), J_rho.data_ptr(), n.data_ptr(), margin.data_ptr(), M,
+        *_newton_ws(cfg), _newton_flags(cfg, cost_only), 1 if wide else 2)
+    out = (r,) if cost_only else (r, J, J_rho)
+    if steps:
+        out += (n, margin)
+    return out[0] if len(out) == 1 else out
+
+
+def newton_rows_ops(cfg, ins, cost_only=False):
+    """Floating-point operations B8's function needs on ``ins``, counted by
+    running its row code on the host once per row, one full-width jet a
+    stage (the ref window's 25 seeds, the chain's NS), with structural
+    zeros and ones free; ``cost_only``: its cost-only form's chain. Rows
+    are counted in chunks in parallel threads."""
+    from .build import load_host_library
+
+    M = _check_newton_inputs(cfg, ins)
+    slots = newton_inputs(cfg)
+    keep, _ = _host_args(slots, ins)
+    fn = load_host_library().kontiki_count_newton_rows
+
+    def count(a, b):
+        part = {k: v[:, a:b].contiguous() for k, v in keep.items()}
+        return fn(_slot_ptrs(slots, part), b - a, *_newton_ws(cfg),
+                  _newton_flags(cfg, cost_only))
+
+    return count_in_chunks(count, M, 256)
 
 
 def _host_f64(x):

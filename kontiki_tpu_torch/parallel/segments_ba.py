@@ -34,8 +34,9 @@ Only one shard is ported: there the halos are empty (``Hl = Hr = 0``), the
 knot and landmark arrays are the whole problem padded to ``seg`` knots, and
 the JAX package's permutes and reductions over the mesh are identities.
 ``n_shards > 1`` (torch.distributed, ROADMAP.md Queue A 5), the
-matrix-free ``mode="pcg"`` (Queue A 2.5), Newton buckets (Queue A 1) and
-position and orientation buckets (Queue A 5) raise ``NotImplementedError``.
+matrix-free ``mode="pcg"`` (Queue A 2.5), Newton buckets (Queue A 1: kernel
+B8's rows on the banded layout) and position and orientation buckets
+(Queue A 5) raise ``NotImplementedError``.
 Lifting buckets raise ``ValueError`` in banded mode, as the JAX package's
 do: their per-row ``vt`` columns ride the PCG mode.
 """
@@ -416,7 +417,8 @@ def _check_supported(problem, n_shards, mode):
                 "rs_lifting buckets ride the segment-BA PCG mode (per-row vt "
                 "columns are not banded); use mode='pcg'")
         if kind in ("rs_newton", "position", "orientation"):
-            item = "Queue A 1" if kind == "rs_newton" else "Queue A 5"
+            item = ("Queue A 1, segment-BA Newton rows" if kind == "rs_newton"
+                    else "Queue A 5")
             raise NotImplementedError(
                 f"{kind} buckets in segment BA are not ported: ROADMAP.md {item}")
 

@@ -1,6 +1,5 @@
 """Batched residual / Jacobian terms, bounds, retraction and the dense
-solver parts (counterpart of ``kontiki_tpu.solver.kernels``; every bucket
-kind but ``rs_newton``).
+solver parts (counterpart of ``kontiki_tpu.solver.kernels``).
 
 - Camera rows (``rs_static`` and ``rs_lifting``, on a pinhole or an atan
   camera, on an SE3 spline or a split R3 + SO3 trajectory) gather their
@@ -9,6 +8,12 @@ kind but ``rs_newton``).
   alone runs kernel B3 (``cost_rows``) on the same inputs. A lifting row's
   observed window is evaluated at ``t0_obs + d + vt readout`` and its
   Jacobian carries the ``vt`` column last.
+- Newton rolling-shutter rows (``rs_newton``, on a pinhole or an atan
+  camera, on an SE3 spline or a split R3 + SO3 trajectory) gather their
+  ``W``-knot readout-slack windows (the Newton time moves within the
+  readout) with the obs side at the frame start, and run kernel B8
+  (``ops.linearize_kernels.newton_rows``), whose cost-only form the re-cost
+  runs.
 - Gyro and accel rows on an SO3 spline or a split R3 + SO3 trajectory do
   the same for kernel B4 (``ops.linearize_kernels.imu_rows``), which also
   has the cost-only form the re-cost uses.
@@ -34,7 +39,7 @@ import torch
 from ..constants import GRAVITY
 from ..math import quaternion as quat
 from ..math import se3 as se3m
-from ..ops.linearize_kernels import cost_rows, imu_rows, linearize_rows
+from ..ops.linearize_kernels import cost_rows, imu_rows, linearize_rows, newton_rows
 from ..trajectories import spline_eval as ev
 from .problem import SENSOR_TANGENT_DIM, TANGENT_DIMS
 
@@ -46,7 +51,8 @@ class SplineSpec(NamedTuple):
 
 
 class BucketSpec(NamedTuple):
-    kind: str  # 'position' | 'orientation' | 'gyro' | 'accel' | 'rs_static' | 'rs_lifting'
+    kind: str  # 'position' | 'orientation' | 'gyro' | 'accel' | 'rs_static' | 'rs_newton'
+    # | 'rs_lifting'
     camera: str  # '' | 'PinholeCamera' | 'AtanCamera'
     M: int
     rdim: int
@@ -79,8 +85,11 @@ def retract_window(kind, win, delta):
     return se3m.se3_pack(quat.qmul(q, dq), t + quat.qrotate(q, dt))
 
 
-#: the camera-row bucket kinds (kernels B1 and B3)
+#: the camera-row bucket kinds of kernels B1 and B3
 CAMERA_KINDS = ("rs_static", "rs_lifting")
+#: the bucket kinds with a landmark column and the Huber loss: B1/B3's and
+#: the Newton rows (kernel B8)
+LANDMARK_KINDS = CAMERA_KINDS + ("rs_newton",)
 
 
 def _spline_n_eval(runtime, si, sp):
@@ -125,7 +134,6 @@ def _camera_inputs(spec, runtime, state, data):
     if not se3 and sorted(kinds) != ["r3", "so3"]:
         raise NotImplementedError(f"camera rows on splines {list(kinds)}")
     M = d.shape[0]
-    opts = dict(dtype=d.dtype, device=d.device)
     ins, i0s = {}, {"ref": [], "obs": []}
     for si, sp in enumerate(spec.splines):
         t0, dt = runtime["spline_t0"][si], runtime["spline_dt"][si]
@@ -137,29 +145,40 @@ def _camera_inputs(spec, runtime, state, data):
             ins[f"win_{tag}{suffix}"] = win.reshape(M, -1).T.contiguous()
             ins[f"u_{tag}" + ("_so3" if sp.kind == "so3" else "")] = u[None, :].contiguous()
             i0s[tag].append(i0)
-    dts = [runtime["spline_dt"][kinds.index(k)] for k in (("se3",) if se3 else ("r3", "so3"))]
+    _row_constants(ins, spec, runtime, state, data)
+    if lifting:
+        ins["vt0"] = vt0[None, :].contiguous()
+        for name in ("vt_orig", "rows", "readout"):
+            ins[name] = data[name][None, :].contiguous()
+    cfg = dict(kind="se3" if se3 else "split", r3_first=not se3 and kinds[0] == "r3",
+               camera="AtanCamera" if atan else "PinholeCamera", lifting=lifting,
+               rdim=3 if lifting else 2, C=62 if lifting else 61)
+    return cfg, ins, i0s
+
+
+def _row_constants(ins, spec, runtime, state, data):
+    """Add the camera rows' [k, M] constants to ``ins`` (B1, B3 and B8): the
+    knot spacings ``dts`` (SE3, or R3 then SO3), the sensor pose, inverse
+    depth, reference ray, observation, weight and ``K``; ``wc`` and
+    ``gamma`` of an atan camera; ``valid`` where the bucket has it."""
+    kinds = tuple(sp.kind for sp in spec.splines)
+    sid, M = data["sid"], data["sid"].shape[0]
+    opts = dict(dtype=data["weight"].dtype, device=sid.device)
+    dts = [runtime["spline_dt"][kinds.index(k)]
+           for k in (("se3",) if kinds == ("se3",) else ("r3", "so3"))]
     ins["dts"] = torch.tensor(dts, **opts)[:, None].expand(len(dts), M).contiguous()
-    ins["q_ct"] = state["q_ct"][data["sid"]].T.contiguous()
-    ins["p_ct"] = state["p_ct"][data["sid"]].T.contiguous()
+    ins["q_ct"] = state["q_ct"][sid].T.contiguous()
+    ins["p_ct"] = state["p_ct"][sid].T.contiguous()
     ins["rho"] = state["rho"][data["lid"]][None, :].contiguous()
     ins["yh_ref"] = data["yh_ref"].T.contiguous()
     ins["uv_obs"] = data["uv_obs"].T.contiguous()
     ins["weight"] = data["weight"][None, :].contiguous()
     ins["K"] = data["K"].reshape(M, 9).T.contiguous()
-    if atan:
+    if "wc" in data:
         ins["wc"] = data["wc"].T.contiguous()
         ins["gamma"] = data["gamma"][None, :].contiguous()
-    if lifting:
-        ins["vt0"] = vt0[None, :].contiguous()
-        ins["vt_orig"] = data["vt_orig"][None, :].contiguous()
-        ins["rows"] = data["rows"][None, :].contiguous()
-        ins["readout"] = data["readout"][None, :].contiguous()
     if "valid" in data:
         ins["valid"] = data["valid"][None, :].contiguous()
-    cfg = dict(kind="se3" if se3 else "split", r3_first=not se3 and kinds[0] == "r3",
-               camera="AtanCamera" if atan else "PinholeCamera", lifting=lifting,
-               rdim=3 if lifting else 2, C=62 if lifting else 61)
-    return cfg, ins, i0s
 
 
 def _camera_rows(spec, runtime, state, data):
@@ -178,6 +197,81 @@ def _camera_rows(spec, runtime, state, data):
                 + torch.arange(SENSOR_TANGENT_DIM, device=sid.device))
     if cfg["lifting"]:
         cols.append((spec.vt_offset + data["vt_idx"])[:, None])
+    return r, J, torch.cat(cols, dim=1), J_rho
+
+
+# ---------------------------------------------------------------------------
+# Newton rolling-shutter rows: kernel B8
+# ---------------------------------------------------------------------------
+
+def _newton_inputs(spec, bspec, runtime, state, data):
+    """Gather + transpose Newton rows for B8 (the JAX package's
+    ``_fused_newton_inputs``). Returns ``(cfg, ins, i0s)``: the kernel's
+    configuration (``kind``, ``r3_first``, ``camera``, ``rdim``, ``Ct``,
+    ``C = 2 Ct + 13``, ``Ws``), the [k, M] input dict and the window base
+    indices ``{"ref": [per spline], "obs": [per spline]}``.
+
+    Each side gathers its bucket's ``W``-knot windows at the frame start
+    ``t0 + d`` (clamped to [0, n_eval - W]); the ref side's ``u`` is at its
+    row time ``t0_ref + d + v_ref readout / rows``, the obs side's at the
+    frame start (the kernel adds the Newton row time). Names as
+    ``_camera_inputs``'s, plus ``v_obs``, ``rows`` and ``readout``."""
+    d = state["d"][data["sid"]]
+    row_delta = data["readout"] / data["rows"]
+    t_base = {"ref": data["t0_ref"] + d, "obs": data["t0_obs"] + d}
+    t_row = {"ref": t_base["ref"] + data["v_ref"] * row_delta, "obs": t_base["obs"]}
+    kinds = tuple(sp.kind for sp in spec.splines)
+    se3 = kinds == ("se3",)
+    if not se3 and sorted(kinds) != ["r3", "so3"]:
+        raise NotImplementedError(f"Newton rows on splines {list(kinds)}")
+    M = d.shape[0]
+    opts = dict(dtype=d.dtype, device=d.device)
+    ins, i0s = {}, {"ref": [], "obs": []}
+    Ct = 0
+    for si, sp in enumerate(spec.splines):
+        W = bspec.windows[si]
+        Ct += W * TANGENT_DIMS[sp.kind]
+        t0 = runtime["spline_t0"][si]
+        dt = torch.full((), runtime["spline_dt"][si], **opts)
+        knots = state[sp.kind]
+        for tag in ("ref", "obs"):
+            # window base: floor on the primal at the frame start
+            i0 = torch.clamp(torch.floor((t_base[tag] - t0) / dt).long(), 0,
+                             _spline_n_eval(runtime, si, sp) - W)
+            u = (t_row[tag] - t0) / dt - i0.to(d.dtype)
+            idx = torch.clamp(i0[:, None] + torch.arange(W, device=d.device), 0,
+                              knots.shape[0] - 1)
+            suffix = "" if se3 else f"_{sp.kind}"
+            ins[f"win_{tag}{suffix}"] = knots[idx].reshape(M, -1).T.contiguous()
+            ins[f"u_{tag}" + ("_so3" if sp.kind == "so3" else "")] = u[None, :].contiguous()
+            i0s[tag].append(i0)
+    _row_constants(ins, spec, runtime, state, data)
+    for name in ("v_obs", "rows", "readout"):
+        ins[name] = data[name][None, :].contiguous()
+    cfg = dict(kind="se3" if se3 else "split", r3_first=not se3 and kinds[0] == "r3",
+               camera="AtanCamera" if "wc" in data else "PinholeCamera", rdim=2, Ct=Ct,
+               C=2 * Ct + SENSOR_TANGENT_DIM, Ws=tuple(bspec.windows))
+    return cfg, ins, i0s
+
+
+def _newton_rows(spec, bspec, runtime, state, data, cost_only=False):
+    """(r [M, 2], J [M, 2, C], cols [M, C], J_rho [M, 2]) of Newton rows
+    through B8, columns [ref windows, obs windows (each in spline order),
+    sensor] as in the JAX package's ``_newton_rows_fused``; ``r`` alone
+    with ``cost_only``."""
+    cfg, ins, i0s = _newton_inputs(spec, bspec, runtime, state, data)
+    if cost_only:
+        return newton_rows(cfg, ins, cost_only=True)
+    r, J, J_rho = newton_rows(cfg, ins)
+    sid = data["sid"]
+    cols = [
+        sp.tangent_offset + i0[:, None] * TANGENT_DIMS[sp.kind]
+        + torch.arange(W * TANGENT_DIMS[sp.kind], device=sid.device)
+        for tag in ("ref", "obs")
+        for sp, i0, W in zip(spec.splines, i0s[tag], bspec.windows)
+    ]
+    cols.append(spec.sensor_offset + sid[:, None] * SENSOR_TANGENT_DIM
+                + torch.arange(SENSOR_TANGENT_DIM, device=sid.device))
     return r, J, torch.cat(cols, dim=1), J_rho
 
 
@@ -401,13 +495,15 @@ def bucket_terms(spec, bspec, runtime, state, data, cost_only=False):
     off (the Schur path's form); with ``cost_only``, ``r [M, rdim]`` alone
     and no Jacobian: camera rows through B3, SO3/split IMU rows through
     B4's cost-only form, SE3 IMU rows and pose rows through their residual
-    function at zero increments. ``rs_newton`` rows are not ported
-    (ROADMAP.md Queue A 1)."""
+    function at zero increments; Newton rows through B8 and its cost-only
+    form."""
     kinds = [sp.kind for sp in spec.splines]
     if bspec.kind in CAMERA_KINDS:
         if cost_only:
             return cost_rows(*_camera_inputs(spec, runtime, state, data)[:2])
         return _camera_rows(spec, runtime, state, data)
+    if bspec.kind == "rs_newton":
+        return _newton_rows(spec, bspec, runtime, state, data, cost_only=cost_only)
     if bspec.kind in ("position", "orientation"):
         out = _pose_rows(spec, bspec, runtime, state, data, cost_only=cost_only)
     elif _fused_imu_enabled(spec, bspec):
@@ -435,10 +531,10 @@ def _huber_prime(s, c):
 
 def _bucket_cost(bspec, data, r):
     """``(cost, rho')`` of one bucket's residuals: 0.5 sum rho(|r|^2), Huber
-    on camera rows (Ceres semantics, over the whole residual block), plain
-    squares elsewhere."""
+    on camera rows, Newton rows included (Ceres semantics, over the whole
+    residual block), plain squares elsewhere."""
     s = torch.sum(r * r, dim=-1)
-    if bspec.kind in CAMERA_KINDS:
+    if bspec.kind in LANDMARK_KINDS:
         c = data["huber_c"]
         return 0.5 * torch.sum(_huber(s, c)), _huber_prime(s, c)
     return 0.5 * torch.sum(s), torch.ones_like(s)

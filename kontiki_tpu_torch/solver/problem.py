@@ -37,6 +37,7 @@ from ..measurements import (
     AccelerometerMeasurement,
     GyroscopeMeasurement,
     LiftingRsCameraMeasurement,
+    NewtonRsCameraMeasurement,
     OrientationMeasurement,
     PositionMeasurement,
     StaticRsCameraMeasurement,
@@ -251,7 +252,8 @@ class Problem:
             self._activate(spans)
             key = "gyro" if isinstance(m, GyroscopeMeasurement) else "accel"
             self._bucket(key, 3).measurements.append((m, s))
-        elif isinstance(m, (StaticRsCameraMeasurement, LiftingRsCameraMeasurement)):
+        elif isinstance(m, (StaticRsCameraMeasurement, NewtonRsCameraMeasurement,
+                            LiftingRsCameraMeasurement)):
             if not isinstance(m.camera, PinholeCamera):
                 raise TypeError(f"Unsupported camera type {type(m.camera)}")
             s = self._sensor_id(m.camera)
@@ -259,6 +261,8 @@ class Problem:
             self._activate(self._camera_spans(m))
             if isinstance(m, StaticRsCameraMeasurement):
                 key, rdim = "rs_static", 2
+            elif isinstance(m, NewtonRsCameraMeasurement):
+                key, rdim = "rs_newton", 2
             else:
                 key, rdim = "rs_lifting", 3
                 self._lifting.append(m)

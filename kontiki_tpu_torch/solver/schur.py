@@ -22,7 +22,7 @@ import torch
 
 from ..ops.assembly_kernels import assemble_schur_blocks
 from .kernels import (
-    CAMERA_KINDS,
+    LANDMARK_KINDS,
     _bucket_cost,
     _retract_state,
     bucket_terms,
@@ -80,7 +80,7 @@ def build_schur_parts(spec):
         cost = torch.zeros((), **opts)
         for bspec, data in zip(spec.buckets, runtime["data"]):
             c, rows = whitened_rows(spec, bspec, runtime, state, data, mask_l)
-            with_rho = bspec.kind in CAMERA_KINDS
+            with_rho = bspec.kind in LANDMARK_KINDS
             Hb, gb, Eb, Db, glb = assemble_schur_blocks(
                 *rows, P=Pc, L=L, with_rho=with_rho
             )

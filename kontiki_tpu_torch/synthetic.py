@@ -25,6 +25,7 @@ from .measurements import (
     AccelerometerMeasurement,
     GyroscopeMeasurement,
     LiftingRsCameraMeasurement,
+    NewtonRsCameraMeasurement,
     OrientationMeasurement,
     PositionMeasurement,
     StaticRsCameraMeasurement,
@@ -282,18 +283,18 @@ def make_rsvi_problem(
     imu_rate=200.0, seed=4, trajectory="se3"``.
 
     ``camera_kind`` ('pinhole' | 'atan') selects the camera (``make_camera``)
-    and ``rs`` the camera rows: 'static' (``StaticRsCameraMeasurement``) or
-    'lifting' (``LiftingRsCameraMeasurement``). The observations are the
-    pinhole projections in both cases, as in the JAX package. The IMU is a
+    and ``rs`` the camera rows: 'static' (``StaticRsCameraMeasurement``),
+    'newton' (``NewtonRsCameraMeasurement``; config 4-Newton is config 4's
+    arguments with ``rs="newton", trajectory="split"``) or 'lifting'
+    (``LiftingRsCameraMeasurement``). The observations are the pinhole
+    projections in every case, as in the JAX package. The IMU is a
     ``BasicImu``."""
     if trajectory not in ("split", "se3"):
         raise ValueError(f"trajectory must be 'split' or 'se3', got {trajectory!r}")
-    if rs == "newton":
-        raise NotImplementedError(
-            "rs='newton' rows are not ported (ROADMAP.md Queue A 1, config 4-Newton)")
-    if rs not in ("static", "lifting"):
+    mcls = {"static": StaticRsCameraMeasurement, "newton": NewtonRsCameraMeasurement,
+            "lifting": LiftingRsCameraMeasurement}.get(rs)
+    if mcls is None:
         raise ValueError(f"rs must be 'static', 'lifting' or 'newton', got {rs!r}")
-    mcls = StaticRsCameraMeasurement if rs == "static" else LiftingRsCameraMeasurement
     rng = np.random.default_rng(seed)
     span = (nviews - 1) / fps
     duration = span + 1.5

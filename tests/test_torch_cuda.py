@@ -21,7 +21,8 @@ version exactly; the segment-BA step on the card equals the port's on the
 CPU to 1e-9 relative (B1's and the band solve's float64 roundoff through a
 reduced system of condition ~1e6). B1 and B3 on the atan camera and on
 lifting rows (every window x camera x rows branch) take the camera rows'
-tolerances."""
+tolerances, and so does B8 (Newton rows) on its four window x camera
+branches, linearize and cost-only."""
 import numpy as np
 import pytest
 import torch
@@ -91,8 +92,10 @@ def test_assemble_kernel_matches_plain(cuda, dtype, tol):
         torch.tensor(rng.integers(0, L, size=M).astype(np.int32), device=cuda),
     )
     before = ak.assemble_schur_blocks.launches
+    shape_before = ak.assemble_schur_blocks.shape_launches.get("rdim 2 C 61", 0)
     got = ak.assemble_schur_blocks(*rows, P=P, L=L, with_rho=True)
     assert ak.assemble_schur_blocks.launches == before + 1
+    assert ak.assemble_schur_blocks.shape_launches["rdim 2 C 61"] == shape_before + 1
     _assert_close(got, ak.assemble_schur_blocks_plain(*rows, P=P, L=L, with_rho=True), tol)
 
 
@@ -546,3 +549,101 @@ def test_linearize_rows_ragged_rows(branch_rows, branch, M, dtype, tol):
     _assert_close(got, lk.linearize_rows_plain(cfg, x), tol)
     off = x["valid"][0] == 0
     assert all(bool((a[off] == 0).all()) for a in got)
+
+
+NEWTON_BRANCHES = ("se3 pinhole", "se3 atan", "split pinhole", "split atan")
+
+
+@pytest.fixture(scope="module")
+def newton_rows_cuda(cuda):
+    """B8's rows of every branch on the card: each window kind's rows of a
+    Newton atan problem (camera pose and time offset free), and the same
+    rows without the atan inputs for the pinhole branches."""
+    rows = {}
+    for kind in ("se3", "split"):
+        gen = make_rsvi_problem(nviews=8, nlandmarks=24, imu_rate=0.0, seed=43, noise_px=1.0,
+                                perturb_rho=0.05, camera_kind="atan", rs="newton",
+                                trajectory=kind)
+        cam = gen["camera"]
+        cam.relative_orientation_locked = cam.relative_position_locked = False
+        cam.max_time_offset, cam.time_offset_locked = 0.01, False
+        problem = Problem(gen["trajectory"], gen["measurements"], device=cuda)
+        spec, rt = kernels.problem_spec(problem), kernels.problem_runtime(problem)
+        cfg, ins = kernels._newton_inputs(spec, spec.buckets[0], rt, problem.state0,
+                                          rt["data"][0])[:2]
+        assert cfg["camera"] == "AtanCamera" and max(cfg["Ws"]) > 4
+        for camera in ("PinholeCamera", "AtanCamera"):
+            c = dict(cfg, camera=camera)
+            names = {s[0] for s in lk.newton_inputs(c) if s is not None}
+            rows[lk.newton_branch(c)] = (c, {k: v for k, v in ins.items() if k in names})
+    return rows
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-10), (torch.float32, 1e-3)])
+@pytest.mark.parametrize("branch", NEWTON_BRANCHES)
+def test_newton_rows_kernel_matches_plain(newton_rows_cuda, branch, dtype, tol):
+    """B8 linearize and cost-only on each window x camera branch against the
+    plain version, with and without ``valid``; each launch counts on its
+    branch and form; in float64 the cost-only residual equals the
+    linearize form's."""
+    cfg, ins = newton_rows_cuda[branch]
+    x = {k: v.to(dtype).contiguous() for k, v in ins.items()}
+    M = x["u_ref"].shape[1]
+    xv = dict(x, valid=(torch.arange(M, device=x["u_ref"].device) % 5 != 2).to(dtype)[None, :])
+    C = lk.newton_shape(cfg)[1]
+    for inputs in (x, xv):
+        before = (lk.newton_rows.branch_launches.get(branch, 0),
+                  lk.newton_rows.branch_launches.get(f"{branch} cost-only", 0))
+        got = lk.newton_rows(cfg, inputs)
+        r = lk.newton_rows(cfg, inputs, cost_only=True)
+        assert (lk.newton_rows.branch_launches[branch],
+                lk.newton_rows.branch_launches[f"{branch} cost-only"]) == (before[0] + 1,
+                                                                          before[1] + 1)
+        assert got[1].shape == (M, 2, C) and r.shape == (M, 2)
+        _assert_close(got, lk.newton_rows_plain(cfg, inputs), tol)
+        _assert_close((r,), (lk.newton_rows_plain(cfg, inputs, cost_only=True),),
+                      max(tol, 1e-4) if dtype == torch.float32 else tol)
+    if dtype == torch.float64:
+        _assert_close((lk.newton_rows(cfg, x, cost_only=True),), (lk.newton_rows(cfg, x)[0],),
+                      1e-10)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-10), (torch.float32, 1e-3)])
+@pytest.mark.parametrize("rows", ["M1", "M7", "M129", "wave-1", "wave+1"])
+@pytest.mark.parametrize("branch", ["split pinhole", "se3 atan"])
+def test_newton_rows_ragged_rows(cuda, newton_rows_cuda, branch, rows, dtype, tol):
+    """B8 on M = 1, 7 and 129 rows and on one wave of its linearize kernel
+    less and plus one row (ragged last blocks of both kernels), the
+    branch's rows repeated to length, every third row at valid = 0 (exactly
+    zero there)."""
+    cfg, ins = newton_rows_cuda[branch]
+    wave = lk.newton_rows_wave(cfg, dtype)
+    M = {"M1": 1, "M7": 7, "M129": 129, "wave-1": wave - 1, "wave+1": wave + 1}[rows]
+    reps = -(-M // ins["u_ref"].shape[1])
+    x = {k: v.repeat(1, reps)[:, :M].to(dtype).contiguous() for k, v in ins.items()}
+    x["valid"] = (torch.arange(M, device=cuda) % 3 != 1).to(dtype)[None, :]
+    got = lk.newton_rows(cfg, x)
+    r = lk.newton_rows(cfg, x, cost_only=True)
+    _assert_close(got, lk.newton_rows_plain(cfg, x), tol)
+    _assert_close((r,), (lk.newton_rows_plain(cfg, x, cost_only=True),),
+                  max(tol, 1e-4) if dtype == torch.float32 else tol)
+    off = x["valid"][0] == 0
+    for a in (*got, r):
+        assert torch.all(a[off] == 0)
+
+
+def test_newton_solve_on_cuda_matches_cpu(cuda):
+    """The fused Schur solve of a Newton problem (split, with IMU rows) on
+    the card equals the CPU run, through B8, B4 and B2."""
+    out = {}
+    for device in ("cpu", cuda):
+        gen = make_rsvi_problem(nviews=8, nlandmarks=24, imu_rate=200.0, seed=4, noise_px=1.0,
+                                rs="newton")
+        problem = Problem(gen["trajectory"], gen["measurements"], device=device)
+        before = lk.newton_rows.launches
+        out[str(device)] = make_fused_solver(problem, 5, function_tolerance=0.0,
+                                             strategy="schur")(problem.state0)
+        assert lk.newton_rows.launches - before == (6 if device == cuda else 0)
+    (_, cc, ci), (_, gc, gi) = out["cpu"], out["cuda"]
+    assert ci == gi == 5
+    np.testing.assert_allclose(gc.item(), cc.item(), rtol=1e-9)

@@ -24,6 +24,8 @@ def test_import_with_jax_blocked():
         "from kontiki_tpu_torch.solver import banded\n"
         "from kontiki_tpu_torch.parallel import segments_ba, make_segment_ba_solver\n"
         "from kontiki_tpu_torch.ops.linearize_kernels import onehot_expand_rows\n"
+        "from kontiki_tpu_torch.ops.linearize_kernels import newton_rows, newton_rows_plain\n"
+        "from kontiki_tpu_torch.measurements import NewtonRsCameraMeasurement\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'kontiki_tpu.')) "
         "for m in sys.modules if sys.modules[m] is not None)\n"
     )

@@ -163,7 +163,8 @@ def test_unported_parts_raise(camera, case):
     # every other case names the ROADMAP.md item that ports it
     error, match = {"two shards": (NotImplementedError, "ROADMAP.md Queue A 5"),
                     "pcg": (NotImplementedError, r"ROADMAP.md Queue A 2\.5"),
-                    "rs_newton": (NotImplementedError, "ROADMAP.md Queue A 1"),
+                    "rs_newton": (NotImplementedError,
+                                  "ROADMAP.md Queue A 1, segment-BA Newton rows"),
                     "rs_lifting": (ValueError, "mode='pcg'"),
                     "pose rows": (NotImplementedError, "ROADMAP.md Queue A 5")}[case]
     for make in (sba.make_segment_ba_step, sba.make_segment_ba_solver):

@@ -47,8 +47,9 @@ def _close(got, want, name):
 def jax_twin(traj, measurements):
     """The JAX package's Problem over the same trajectory (split or SE3),
     sensors (pinhole or atan cameras, IMUs: poses, offsets, offset bounds
-    and locks), landmarks and measurements (static or lifting camera rows,
-    with their ``vt``; gyro and accel rows) as the port's objects."""
+    and locks), landmarks and measurements (static, Newton or lifting camera
+    rows, the lifting ones with their ``vt``; gyro and accel rows) as the
+    port's objects."""
     if isinstance(traj, SplitTrajectory):
         r3, so3 = traj.R3_spline, traj.SO3_spline
         jtraj = jt.SplitTrajectory(r3.dt, so3.dt, r3.t0, so3.t0)
@@ -105,6 +106,9 @@ def jax_twin(traj, measurements):
                 jm_ = jm.LiftingRsCameraMeasurement(sensor(m.camera), obs, m.huber_loss,
                                                     m.weight)
                 jm_.vt = m.vt
+            elif hasattr(m, "max_iterations"):
+                jm_ = jm.NewtonRsCameraMeasurement(sensor(m.camera), obs, m.huber_loss,
+                                                   m.weight)
             else:
                 jm_ = jm.StaticRsCameraMeasurement(sensor(m.camera), obs, m.huber_loss,
                                                    m.weight)
@@ -113,7 +117,9 @@ def jax_twin(traj, measurements):
             ms.append(jm.GyroscopeMeasurement(sensor(m.imu), m.t, m.w, m.weight))
         else:
             ms.append(jm.AccelerometerMeasurement(sensor(m.imu), m.t, m.a, m.weight))
-    return JProblem(jtraj, ms)
+    problem = JProblem(jtraj, ms)
+    problem.twin_views = views  # they hold the observations the landmarks reference weakly
+    return problem
 
 
 def twin_pair(traj, measurements):
