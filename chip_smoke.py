@@ -305,6 +305,11 @@ NEWTON_SE3 = dict(CONFIG4_NEWTON, nviews=16, trajectory="se3")
 # B8's edge row counts, beside one wave of its linearize kernel less and
 # plus one row (newton_rows_wave)
 NEWTON_EDGES = (1, 7, 129)
+# B8's rows on 10-knot windows: knots closer than readout / 3 (the default
+# camera's readout 0.025 s over 4.5), a small problem on each trajectory
+# (the CUDA tests' B8 problem)
+NEWTON_W10 = dict(nviews=8, nlandmarks=24, imu_rate=0.0, seed=43, rs="newton", noise_px=1.0,
+                  perturb_rho=0.05, knot_dt=0.025 / 4.5)
 
 # BASELINE configs 1 and 2 (bench.py config1/config2), their structure as
 # the JAX package builds it, and their costs in float64 from the JAX package
@@ -659,8 +664,11 @@ _KERNEL_NAME = re.compile(r"(linearize_rows_kernel|linearize_rows_thread_kernel"
                           r"(?:I([df])(?:Lb([01])ELb([01])ELb([01])E|Li([012])E)?E)?")
 
 
-#: B8's kernels (linearize; cost-only): the scalar, the Split and Atan flags
-_NEWTON_NAME = re.compile(r"(newton_rows_kernel|newton_cost_kernel)I([df])Lb([01])ELb([01])EE")
+#: B8's kernels (linearize: the primal kernel, then the lane kernel;
+#: cost-only): the scalar, the Split and Atan flags and, for the kernels of
+#: a row a thread, whether the windows are wide (more than 8 knots)
+_NEWTON_NAME = re.compile(r"(newton_rows_kernel|newton_path_kernel|newton_cost_kernel)"
+                          r"I([df])Lb([01])ELb([01])E(?:Lb([01])E)?E")
 
 
 def ptxas_summary(log):
@@ -674,7 +682,9 @@ def ptxas_summary(log):
             if nm:
                 name = (f"{nm.group(1)}<{'double' if nm.group(2) == 'd' else 'float'}, "
                         f"{('se3', 'split')[int(nm.group(3))]}, "
-                        f"{('pinhole', 'atan')[int(nm.group(4))]}>")
+                        f"{('pinhole', 'atan')[int(nm.group(4))]}"
+                        + ("" if nm.group(5) is None else
+                           f", {('W <= 8', 'wide')[int(nm.group(5))]}") + ">")
                 spill = 0
                 continue
             m = _KERNEL_NAME.search(entry.group(1))
@@ -2182,29 +2192,54 @@ def newton_inputs(problem):
                                   runtime["data"][b])[:2]
 
 
+def with_atan(cfg, ins):
+    """{branch: (cfg, ins)}: a Newton bucket's rows on the pinhole and on
+    the atan camera (its wc and gamma added to the same rows)."""
+    from kontiki_tpu_torch.ops import linearize_kernels as lk
+    from kontiki_tpu_torch.synthetic import make_camera
+
+    atan = make_camera("atan")
+    M = ins["u_ref"].shape[1]
+    opts = dict(dtype=ins["u_ref"].dtype, device=ins["u_ref"].device)
+    out = {}
+    for camera in ("PinholeCamera", "AtanCamera"):
+        c = dict(cfg, camera=camera)
+        x = dict(ins)
+        if camera == "AtanCamera":
+            x["wc"] = torch.tensor(atan.wc, **opts)[:, None].expand(2, M).contiguous()
+            x["gamma"] = torch.full((1, M), atan.gamma, **opts)
+        out[lk.newton_branch(c)] = (c, x)
+    return out
+
+
 def newton_branches(problem4n):
     """(cfg, ins) on the card of B8's four branches: split on config
     4-Newton's rows, SE3 on NEWTON_SE3's; the atan branches with the atan
     camera's wc and gamma added to the same rows."""
-    from kontiki_tpu_torch.ops import linearize_kernels as lk
-    from kontiki_tpu_torch.synthetic import make_camera
-
     t0 = time.time()
     _, se3 = newton_problem(NEWTON_SE3)
     print(f"Newton SE3 rows ({NEWTON_SE3['nviews']} views): {time.time() - t0:.1f} s on the host",
           flush=True)
-    atan = make_camera("atan")
     out = {}
     for cfg, ins in (newton_inputs(problem4n), newton_inputs(se3)):
-        M = ins["u_ref"].shape[1]
-        opts = dict(dtype=ins["u_ref"].dtype, device=ins["u_ref"].device)
-        for camera in ("PinholeCamera", "AtanCamera"):
-            c = dict(cfg, camera=camera)
-            x = dict(ins)
-            if camera == "AtanCamera":
-                x["wc"] = torch.tensor(atan.wc, **opts)[:, None].expand(2, M).contiguous()
-                x["gamma"] = torch.full((1, M), atan.gamma, **opts)
-            out[lk.newton_branch(c)] = (c, x)
+        out.update(with_atan(cfg, ins))
+    return out
+
+
+def newton_w10_branches():
+    """(cfg, ins) on the card of B8's four branches on 10-knot windows
+    (NEWTON_W10 on each trajectory), the rows at the edges of the Newton
+    path moved there (synthetic.newton_edge_rows)."""
+    from kontiki_tpu_torch.synthetic import newton_edge_rows
+
+    out = {}
+    for trajectory in ("split", "se3"):
+        _, problem = newton_problem(dict(NEWTON_W10, trajectory=trajectory))
+        cfg, ins = newton_inputs(problem)
+        if max(cfg["Ws"]) != 10:
+            fail(f"Newton rows on knots {NEWTON_W10['knot_dt']:.5f} s apart: windows "
+                 f"{cfg['Ws']}, not 10 knots")
+        out.update(with_atan(cfg, newton_edge_rows(ins)))
     return out
 
 
@@ -2262,6 +2297,12 @@ def phase_b8(branches):
                                                                          cost_only=cost_only),
                                             reps=3, warmup=1))
                 ops = lk.newton_rows_ops(cfg, host, cost_only=cost_only)
+                if not cost_only:
+                    # the function needs no more than its cheapest known
+                    # schedule: the one-jet count's or the kernel's own
+                    rec["function_ops"] = ops
+                    rec["schedule_ops"] = lk.newton_rows_ops(cfg, host, schedule=True)
+                    ops = min(ops, rec["schedule_ops"])
                 nbytes, (rec["bound_ms"], rec["bound_by"]) = newton_bound(cfg, x, cost_only, ops)
                 rec["library_ms"] = None  # no single PyTorch call computes B8
                 rec["steps"] = hist
@@ -2271,34 +2312,67 @@ def phase_b8(branches):
                       f"enqueue), plain {rec['plain_ms']:.3f} ms, bound {rec['bound_ms']:.5f} ms "
                       f"by {rec['bound_by']} ({nbytes} bytes, {ops} operations) [{CARD}]",
                       flush=True)
+                if not cost_only:
+                    rec["wave"] = lk.newton_rows_wave(cfg)
+                    print(f"  newton_rows (linearize) {branch}: operations by one jet a stage "
+                          f"{rec['function_ops']}, by the kernel's own schedule "
+                          f"{rec['schedule_ops']} (the bound counts the smaller); one wave "
+                          f"{rec['wave']} rows", flush=True)
     return out
 
 
-def phase_b8_edges(cfg, ins):
-    """B8 on the first M rows of config 4-Newton's, for M in NEWTON_EDGES
-    and one wave of the linearize kernel less and plus one row, every third
-    row at valid = 0, against the plain version (f64, f32): the invalid
-    rows exactly zero."""
+def b8_edge_check(what, cfg, x, dtype):
+    """B8 linearize and cost-only on ``x`` (every third row at valid = 0)
+    against the plain version: the invalid rows exactly zero."""
     from kontiki_tpu_torch.ops import linearize_kernels as lk
 
+    M = x["u_ref"].shape[1]
+    valid = (torch.arange(M, device=x["u_ref"].device) % 3 != 1).to(dtype)
+    x = dict({k: v.to(dtype).contiguous() for k, v in x.items()}, valid=valid[None].contiguous())
+    got = lk.newton_rows(cfg, x)
+    r = lk.newton_rows(cfg, x, cost_only=True)
+    torch.cuda.synchronize()
+    print(f"  B8 edge {what} {str(dtype)[6:]}", flush=True)
+    compare("newton_rows", dtype, ("r", "J", "J_rho"), got, lk.newton_rows_plain(cfg, x))
+    compare("newton_rows cost-only", dtype, ("r",), (r,),
+            (lk.newton_rows_plain(cfg, x, cost_only=True),))
+    off = valid == 0
+    if any(bool(a[off].abs().max() > 0) for a in (*got, r) if off.any()):
+        fail(f"newton_rows {what} {dtype}: rows with valid = 0 are not zero")
+
+
+def phase_b8_edges(cfg, ins, w10):
+    """B8 on the first M rows of config 4-Newton's, for M in NEWTON_EDGES
+    and one wave of the linearize kernel less and plus one row, with its
+    first rows at the edges of the Newton path (synthetic.newton_edge_rows:
+    every update clamped at 0 or at the readout, five steps), and on each
+    branch's rows on 10-knot windows (``w10``, newton_w10_branches: steps
+    that cross knots too), every third row at valid = 0, against the plain
+    version (f64, f32): the invalid rows exactly zero. Prints the rows'
+    Newton paths (the host row code's primal stage)."""
+    from kontiki_tpu_torch.ops import linearize_kernels as lk
+    from kontiki_tpu_torch.synthetic import newton_edge_rows
+
+    ins = newton_edge_rows(ins)
     wave = {dt: lk.newton_rows_wave(cfg, dt) for dt in (torch.float64, torch.float32)}
     print(f"  B8 linearize kernel: one wave {wave[torch.float64]} rows in f64, "
-          f"{wave[torch.float32]} in f32", flush=True)
+          f"{wave[torch.float32]} in f32; {lk.newton_rows_smem(cfg)[0]} bytes of shared "
+          f"memory a block of {NEWTON_WINDOWS}-knot windows", flush=True)
     for dtype in (torch.float64, torch.float32):
         for M in (*NEWTON_EDGES, wave[dtype] - 1, wave[dtype], wave[dtype] + 1):
-            x = {k: v[:, :M].to(dtype).contiguous() for k, v in ins.items()}
-            valid = (torch.arange(M, device=x["u_ref"].device) % 3 != 1).to(dtype)
-            x["valid"] = valid[None].contiguous()
-            got = lk.newton_rows(cfg, x)
-            r = lk.newton_rows(cfg, x, cost_only=True)
-            torch.cuda.synchronize()
-            print(f"  B8 edge M={M} {str(dtype)[6:]}", flush=True)
-            compare("newton_rows", dtype, ("r", "J", "J_rho"), got, lk.newton_rows_plain(cfg, x))
-            compare("newton_rows cost-only", dtype, ("r",), (r,),
-                    (lk.newton_rows_plain(cfg, x, cost_only=True),))
-            off = valid == 0
-            if any(bool(a[off].abs().max() > 0) for a in (*got, r) if off.any()):
-                fail(f"newton_rows M={M} {dtype}: rows with valid = 0 are not zero")
+            b8_edge_check(f"M={M}", cfg, {k: v[:, :M] for k, v in ins.items()}, dtype)
+    for branch, (c, x) in w10.items():
+        paths = lk.newton_rows_paths(c, {k: v.cpu() for k, v in x.items()})
+        steps, low, high, moved = paths.T
+        print(f"  B8 {branch} windows {c['Ws']}: M={x['u_ref'].shape[1]}, rows by Newton steps "
+              f"1..5 {torch.bincount(steps.long(), minlength=6)[1:].tolist()}, updates clamped "
+              f"at 0 / readout {int(low.sum())} / {int(high.sum())}, steps onto another "
+              f"sub-window {int(moved.sum())}; {lk.newton_rows_smem(c)[0]} bytes of shared "
+              f"memory a block", flush=True)
+        if not (low.sum() > 0 and high.sum() > 0 and moved.sum() > 0 and (steps == 5).any()):
+            fail(f"newton_rows {branch} W=10: the edge rows miss a clamp, a knot or step 5")
+        for dtype in (torch.float64, torch.float32):
+            b8_edge_check(f"{branch} W={max(c['Ws'])}", c, x, dtype)
 
 
 def newton_launches(n_lin, n_cost, buckets):
@@ -2462,7 +2536,7 @@ def main():
         phase_atan_estimator(name, prob)
     prob4n, problem4n = phase_newton_problem()
     b8 = phase_b8(newton_branches(problem4n))
-    phase_b8_edges(*newton_inputs(problem4n))
+    phase_b8_edges(*newton_inputs(problem4n), newton_w10_branches())
     b2_newton = phase_b2(problem4n)
     phase_newton_solve(problem4n)
     phase_newton_estimator(prob4n)

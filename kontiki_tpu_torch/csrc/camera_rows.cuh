@@ -142,8 +142,9 @@ struct RowShape {
 // additive) and the cumulative SO3 spline at u_so3 + s/dt_so3 (win_so3
 // [4, 4], knots left exp(w) q). delta holds the first spline's 12
 // increments, then the second's. SK and the sub-window's first knots jr
-// and jq as pq_se3's SK and j0.
-template <typename T, typename S, typename D, bool Lazy = false, typename SK = S>
+// and jq as pq_se3's SK and j0. Without Rot only p (out[0..2]).
+template <typename T, typename S, typename D, bool Lazy = false, typename SK = S,
+          bool Rot = true>
 KT_HD void pq_split(const T* win, const T* win_so3, T u_r3, T u_so3, T dt_r3, T dt_so3,
                     const D& delta, const S& s, bool r3_first, S* out, int jr = 0,
                     int jq = 0) {
@@ -161,6 +162,7 @@ KT_HD void pq_split(const T* win, const T* win_so3, T u_r3, T u_so3, T dt_r3, T 
     for (int j = 1; j < 4; ++j) acc = acc + Br[j] * (win[3 * j + k] + delta[off_r3 + 3 * j + k]);
     out[k] = acc;
   }
+  if constexpr (!Rot) return;
 
   // knot j of the SO3 spline with its increment; Lazy as for pq_se3
   auto knot = [&](int j) {

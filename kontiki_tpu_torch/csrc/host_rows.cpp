@@ -259,49 +259,69 @@ auto newton_dispatch(int flags, A&&... a) {
   return atan ? Fn::template run<false, true>(a...) : Fn::template run<false, false>(a...);
 }
 
+// The widest chain newton_row_wide takes in one jet: NS seeds of windows
+// of at most kNewtonLocalW knots a spline.
+constexpr int kNewtonWideNS = 6 * kNewtonLocalW + 15;
+
 // B8's row m in one full-width jet a stage: the ref sub-window over its 25
 // seeds (its value the ref side's primal (p, q)), then the chain over all
-// NS seeds, the ref block chained as stage 2 chains it; the operation
-// count's schedule. Returns the Newton steps.
+// NS seeds, the ref block chained through the ref (p, q) seeds; the
+// operation count's schedule (the function's work, whatever the kernel's
+// schedule). Returns the Newton steps, or -1 for windows wider than
+// kNewtonLocalW.
 template <typename T, bool Split, bool Atan>
 int newton_row_wide(const NewtonInputs<T>& in, int m, T* r_out, T* J_out, T* Jrho_out) {
   const NewtonShape sh = newton_shape(in.W[0], in.W[1], in.cam.flags);
+  if (sh.NS > kNewtonWideNS) return -1;
   const bool r3_first = (in.cam.flags & kNewtonR3First) != 0;
+  std::vector<T> buf(2 * sh.win);
   NewtonWindows<T> w;
+  w.win[0] = buf.data();
+  w.win[1] = buf.data() + sh.win;
   NewtonRow<T> row;
   load_newton_row<T, Split, Atan>(in, m, w, row);
-  NewtonStages<T> st;
-  ref_sub_window<T, Split>(w, sh, st.sub, st.j_ref);
+  Windows<T> sub;
+  int j_ref[2];
+  ref_sub_window<T, Split>(w, sh, sub, j_ref);
   using S1 = Jet<T, 25>;
   const SeededDelta<T, 25> delta = {0, 24};
   S1 pq[7];
-  window_pq<T, Split, S1, true>(st.sub, 0, r3_first, delta, seeded<T, 25>(T(0), 24), pq);
-  for (int k = 0; k < 7; ++k) st.pq_ref[k] = pq[k].a;
-  using S2 = Jet<T, kNewtonMaxNS>;
+  window_pq<T, Split, S1, true>(sub, 0, r3_first, delta, seeded<T, 25>(T(0), 24), pq);
+  T pq_ref[7];
+  for (int k = 0; k < 7; ++k) pq_ref[k] = pq[k].a;
+  using S2 = Jet<T, kNewtonWideNS>;
   S2 r[2];
-  st.steps = newton_chain<T, Split, Atan, S2>(w, row, st.pq_ref, sh, 0, r);
-  for (int i = 0; i < sh.NS; ++i) {
-    st.JG[i][0] = r[0].v[i];
-    st.JG[i][1] = r[1].v[i];
-  }
-  st.r[0] = r[0].a;
-  st.r[1] = r[1].a;
+  const int steps = newton_chain<T, Split, Atan, S2>(w, row, pq_ref, sh, 0, r);
+  const T v = row.valid;
   T* J = J_out + static_cast<size_t>(m) * 2 * sh.C;
   for (int rr = 0; rr < 2; ++rr) {
+    const T* JG = r[rr].v;
     for (int c = 0; c < sh.Ct; ++c) J[rr * sh.C + c] = T(0);
+    T t_ref = T(0);
     for (int sd = 0; sd < 25; ++sd) {
       T acc = T(0);
-      for (int k = 0; k < 7; ++k) acc = acc + st.JG[k][rr] * pq[k].v[sd];
+      for (int k = 0; k < 7; ++k) acc = acc + JG[k] * pq[k].v[sd];
       if (sd < 24) {
-        J[rr * sh.C + ref_column(sh, Split, r3_first, st.j_ref, sd)] = acc * row.valid;
+        J[rr * sh.C + ref_column(sh, Split, r3_first, j_ref, sd)] = acc * v;
       } else {
-        st.t_ref[rr] = acc;
+        t_ref = acc;
       }
     }
+    for (int col = 0; col < sh.Ct + 13; ++col) {
+      T x;
+      if (col < sh.Ct + 6) {
+        x = JG[7 + col];
+      } else if (col == sh.Ct + 6) {
+        x = JG[14 + sh.Ct] + t_ref;
+      } else {
+        x = T(0);
+      }
+      J[rr * sh.C + sh.Ct + col] = x * v;
+    }
+    r_out[2 * m + rr] = r[rr].a * v;
+    Jrho_out[2 * m + rr] = JG[13 + sh.Ct] * v;
   }
-  newton_stage<T, Split, Atan>(3, 0, 1, w, row, sh, r3_first, st, J, r_out + 2 * m,
-                               Jrho_out + 2 * m);
-  return st.steps;
+  return steps;
 }
 
 // B8's row code on double: the cost-only chain, the kernel's lane group
@@ -310,35 +330,77 @@ struct HostNewton {
   template <bool Split, bool Atan>
   static void run(const NewtonInputs<double>& in, double* r, double* J, double* J_rho,
                   int* steps, double* margin, int mode) {
+    const NewtonShape sh = newton_shape(in.W[0], in.W[1], in.cam.flags);
+    std::vector<double> win(2 * sh.win);
+    std::vector<unsigned char> work(newton_group_bytes<double>(sh));
     for (int m = 0; m < in.cam.M; ++m) {
       double rc[2];
-      steps[m] = newton_cost_row<double, Split, Atan>(in, m, rc, margin + m);
+      steps[m] = newton_cost_row<double, Split, Atan>(in, m, rc, win.data(), margin + m);
       if (in.cam.flags & kNewtonCostOnly) {
         r[2 * m] = rc[0];
         r[2 * m + 1] = rc[1];
       } else if (mode == kB1Wide) {
         newton_row_wide<double, Split, Atan>(in, m, r, J, J_rho);
       } else {
-        newton_row_lanes<double, Split, Atan>(in, m, r, J, J_rho);
+        newton_row_lanes<double, Split, Atan>(in, m, r, J, J_rho, work.data());
       }
     }
   }
 };
 
+// Each row's Newton path as the linearize schedule's primal stage records
+// it: paths [M, 4] = the steps, the updates clamped at 0 and at readout,
+// and the steps whose obs sub-window bases differ from the step before.
+struct HostNewtonPaths {
+  template <bool Split, bool Atan>
+  static void run(const NewtonInputs<double>& in, int* paths) {
+    const NewtonShape sh = newton_shape(in.W[0], in.W[1], in.cam.flags);
+    std::vector<unsigned char> work(newton_group_bytes<double>(sh));
+    const size_t M = static_cast<size_t>(in.cam.M);
+    std::vector<double> r(2 * M), J(2 * M * sh.C), J_rho(2 * M);
+    for (int m = 0; m < in.cam.M; ++m) {
+      newton_row_lanes<double, Split, Atan>(in, m, r.data(), J.data(), J_rho.data(),
+                                            work.data());
+      const NewtonPath<double>& path =
+          reinterpret_cast<const NewtonState<double>*>(work.data())->path;
+      const NewtonStep<double>* step = path.step;
+      int* p = paths + 4 * m;
+      p[0] = path.steps;
+      p[1] = p[2] = p[3] = 0;
+      for (int k = 0; k + 1 < path.steps; ++k) {
+        if (step[k].clamp) ++p[step[k + 1].e == 0.0 ? 1 : 2];
+      }
+      for (int k = 1; k < path.steps; ++k) {
+        p[3] += step[k].j[0] != step[k - 1].j[0] || step[k].j[1] != step[k - 1].j[1];
+      }
+    }
+  }
+};
+
+// The count's flag for the kernel's own schedule (the lane group's stages)
+// instead of the function's.
+constexpr int kNewtonCountLanes = 16;
+
 // B8's operations: each row once in one full-width jet a stage, or the
-// cost-only chain once.
+// cost-only chain once; with kNewtonCountLanes, each row in the kernel's
+// lane schedule. -1 for windows wider than newton_row_wide takes.
 struct CountNewton {
   template <bool Split, bool Atan>
   static long long run(const NewtonInputs<Counted>& in) {
-    const int C = newton_shape(in.W[0], in.W[1], in.cam.flags).C;
+    const NewtonShape sh = newton_shape(in.W[0], in.W[1], in.cam.flags);
     const size_t M = static_cast<size_t>(in.cam.M);
-    std::vector<Counted> r(M * 2), J_rho(M * 2), J(M * 2 * C);
+    std::vector<Counted> r(M * 2), J_rho(M * 2), J(M * 2 * sh.C), win(2 * sh.win);
+    std::vector<unsigned char> work(newton_group_bytes<Counted>(sh));
     g_ops = 0;
     for (int m = 0; m < in.cam.M; ++m) {
       if (in.cam.flags & kNewtonCostOnly) {
-        newton_cost_row<Counted, Split, Atan>(in, m, r.data() + 2 * m);
-      } else {
-        newton_row_wide<Counted, Split, Atan>(in, m, r.data(), J.data(), J_rho.data());
+        newton_cost_row<Counted, Split, Atan>(in, m, r.data() + 2 * m, win.data());
+      } else if (in.cam.flags & kNewtonCountLanes) {
+        newton_row_lanes<Counted, Split, Atan>(in, m, r.data(), J.data(), J_rho.data(),
+                                               work.data());
+      } else if (newton_row_wide<Counted, Split, Atan>(in, m, r.data(), J.data(),
+                                                       J_rho.data()) < 0) {
+        return -1;
       }
     }
     return g_ops;
@@ -362,8 +424,22 @@ void kontiki_host_newton_rows_f64(const double* const* ins, double* r, double* J
   newton_dispatch<HostNewton>(flags, in, r, J, J_rho, steps, margin, mode);
 }
 
+// Each row's Newton path in the linearize schedule (HostNewtonPaths):
+// ins, W0, W1 and flags as for kontiki_newton_rows_f64; paths [M, 4].
+void kontiki_host_newton_paths_f64(const double* const* ins, int* paths, int M, int W0, int W1,
+                                   int flags) {
+  const NewtonInputs<double> in = make_newton_inputs<double>(
+      reinterpret_cast<const void* const*>(ins), M, W0, W1, flags);
+  newton_dispatch<HostNewtonPaths>(flags, in, paths);
+}
+
+// The widest windows (knots a spline) of the function's operation count
+// and of kontiki_host_newton_rows_f64's full-width mode.
+int kontiki_newton_local_w() { return kNewtonLocalW; }
+
 // Operations of B8's function on these inputs (the cost-only bit: of its
-// cost-only form).
+// cost-only form; kNewtonCountLanes: of the linearize kernel's schedule);
+// -1 for windows wider than the function's count takes (kNewtonLocalW).
 long long kontiki_count_newton_rows(const double* const* ins, int M, int W0, int W1,
                                     int flags) {
   int ks[kNewtonSlots];

@@ -417,3 +417,7 @@ template <typename S>
 KT_HD TD<S> kt_sin(const TD<S>& x) { return {kt_sin(x.a), kt_cos(x.a) * x.d}; }
 template <typename S>
 KT_HD TD<S> kt_cos(const TD<S>& x) { return {kt_cos(x.a), -(kt_sin(x.a) * x.d)}; }
+template <typename S>
+KT_HD TD<S> kt_atan(const TD<S>& x) {
+  return {kt_atan(x.a), x.d / (typename BaseT<S>::type(1) + x.a * x.a)};
+}

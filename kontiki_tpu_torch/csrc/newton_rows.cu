@@ -17,7 +17,9 @@ extern "C" int kontiki_newton_atan_wave_f64(int W0, int W1, int flags);
 // kNewtonR3First | kNewtonAtan | kNewtonCostOnly. r [M, 2], J [M, 2, C] and
 // J_rho [M, 2], C = 2 Ct + 13; J == nullptr (the cost-only form) writes r
 // alone. kontiki_newton_rows_wave: the rows the linearize kernel holds on
-// the card at once.
+// the card at once; kontiki_newton_rows_smem: the bytes of shared memory a
+// block of it takes (the wrapper refuses windows whose block would not fit
+// the card).
 #define KT_NEWTON_ENTRY(SUFFIX, T)                                                    \
   extern "C" int kontiki_newton_rows##SUFFIX(const void* const* ins, void* r, void* J, \
                                              void* J_rho, int M, int W0, int W1,      \
@@ -31,6 +33,9 @@ extern "C" int kontiki_newton_atan_wave_f64(int W0, int W1, int flags);
   extern "C" int kontiki_newton_rows_wave##SUFFIX(int W0, int W1, int flags) {        \
     return (flags & kNewtonAtan) ? kontiki_newton_atan_wave##SUFFIX(W0, W1, flags)    \
                                  : newton_wave<T, false>(W0, W1, flags);              \
+  }                                                                                   \
+  extern "C" int kontiki_newton_rows_smem##SUFFIX(int W0, int W1, int flags) {        \
+    return static_cast<int>(newton_linearize_smem<T>(W0, W1, flags));                 \
   }
 
 KT_NEWTON_ENTRY(_f32, float)

@@ -46,6 +46,7 @@ _ENTRIES = {
     "kontiki_onehot_expand": [_P, _P, _P, _I, _I, _I, _I, _P],
     "kontiki_newton_rows": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "kontiki_newton_rows_wave": [_I, _I, _I],
+    "kontiki_newton_rows_smem": [_I, _I, _I],
 }
 #: -O1: the row code runs as fast as at -O2 (the checks and operation counts
 #: are bound by the counting scalar's bookkeeping) and compiles in ~60% of
@@ -66,6 +67,8 @@ _HOST_ENTRIES = {
     "kontiki_host_assemble_schur_f64": ([_P] * 10 + [_I] * 9, None),
     "kontiki_host_newton_rows_f64": ([_P] * 6 + [_I] * 5, None),
     "kontiki_count_newton_rows": ([_P] + [_I] * 4, ctypes.c_longlong),
+    "kontiki_host_newton_paths_f64": ([_P, _P] + [_I] * 4, None),
+    "kontiki_newton_local_w": ([], ctypes.c_int),
 }
 
 
@@ -192,9 +195,10 @@ def bind_library(path):
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
     for suffix in ("_f32", "_f64"):
-        fn = getattr(lib, "kontiki_assemble_schur_workspace" + suffix)
-        fn.argtypes = [_I] * 4
-        fn.restype = ctypes.c_longlong
+        fn = getattr(lib, "kontiki_assemble_schur_workspace" + suffix, None)
+        if fn is not None:
+            fn.argtypes = [_I] * 4
+            fn.restype = ctypes.c_longlong
     return lib
 
 

@@ -49,6 +49,7 @@ gathered, transposed ``[k, M]`` rows of ``solver.kernels._camera_inputs``
 version; a CUDA tensor launches the kernel.
 """
 import ctypes
+import functools
 import os
 from concurrent.futures import ThreadPoolExecutor
 
@@ -606,10 +607,6 @@ def cost_rows_wave(cfg, dtype=torch.float64):
 # B8: Newton rolling-shutter rows
 # ---------------------------------------------------------------------------
 
-#: the widest readout-slack window B8's kernel takes (knots per spline)
-NEWTON_MAX_W = 8
-
-
 def newton_shape(cfg):
     """``(Ct, C)`` of ``cfg``'s Newton rows: the window tangents of one side
     (ref or obs) and the Jacobian columns ``2 Ct + 13``."""
@@ -862,20 +859,21 @@ def newton_rows(cfg, ins, cost_only=False):
     ``newton_inputs(cfg)``); ``cfg``: ``kind`` ('se3' | 'split'), split
     ``r3_first``, ``camera`` ('PinholeCamera' | 'AtanCamera') and ``Ws``,
     the window widths in spline order. CPU tensors run the plain version,
-    CUDA tensors the hand-written kernel (windows of at most
-    ``NEWTON_MAX_W`` knots)."""
+    CUDA tensors the hand-written kernel, on windows whose block of rows
+    fits the card's shared memory (``newton_rows_smem``)."""
     M = _check_newton_inputs(cfg, ins)
     x = ins["u_ref"]
     if x.device.type == "cpu":
         return newton_rows_plain(cfg, ins, cost_only=cost_only)
     if x.device.type != "cuda":
         raise ValueError(f"newton_rows: unsupported device {x.device}")
-    if max(cfg["Ws"]) > NEWTON_MAX_W:
-        raise NotImplementedError(
-            f"newton_rows: the kernel takes windows of at most {NEWTON_MAX_W} knots, "
-            f"got {cfg['Ws']!r}")
     from .build import load_library
 
+    need, limit = newton_rows_smem(cfg, x.dtype, x.device)
+    if need > limit:
+        raise NotImplementedError(
+            f"newton_rows: windows of {cfg['Ws']!r} knots need {need} bytes of shared memory "
+            f"a block of the linearize kernel, more than the card's {limit}")
     _, C = newton_shape(cfg)
     r = torch.empty(M, 2, dtype=x.dtype, device=x.device)
     J = torch.empty(0 if cost_only else M, 2, C, dtype=x.dtype, device=x.device)
@@ -899,6 +897,24 @@ def newton_rows(cfg, ins, cost_only=False):
     branch = newton_branch(cfg) + (" cost-only" if cost_only else "")
     newton_rows.branch_launches[branch] = newton_rows.branch_launches.get(branch, 0) + 1
     return r if cost_only else (r, J, J_rho)
+
+
+def newton_rows_smem(cfg, dtype=torch.float64, device=None):
+    """``(need, limit)``: the bytes of shared memory a block of B8's
+    linearize kernel takes for ``cfg``'s window widths, and the most a block
+    can have on the card (its opt-in limit, 232,448 bytes on an H100)."""
+    from .build import load_library
+
+    device = torch.device("cuda" if device is None else device)
+    if device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return _newton_smem(load_library(), _newton_ws(cfg), _newton_flags(cfg), dtype, device)
+
+
+@functools.lru_cache(maxsize=None)
+def _newton_smem(lib, ws, flags, dtype, device):
+    fn = getattr(lib, "kontiki_newton_rows_smem" + ("_f64" if dtype == torch.float64 else "_f32"))
+    return fn(*ws, flags), torch.cuda.get_device_properties(device).shared_memory_per_block_optin
 
 
 def newton_rows_wave(cfg, dtype=torch.float64):
@@ -1341,15 +1357,18 @@ def cost_rows_ops(cfg, ins):
 def newton_rows_host(cfg, ins, cost_only=False, wide=False, steps=False):
     """B8's CUDA row code compiled for the host, in float64: the same
     outputs as ``newton_rows`` (CPU tensors). Each row runs the kernel's
-    lane group, one lane after another, stage by stage; ``wide`` runs one
-    full-width jet a stage instead, as ``newton_rows_ops`` counts it;
-    ``cost_only`` the cost-only kernel's chain. With ``steps``, the Newton
+    lane group, one lane after another, stage by stage (any window width);
+    ``wide`` runs one full-width jet a stage instead, as ``newton_rows_ops``
+    counts it (windows of at most ``newton_wide_w()`` knots); ``cost_only``
+    the cost-only kernel's chain. With ``steps``, the Newton
     steps each row took (int32 [M]) and the smallest margin of their
     convergence tests, ``|dt^2 - b| / b`` with ``b = (readout / (2
     rows))^2`` (float64 [M]), come last."""
     from .build import load_host_library
 
     M = _check_newton_inputs(cfg, ins)
+    if wide and not cost_only:
+        _check_newton_wide(cfg)
     keep, ptrs = _host_args(newton_inputs(cfg), ins)
     _, C = newton_shape(cfg)
     r = torch.zeros(M, 2, dtype=torch.float64)
@@ -1366,23 +1385,67 @@ def newton_rows_host(cfg, ins, cost_only=False, wide=False, steps=False):
     return out[0] if len(out) == 1 else out
 
 
-def newton_rows_ops(cfg, ins, cost_only=False):
-    """Floating-point operations B8's function needs on ``ins``, counted by
-    running its row code on the host once per row, one full-width jet a
-    stage (the ref window's 25 seeds, the chain's NS), with structural
-    zeros and ones free; ``cost_only``: its cost-only form's chain. Rows
-    are counted in chunks in parallel threads."""
+def newton_rows_paths(cfg, ins):
+    """Each row's Newton path as the linearize kernel's primal stage records
+    it (its row code compiled for the host, float64): int32 [M, 4], the
+    steps taken, the updates clamped at 0 and at the readout, and the steps
+    whose obs sub-window bases differ from the step before."""
     from .build import load_host_library
 
     M = _check_newton_inputs(cfg, ins)
+    keep, ptrs = _host_args(newton_inputs(cfg), ins)
+    paths = torch.zeros(M, 4, dtype=torch.int32)
+    load_host_library().kontiki_host_newton_paths_f64(ptrs, paths.data_ptr(), M,
+                                                      *_newton_ws(cfg), _newton_flags(cfg))
+    return paths
+
+
+#: ``kontiki_count_newton_rows``' flag for the linearize kernel's own
+#: schedule (host_rows.cpp kNewtonCountLanes)
+_NEWTON_COUNT_SCHEDULE = 16
+
+
+def newton_wide_w():
+    """The widest window (knots a spline) whose chain the operation count and
+    ``newton_rows_host(wide=True)`` run in one jet (newton_rows.cuh
+    kNewtonLocalW, which the row-a-thread kernels' local windows share)."""
+    from .build import load_host_library
+
+    return load_host_library().kontiki_newton_local_w()
+
+
+def _check_newton_wide(cfg):
+    most = newton_wide_w()
+    if max(cfg["Ws"]) > most:
+        raise NotImplementedError(
+            f"newton_rows: the one-jet chain takes windows of at most {most} knots, "
+            f"got {cfg['Ws']!r}")
+
+
+def newton_rows_ops(cfg, ins, cost_only=False, schedule=False):
+    """Floating-point operations B8's function needs on ``ins``, counted by
+    running its row code on the host once per row, one full-width jet a
+    stage (the ref window's 25 seeds, the chain's NS), with structural
+    zeros and ones free; ``cost_only``: its cost-only form's chain;
+    ``schedule``: the linearize kernel's own schedule (its lane group's
+    stages: the primal path, the local tiles' jets, the chain), the work
+    the kernel does rather than the function's. The function needs no
+    more than the smaller of the two full counts, which the bound takes.
+    Rows are counted in chunks in parallel threads."""
+    from .build import load_host_library
+
+    M = _check_newton_inputs(cfg, ins)
+    if not (cost_only or schedule):
+        _check_newton_wide(cfg)
     slots = newton_inputs(cfg)
     keep, _ = _host_args(slots, ins)
     fn = load_host_library().kontiki_count_newton_rows
+    flags = _newton_flags(cfg, cost_only) | (
+        _NEWTON_COUNT_SCHEDULE if schedule and not cost_only else 0)
 
     def count(a, b):
         part = {k: v[:, a:b].contiguous() for k, v in keep.items()}
-        return fn(_slot_ptrs(slots, part), b - a, *_newton_ws(cfg),
-                  _newton_flags(cfg, cost_only))
+        return fn(_slot_ptrs(slots, part), b - a, *_newton_ws(cfg), flags)
 
     return count_in_chunks(count, M, 256)
 

@@ -522,6 +522,31 @@ def make_big_ba_problem(
                 t1=float(t0s[0]), t2=float(t0s[-1]), n_obs=M)
 
 
+def newton_edge_rows(ins, n=2):
+    """Newton rows at the edges of their Newton path, for the checks of
+    kernel B8: a copy of B8's inputs ``ins`` (a dict of [k, M] tensors,
+    ``ops.linearize_kernels.newton_inputs``) in which the camera's
+    principal row (``K[5]``) moves two image heights, lower for rows 0 ..
+    n - 1 and higher for rows n .. 2n - 1, so that the point projects above
+    or below the image: every update clamps the row time at 0 or at the
+    readout and the loop runs its five steps. Where the knots of the (SE3
+    or R3) spline lie closer than two thirds of the readout, rows 2n .. 3n
+    - 1 also start their row time 1.5 knot spacings away, so that their
+    steps cross a knot and move the window's sub-window."""
+    out = {k: v.clone() for k, v in ins.items()}
+    rows, readout, v = ins["rows"][0], ins["readout"][0], ins["v_obs"][0]
+    down, up = slice(0, n), slice(n, 2 * n)
+    out["K"][5, down] -= 2 * rows[down]
+    out["K"][5, up] += 2 * rows[up]
+    dt = ins["dts"][0]
+    far = slice(2 * n, 3 * n)
+    shift = 1.5 * dt[far] * rows[far] / readout[far]
+    near = 1.5 * dt[far] < readout[far]
+    moved = torch.where(v[far] + shift <= rows[far], v[far] + shift, v[far] - shift)
+    out["v_obs"][0, far] = torch.where(near, moved, v[far])
+    return out
+
+
 def trajectory_ate(traj_a, traj_b, t1, t2, n=200, align=False):
     """RMS position error between two trajectories on [t1, t2), at ``n``
     evenly spaced times.

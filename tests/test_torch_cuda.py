@@ -22,7 +22,7 @@ CPU to 1e-9 relative (B1's and the band solve's float64 roundoff through a
 reduced system of condition ~1e6). B1 and B3 on the atan camera and on
 lifting rows (every window x camera x rows branch) take the camera rows'
 tolerances, and so does B8 (Newton rows) on its four window x camera
-branches, linearize and cost-only."""
+branches, linearize and cost-only, on 6- and 10-knot windows."""
 import numpy as np
 import pytest
 import torch
@@ -630,6 +630,66 @@ def test_newton_rows_ragged_rows(cuda, newton_rows_cuda, branch, rows, dtype, to
     off = x["valid"][0] == 0
     for a in (*got, r):
         assert torch.all(a[off] == 0)
+
+
+@pytest.fixture(scope="module")
+def newton_w10_cuda(cuda):
+    """B8's rows of every branch on 10-knot windows (knots closer than
+    readout / 3: the default camera's 0.025 s over 4.5), their first rows
+    at the edges of the Newton path (``synthetic.newton_edge_rows``: updates
+    clamped at 0 and at the readout, five steps, steps across knots)."""
+    rows = {}
+    for kind in ("se3", "split"):
+        gen = make_rsvi_problem(nviews=8, nlandmarks=24, imu_rate=0.0, seed=43, noise_px=1.0,
+                                perturb_rho=0.05, camera_kind="atan", rs="newton",
+                                trajectory=kind, knot_dt=0.025 / 4.5)
+        problem = Problem(gen["trajectory"], gen["measurements"], device=cuda)
+        spec, rt = kernels.problem_spec(problem), kernels.problem_runtime(problem)
+        cfg, ins = kernels._newton_inputs(spec, spec.buckets[0], rt, problem.state0,
+                                          rt["data"][0])[:2]
+        assert max(cfg["Ws"]) == 10
+        ins = synthetic.newton_edge_rows(ins)
+        for camera in ("PinholeCamera", "AtanCamera"):
+            c = dict(cfg, camera=camera)
+            names = {s[0] for s in lk.newton_inputs(c) if s is not None}
+            rows[lk.newton_branch(c)] = (c, {k: v for k, v in ins.items() if k in names})
+    return rows
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-10), (torch.float32, 1e-3)])
+@pytest.mark.parametrize("branch", NEWTON_BRANCHES)
+def test_newton_rows_w10_edges(newton_w10_cuda, branch, dtype, tol):
+    """B8 linearize and cost-only on 10-knot windows, with rows at the
+    edges of the Newton path, every third row at valid = 0 (exactly zero
+    there), against the plain version."""
+    cfg, ins = newton_w10_cuda[branch]
+    M = ins["u_ref"].shape[1]
+    x = {k: v.to(dtype).contiguous() for k, v in ins.items()}
+    x["valid"] = (torch.arange(M, device=x["u_ref"].device) % 3 != 1).to(dtype)[None, :]
+    got = lk.newton_rows(cfg, x)
+    r = lk.newton_rows(cfg, x, cost_only=True)
+    _assert_close(got, lk.newton_rows_plain(cfg, x), tol)
+    _assert_close((r,), (lk.newton_rows_plain(cfg, x, cost_only=True),),
+                  max(tol, 1e-4) if dtype == torch.float32 else tol)
+    off = x["valid"][0] == 0
+    for a in (*got, r):
+        assert torch.all(a[off] == 0)
+
+
+def test_newton_rows_refuses_windows_past_shared_memory(cuda):
+    """The wrapper refuses, naming the card's limit, windows whose block of
+    rows would not fit in shared memory (80-knot SE3 windows), and launches
+    nothing; 10-knot windows fit."""
+    cfg = dict(kind="se3", camera="PinholeCamera", Ws=(80,))
+    ins = {name: torch.zeros(k, 1, dtype=torch.float64, device=cuda)
+           for name, k in (s for s in lk.newton_inputs(cfg) if s is not None)}
+    need, limit = lk.newton_rows_smem(cfg)
+    assert need > limit >= 200_000
+    assert lk.newton_rows_smem(dict(cfg, Ws=(10,)))[0] < limit
+    before = lk.newton_rows.launches
+    with pytest.raises(NotImplementedError, match=f"more than the card's {limit}"):
+        lk.newton_rows(cfg, ins)
+    assert lk.newton_rows.launches == before
 
 
 def test_newton_solve_on_cuda_matches_cpu(cuda):

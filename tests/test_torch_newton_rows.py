@@ -86,20 +86,65 @@ def rows(trajectory):
     return (jcfg, jins, ji0), (tcfg, tins, ti0), branches
 
 
+#: the rows held to the JAX tile: the small problem's gather, the same rows
+#: with some moved to the edges of the Newton path
+#: (``synthetic.newton_edge_rows``: every update clamped at 0 or at the
+#: readout, five steps), and such rows of the problem on knots closer than
+#: readout / 3 (``W10_DT``: 10-knot windows, steps that cross a knot); each
+#: a case of the tile comparisons, named after the gather's
+TILE_ROWS = ("gather", "edges W6", "edges W10")
+#: knot spacing readout / 4.5 (10-knot windows)
+W10_DT = 0.025 / 4.5
+
+
+def tile_cases(names, which=TILE_ROWS):
+    """``(name, which)`` parameters over ``which`` (of ``TILE_ROWS``), the
+    gather's cases keeping their plain names."""
+    return [pytest.param(n, w, id=n if w == "gather" else f"{n} {w}")
+            for n in names for w in which]
+
+
 @functools.lru_cache(maxsize=None)
-def jax_tile(trajectory, camera, cost_only):
-    """The JAX package's fused Newton tile (jitted) on one branch."""
-    cfg, ins, _, _ = rows(trajectory)[2][camera]
-    fn = jax.jit(functools.partial(jlk.newton_rows, cfg, cost_only=cost_only, backend="xla"))
+def tile_rows(trajectory, camera, which="gather"):
+    """The port's ``(cfg, ins)`` of one branch's rows ``which``
+    (``TILE_ROWS``)."""
+    from kontiki_tpu_torch.synthetic import newton_edge_rows
+
+    if which == "edges W10":
+        return port_rows(trajectory, camera[:-6].lower(), W10_DT)
+    _, _, tcfg, tins = rows(trajectory)[2][camera]
+    return tcfg, (tins if which == "gather" else newton_edge_rows(tins))
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_tile_fn(trajectory, camera, cost_only, W10):
+    """The JAX package's fused Newton tile on one branch, jitted once a
+    window width (the edge rows of a width share its compile)."""
+    cfg = tile_rows(trajectory, camera, "edges W10" if W10 else "gather")[0]
+    return jax.jit(functools.partial(jlk.newton_rows, cfg, cost_only=cost_only, backend="xla"))
+
+
+@functools.lru_cache(maxsize=None)
+def jax_tile(trajectory, camera, cost_only, which="gather"):
+    """The JAX tile on one branch's rows ``which``: the JAX package's own
+    gather for the gather's, else the port's inputs (which equal its
+    gather's, ``test_gather_matches_jax``) in the JAX gather's dtypes."""
+    fn = _jax_tile_fn(trajectory, camera, cost_only, which == "edges W10")
+    jins = rows(trajectory)[2][camera][1]
+    if which == "gather":
+        ins = jins
+    else:
+        ins = {k: jax.numpy.asarray(v.numpy(), dtype=jins[k].dtype)
+               for k, v in tile_rows(trajectory, camera, which)[1].items()}
     out = fn(ins)
     return np.asarray(out) if cost_only else tuple(np.asarray(a) for a in out)
 
 
 @functools.lru_cache(maxsize=None)
-def kept_rows(trajectory, camera):
+def kept_rows(trajectory, camera, which="gather"):
     """Rows whose every convergence test is clear of its bound (``MARGIN``),
     from the host row code's primal path; the others, named by margin."""
-    _, _, tcfg, tins = rows(trajectory)[2][camera]
+    tcfg, tins = tile_rows(trajectory, camera, which)
     _, steps, margin = tlk.newton_rows_host(tcfg, tins, cost_only=True, steps=True)
     near = {int(m): float(margin[m]) for m in torch.nonzero(margin < MARGIN).flatten()}
     return margin >= MARGIN, near, steps
@@ -135,13 +180,27 @@ def test_gather_matches_jax(trajectory):
             np.testing.assert_array_equal(a.numpy(), np.asarray(b), err_msg=tag)
 
 
+def edge_rows_kept(trajectory, camera, which):
+    """``kept_rows`` of rows ``which``; on edge rows, asserts that every
+    row moved to an edge of the Newton path is held to the JAX tile, and
+    that at W = 10 rows 4 and 5 step onto another sub-window."""
+    kept, near, steps = kept_rows(trajectory, camera, which)
+    if which != "gather":
+        assert bool(kept[:6].all()) and bool((steps[:4] == 5).all()), near
+    if which == "edges W10":
+        moved = tlk.newton_rows_paths(*tile_rows(trajectory, camera, which))[:, 3]
+        assert bool((moved[4:6] > 0).all())
+    return kept, near, steps
+
+
 @pytest.mark.parametrize("camera", CAMERAS)
-@pytest.mark.parametrize("trajectory", ["split", "se3"])
-def test_cost_rows_match_jax_tile(host_library, trajectory, camera):
-    """B8's cost-only form, plain and host, against the JAX tile's."""
-    _, _, tcfg, tins = rows(trajectory)[2][camera]
-    kept, near, _ = kept_rows(trajectory, camera)
-    want = jax_tile(trajectory, camera, True)
+@pytest.mark.parametrize("trajectory, which", tile_cases(["split", "se3"]))
+def test_cost_rows_match_jax_tile(host_library, trajectory, which, camera):
+    """B8's cost-only form, plain and host, against the JAX tile's, on each
+    of ``TILE_ROWS``."""
+    tcfg, tins = tile_rows(trajectory, camera, which)
+    kept, near, _ = edge_rows_kept(trajectory, camera, which)
+    want = jax_tile(trajectory, camera, True, which)
     for who, got in (("plain", tlk.newton_rows_plain(tcfg, tins, cost_only=True)),
                      ("host", tlk.newton_rows_host(tcfg, tins, cost_only=True))):
         _jax_close(got, want, kept, f"{camera} {who} r (rows near the test: {near})", 1e-10,
@@ -184,6 +243,63 @@ def test_newton_steps_and_margins(host_library, trajectory):
     assert float(margin.min()) > 1e-3
 
 
+@functools.lru_cache(maxsize=None)
+def port_rows(trajectory, camera_kind, knot_dt):
+    """(cfg, ins) of the port's own gather of a small Newton problem
+    (``SMALL`` on ``knot_dt``, camera pose and time offset free), its edge
+    rows moved by ``synthetic.newton_edge_rows``."""
+    from kontiki_tpu_torch.solver.problem import Problem
+    from kontiki_tpu_torch.synthetic import newton_edge_rows
+
+    gen = make_rsvi_problem(trajectory=trajectory, camera_kind=camera_kind,
+                            **dict(SMALL, knot_dt=knot_dt))
+    cam = gen["camera"]
+    cam.relative_orientation_locked = cam.relative_position_locked = False
+    cam.max_time_offset, cam.time_offset_locked = 0.01, False
+    problem = Problem(gen["trajectory"], gen["measurements"], device="cpu")
+    spec, rt = tk.problem_spec(problem), tk.problem_runtime(problem)
+    (b,) = [i for i, bs in enumerate(spec.buckets) if bs.kind == "rs_newton"]
+    cfg, ins = tk._newton_inputs(spec, spec.buckets[b], rt, problem.state0, rt["data"][b])[:2]
+    return cfg, newton_edge_rows(ins)
+
+
+#: (trajectory, camera, knot spacing): config 4-Newton's 0.15 s (6-knot
+#: windows) and readout / 4.5, knots closer than readout / 3 (10-knot windows)
+EDGE_CASES = {"split pinhole W6": ("split", "pinhole", 0.15),
+              "se3 atan W6": ("se3", "atan", 0.15),
+              "split atan W10": ("split", "atan", W10_DT),
+              "se3 pinhole W10": ("se3", "pinhole", W10_DT)}
+
+
+@pytest.mark.parametrize("case", EDGE_CASES)
+def test_host_schedule_edge_paths(host_library, case):
+    """The kernel's lane schedule on the host against the plain version at
+    the edges of the Newton path (``synthetic.newton_edge_rows``): rows
+    whose every update clamps at 0 or at the readout and that stop at step
+    5, and, at W = 10 (knots closer than readout / 3, which the kernel once
+    refused), rows whose steps cross a knot so that the obs sub-window base
+    changes between steps; every third row at valid = 0 (exact zeros
+    there), the cost-only chain against the linearize form's residual."""
+    cfg, ins = port_rows(*EDGE_CASES[case])
+    W = int(case[-2:].strip("W"))
+    assert max(cfg["Ws"]) == W
+    paths = tlk.newton_rows_paths(cfg, ins)
+    steps, low, high, moved = paths.T
+    assert bool((steps[:4] == 5).all()) and bool((low[:2] == 4).all())
+    assert bool((high[2:4] == 4).all())
+    assert int((steps == 2).sum()) > 0
+    if W == 10:
+        assert bool((moved[4:6] > 0).all()) and int((steps == 3).sum()) > 0
+    M = ins["u_ref"].shape[1]
+    x = dict(ins, valid=(torch.arange(M) % 3 != 1).to(torch.float64)[None, :])
+    want = tlk.newton_rows_plain(cfg, x)
+    got = tlk.newton_rows_host(cfg, x)
+    for name, g, w in zip(("r", "J", "J_rho"), got, want):
+        _close(g, w, f"{case} {name}")
+        assert torch.all(g[x["valid"][0] == 0] == 0)
+    _close(tlk.newton_rows_host(cfg, x, cost_only=True), want[0], f"{case} cost-only")
+
+
 def test_wrapper_routes_and_checks(host_library):
     """The wrapper runs the plain version for CPU tensors and checks its
     inputs; the kernel's operation count adds over rows."""
@@ -203,8 +319,16 @@ def test_wrapper_routes_and_checks(host_library):
     M = tins["u_ref"].shape[1]
     half = {k: v[:, :M // 2].contiguous() for k, v in tins.items()}
     rest = {k: v[:, M // 2:].contiguous() for k, v in tins.items()}
-    for cost_only in (False, True):
-        n = tlk.newton_rows_ops(tcfg, tins, cost_only=cost_only)
-        assert n == (tlk.newton_rows_ops(tcfg, half, cost_only=cost_only)
-                     + tlk.newton_rows_ops(tcfg, rest, cost_only=cost_only)) > 0
+    for opts in ({}, {"cost_only": True}, {"schedule": True}):
+        n = tlk.newton_rows_ops(tcfg, tins, **opts)
+        assert n == (tlk.newton_rows_ops(tcfg, half, **opts)
+                     + tlk.newton_rows_ops(tcfg, rest, **opts)) > 0
     assert tlk.newton_rows_ops(tcfg, tins) > 10 * tlk.newton_rows_ops(tcfg, tins, cost_only=True)
+    # the one-jet chain (the function's count) stops at 8 knots, the lane
+    # schedule and the cost-only chain do not
+    wide, wins = port_rows("split", "pinhole", W10_DT)
+    with pytest.raises(NotImplementedError, match="at most 8 knots"):
+        tlk.newton_rows_ops(wide, wins)
+    with pytest.raises(NotImplementedError, match="at most 8 knots"):
+        tlk.newton_rows_host(wide, wins, wide=True)
+    assert tlk.newton_rows_ops(wide, wins, schedule=True) > 0

@@ -25,23 +25,39 @@ variant (its C entry points must be this checkout's). Cases:
 - ``b7``: B7 (``r3_evaluate_kernel``) at ``chip_smoke.py``'s 4.8 M
   read-back row times, in frame order and shuffled, float64: ms per launch
   on the card (a CUDA graph of 10 launches) and per call;
+- ``b8``: B8 (``newton_rows``) at config 4-Newton's 12,304 rows, split
+  pinhole, float64, linearize and cost-only: ms per launch on the card (a
+  CUDA graph of 20 launches) and ms per call; per variant the rows one
+  wave of its linearize kernel holds, the operations of the function in
+  one jet a stage and of the kernel's own schedule as its host row code
+  counts them (an older checkout's counts the function; the bound takes
+  the smaller), and its largest normwise error against the plain version
+  there and on every branch's rows of ``chip_smoke.py``'s 10-knot windows
+  (``newton_w10_branches``; an older checkout's B8, which took windows of
+  at most 8 knots, refuses them);
 - ``rates``: configs 1 and 2's 25-iteration fused solves (``chip_smoke``'s
   timed solve), it/s on the host clock, five after a warm-up each round.
 
 A round runs the variants in order, the next round in reverse (A B, B A,
 ...). Prints the card's name and power limit, each variant's ``ptxas``
 registers and spill, its largest normwise error against the plain version
-(b4, b5), every number of every round, and per variant the median and
-quartiles over rounds; for b3 and b7 also the operations of the bound as
-each variant's own host row code (its ``host_rows.cpp``, built beside
-its kernels) counts them. Needs a CUDA card and ``nvcc``; run from
-anywhere:
+(b4, b5, b8), every number of every round, and per variant the median and
+quartiles over rounds; for b3, b7 and b8 also the operations of the
+bound as each variant's own host row code (its ``host_rows.cpp``, built
+beside its kernels) counts them. ``--only GLOB`` compiles only the
+``.cu`` files of each variant that match (``newton_rows*.cu`` for b8), so
+variants build in seconds to minutes. Needs a CUDA card and ``nvcc``; run
+from anywhere:
 
     python3 tools/kernel_ab.py --case b5 --rounds 10 \\
         --variant shared=kontiki_tpu_torch/csrc \\
         --variant own=kontiki_tpu_torch/csrc:KT_EVAL_WARP_SHARE=0
+    python3 tools/kernel_ab.py --case b8 --rounds 8 --only 'newton_rows*.cu' \\
+        --variant parent=_archive/parent/kontiki_tpu_torch/csrc \\
+        --variant change=kontiki_tpu_torch/csrc
 """
 import argparse
+import re
 import statistics
 import subprocess
 import sys
@@ -61,17 +77,18 @@ from kontiki_tpu_torch.ops import build  # noqa: E402
 HOSTS = {}
 
 
-def build_variants(specs):
+def build_variants(specs, only="*.cu"):
     """{name: library} of each ``NAME=CSRC[:DEFINES]``, compiled in parallel
     (kept under a hash of the sources and flags, and reused), each with its
-    host row code beside it (``HOSTS``) for the operation counts."""
+    host row code beside it (``HOSTS``) for the operation counts; only the
+    ``.cu`` files matching ``only`` are compiled."""
     jobs = {}
     for spec in specs:
         name, _, rest = spec.partition("=")
         csrc, _, defines = rest.partition(":")
         flags = [*build.NVCC_FLAGS, *(f"-D{d}" for d in defines.split(",") if d)]
         srcs = sorted(Path(csrc).resolve().glob("*.cu*"))
-        out = build._library_path(name, flags, srcs).with_suffix("")
+        out = build._library_path(name, [*flags, only], srcs).with_suffix("")
         out = out.parent / "ab" / out.name
         procs = []
         if not (out / "lib.so").exists():
@@ -80,7 +97,7 @@ def build_variants(specs):
                                             str(out / f"{cu.stem}.o")],
                                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                            text=True))
-                     for cu in srcs if cu.suffix == ".cu"]
+                     for cu in srcs if cu.suffix == ".cu" and cu.match(only)]
             host = Path(csrc).resolve() / "host_rows.cpp"
             cxx = [build.shutil.which("c++") or "g++", *build.HOST_FLAGS,
                    *(f"-D{d}" for d in defines.split(",") if d), str(host), "-o",
@@ -105,7 +122,22 @@ def build_variants(specs):
                   flush=True)
         libs[name] = build.bind_library(out / "lib.so")
         HOSTS[libs[name]] = build.bind_host_library(out / "host.so")
+        stub_older(libs[name], HOSTS[libs[name]])
     return libs
+
+
+def stub_older(lib, host):
+    """Give a library built from an older checkout's sources the newer
+    entries this checkout's wrappers call: B8's shared-memory need (an
+    older B8 took windows of at most 8 knots, so a wider one is refused as
+    needing more than any card holds) and the one-jet chain's widest
+    window."""
+    for suffix in ("_f32", "_f64"):
+        if not hasattr(lib, "kontiki_newton_rows_smem" + suffix):
+            setattr(lib, "kontiki_newton_rows_smem" + suffix,
+                    lambda W0, W1, flags: 0 if max(W0, W1) <= 8 else 1 << 30)
+    if not hasattr(host, "kontiki_newton_local_w"):
+        host.kontiki_newton_local_w = lambda: 8
 
 
 def use(lib):
@@ -237,6 +269,62 @@ def case_b7():
     return times, errs
 
 
+def case_b8():
+    from kontiki_tpu_torch.ops import linearize_kernels as lk
+
+    _, problem = cs.newton_problem(cs.CONFIG4_NEWTON)
+    cfg, ins = cs.newton_inputs(problem)
+    del problem
+    x = {k: v.to(torch.float64).contiguous() for k, v in ins.items()}
+    host = {k: v.cpu() for k, v in x.items()}
+    M = x["u_ref"].shape[1]
+    case = f"config 4-Newton {lk.newton_branch(cfg)} M={M}"
+    times, errs = {}, {}
+    for form, cost_only in (("linearize", False), ("cost-only", True)):
+        def fn(cost_only=cost_only):
+            return lk.newton_rows(cfg, x, cost_only=cost_only)
+
+        want = lk.newton_rows_plain(cfg, x, cost_only=cost_only)
+        times[f"{case} {form} ms per launch"] = lambda fn=fn: cs.graph_ms(fn, n=20)
+        times[f"{case} {form} ms per call"] = lambda fn=fn: cs.cuda_ms(fn)
+        errs[f"{case} {form}"] = lambda fn=fn, want=want, c=cost_only: normwise(
+            [fn()] if c else fn(), [want] if c else want)
+    errs[f"{case} linearize rows a wave"] = lambda: lk.newton_rows_wave(cfg)
+    errs[f"{case} linearize kernels, device ms in one call (profile)"] = lambda: profile_ms(
+        lambda: lk.newton_rows(cfg, x))
+    errs[f"{case} linearize operations"] = lambda: lk.newton_rows_ops(cfg, host)
+    errs[f"{case} linearize schedule operations"] = lambda: lk.newton_rows_ops(
+        cfg, host, schedule=True)
+    for branch, (c, xb) in cs.newton_w10_branches().items():
+        xb = {k: v.to(torch.float64).contiguous() for k, v in xb.items()}
+        want = lk.newton_rows_plain(c, xb)
+
+        errs[f"{branch} W={max(c['Ws'])} M={xb['u_ref'].shape[1]} linearize"] = (
+            lambda c=c, xb=xb, want=want: normwise(lk.newton_rows(c, xb), want))
+    return times, errs
+
+
+def profile_ms(fn, reps=5):
+    """{kernel: device ms a call} of ``fn``'s kernels, from ``torch.profiler``
+    over ``reps`` calls after a warm-up (names cut at the template)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.key_averages():
+        us = getattr(ev, "device_time_total", None) or getattr(ev, "cuda_time_total", 0)
+        if us:
+            m = re.search(r"(\w*kernel\w*)", ev.key)
+            name = m.group(1) if m else ev.key[:40]
+            out[name] = round(out.get(name, 0.0) + us / 1e3 / reps, 5)
+    return out
+
+
 def case_rates():
     from kontiki_tpu_torch.solver.lm import make_fused_solver
 
@@ -272,26 +360,31 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--variant", action="append", required=True,
                     help="NAME=CSRC[:DEFINE,...]; two or more")
-    ap.add_argument("--case", choices=("b3", "b4", "b5", "b7", "rates"), required=True)
+    ap.add_argument("--case", choices=("b3", "b4", "b5", "b7", "b8", "rates"), required=True)
     ap.add_argument("--rounds", type=int, default=10)
+    ap.add_argument("--only", default="*.cu", help="compile only the .cu files matching this")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("tools/kernel_ab.py needs a CUDA card")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True)
     print(f"card: {smi.stdout.strip() or smi.stderr.strip()}", flush=True)
-    libs = build_variants(args.variant)
+    libs = build_variants(args.variant, args.only)
     use(next(iter(libs.values())))
-    times, errs = {"b3": case_b3, "b4": case_b4, "b5": case_b5, "b7": case_b7,
+    times, errs = {"b3": case_b3, "b4": case_b4, "b5": case_b5, "b7": case_b7, "b8": case_b8,
                    "rates": case_rates}[args.case]()
     for name, lib in libs.items():
         use(lib)
         for what, err in errs.items():
-            if what.endswith("operations"):  # counted by the variant's host row code
-                print(f"{name} {what}: {err()}", flush=True)
+            try:
+                got = err()
+            except (NotImplementedError, RuntimeError) as e:  # a variant that refuses
+                print(f"{name} {what}: refused: {e}", flush=True)
+                continue
+            if what.endswith(("operations", "wave", "(profile)")):  # the variant's own figures
+                print(f"{name} {what}: {got}", flush=True)
             else:
-                print(f"{name} {what}: max normwise error against plain {err():.2e}",
-                      flush=True)
+                print(f"{name} {what}: max normwise error against plain {got:.2e}", flush=True)
     got = {(v, t): [] for v in libs for t in times}
     names = list(libs)
     for r in range(args.rounds):
