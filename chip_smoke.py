@@ -141,9 +141,39 @@ Phases, in order; any failure exits non-zero without the final line:
     steps, exact launches, the written-back objects, per-phase times, ATE
     through B5).
 
+23. the solver family on one device, each on its main path's problem:
+    iterative Schur (``make_fused_solver(strategy="iterative_schur")``) on
+    config 4 (after its Schur solve) and config 3-atan-lifting (after its
+    solves): the 1-iteration cost (CG converged; the default tolerance's
+    beside it) against the JAX package's and the port's Schur path
+    (1e-6), the timed 5-iteration solve against the JAX
+    package's (1e-6), CG iterations per solve, exact launches (B1, no B2,
+    no B3); on config 3-atan-lifting the phase-split ``lm.solve`` under
+    ``schur`` and ``iterative_schur`` with each one's per-phase times;
+    after config 4-Newton's phases, one segment-BA banded step on its rows
+    (B8 on 6-knot windows, B6 at C 85 against its plain version) against
+    the port's iterative and Schur steps (1e-6); after configs 1-2's
+    solves, ``strategy="banded"`` on each (1 iteration within 1e-9 of the
+    dense strategy's, the timed 25-iteration solve, exact B4 launches);
+24. after config 5's phases: config 5 in PCG mode (``mode="pcg"``, the
+    timed 6-iteration solve with its CG iterations and exact B1/B3
+    launches, its 1- and 6-iteration costs beside the JAX package's PCG
+    values and their change under a 1e-15 change of CG's right-hand side,
+    one step with a converged CG against the banded step, and one with CG
+    cut after 5 iterations against the JAX package's, 1e-10); the
+    10,050-knot SO3 gyro band (``synthetic.make_gyro_band_problem``): one
+    banded step against the JAX package's (1e-8), a timed 10-iteration
+    fused banded solve with its peak memory; the band solve
+    (``solver.banded.block_tridiag_solve``, PCR) and its scan reference
+    (``_scan_solve``) on config 5's and the gyro band's damped bands,
+    against each other and a dense LU of the expanded system (1e-10
+    normwise), with each method's time; config 5's banded solve with each,
+    patched into ``parallel.segments_ba``, with its rate.
+
 The JAX values of phases 19-20 come from ``JAX_PLATFORMS=cpu python3
 tools/atan_lifting_reference.py``, those of phases 21-22 from
-``JAX_PLATFORMS=cpu python3 tools/newton_reference.py``.
+``JAX_PLATFORMS=cpu python3 tools/newton_reference.py``, those of phases
+23-24 from ``JAX_PLATFORMS=cpu python3 tools/solvers_reference.py``.
 
 Each path's launch counts are set to 0 just before its timed solve and
 read just after. A kernel's bound is the larger of its bytes (each input
@@ -2511,6 +2541,561 @@ def phase_newton_estimator(prob):
     return dict(times, iterations=n)
 
 
+# ---------------------------------------------------------------------------
+# the solver family on one device: iterative Schur, banded, the PCR band
+# solve, segment BA's PCG mode and its Newton rows
+# ---------------------------------------------------------------------------
+
+# The JAX package's float64 values on the CPU (tools/solvers_reference.py):
+# the final costs of make_fused_solver(problem, n, function_tolerance=0.0,
+# strategy="iterative_schur") for n = 1 and 5 (its default cg_tol 1e-10,
+# cg_maxiter 500).
+JAX_ITERATIVE = {
+    "config 4": dict(cost1=1.529560428892923, cost5=8.190725375699584e-06),
+    "config 3-atan-lifting": dict(cost1=1324749.7362606898, cost5=1229865.1119934404),
+}
+ITERATIVE_ITERATIONS = 5
+ITERATIVE_RTOL = 1e-6
+# The 1-iteration cost is gated with CG run to convergence: at the default
+# cg_tol (1e-10) CG's truncation, and the order in which the card's
+# atomic index_add_ sums, move config 4's 1-iteration cost by up to a few
+# 1e-7 between runs (7.0e-8 and 4.1e-7 from the JAX package's in two
+# calls), where the JAX package's own value sits 5.3e-8 from its Schur
+# path's. The default-tolerance value is printed beside it.
+ITERATIVE_CONVERGED_CG = dict(cg_tol=1e-14, cg_maxiter=2000)
+# The 10,050-knot SO3 gyro band (synthetic.make_gyro_band_problem, the JAX
+# package's tests/test_banded.py problem): num_tangent, and the cost, new
+# cost and predicted decrease of one make_banded_step step at lam = 1e-2.
+JAX_GYRO_BAND = dict(num_tangent=30163, cost0=7.794021089826632,
+                     new_cost=0.001901764355493234, pred=7.792123069394589)
+GYRO_BAND_RTOL = 1e-8
+GYRO_BAND_ITERATIONS = 10
+# Config 5 in PCG mode: the final costs of make_segment_ba_solver(problem,
+# mesh of 1, max_iterations=n, function_tolerance=0.0, mode="pcg") (its
+# default cg_tol 1e-6, cg_maxiter 200) for n = 1 and 6. They are printed
+# beside the port's, not gated: CG stops at its 200-iteration cap in every
+# LM iteration (the residual stays above 1e-6), where its iterate depends
+# on roundoff (the phase measures how much: the same solve with its
+# right-hand side changed by 1e-15 relative). What is gated is the PCG
+# path's step with a converged CG against the banded (exact) step, and one
+# step with CG cut after 5 iterations (make_segment_ba_step(problem, mesh,
+# mode="pcg", cg_tol=1e-14, cg_maxiter=5) at lam = 1e-4: ``cut``), where
+# the step depends on the preconditioner and not yet on roundoff, against
+# the JAX package's (tools/solvers_reference.py --only config5cut).
+JAX_CONFIG5_PCG = dict(cost1=372.74140414906356, cost6=0.00870018668800289, iterations6=6,
+                       cut=dict(cost=784576.9477794562, new_cost=34003.32338489117,
+                                pred=757100.4885196856, gmax=313507.9930911808))
+# the converged PCG step against the banded step: new cost and pred
+CONFIG5_PCG_CONVERGED_RTOL = 1e-8
+# the cut-CG step against the JAX package's: cost, new cost, pred, max |g|
+CONFIG5_PCG_CUT = dict(cg_tol=1e-14, cg_maxiter=5)
+CONFIG5_PCG_CUT_RTOL = 1e-10
+# The banded strategy's 1-iteration cost against the dense strategy's, and
+# the band solves (scan, PCR, dense LU of the expanded system) against each
+# other, normwise relative.
+BANDED_VS_DENSE_RTOL = 1e-9
+BAND_SOLVE_RTOL = 1e-10
+# Newton rows in segment BA against the port's iterative and Schur steps
+NEWTON_SBA_RTOL = 1e-6
+
+
+def phase_iterative(name, problem):
+    """``make_fused_solver(problem, n, strategy="iterative_schur")``: the
+    1-iteration cost (CG converged) against the JAX package's and the
+    port's Schur path, an untimed warm-up, then the timed 5-iteration solve
+    (its cost against the JAX package's, CG iterations per solve, exact
+    launches: B1 on the linearizations, no B2, no B3)."""
+    from kontiki_tpu_torch.solver import iterative, kernels
+    from kontiki_tpu_torch.solver.lm import make_fused_solver
+
+    ref = JAX_ITERATIVE[name]
+    s0 = problem.state0
+    schur1 = make_fused_solver(problem, 1, function_tolerance=0.0, strategy="schur")(s0)[1]
+    it1 = make_fused_solver(problem, 1, function_tolerance=0.0,
+                            strategy="iterative_schur")(s0)[1].item()
+    print(f"{name} iterative Schur: 1-iteration cost at the default cg_tol {it1!r} (JAX "
+          f"{ref['cost1']!r}, rel {abs(it1 - ref['cost1']) / ref['cost1']:.2e})", flush=True)
+    it1 = make_fused_solver(problem, 1, function_tolerance=0.0, strategy="iterative_schur",
+                            **ITERATIVE_CONVERGED_CG)(s0)[1].item()
+    for what, want in (("JAX iterative Schur", ref["cost1"]), ("port Schur", schur1.item())):
+        rel = abs(it1 - want) / want
+        print(f"{name} iterative Schur: 1-iteration cost, CG converged, {it1!r} ({what} "
+              f"{want!r}, rel {rel:.2e}, tol {ITERATIVE_RTOL:.0e})", flush=True)
+        if not rel <= ITERATIVE_RTOL:
+            fail(f"{name} iterative Schur: 1-iteration cost differs from the {what} by {rel:.2e}")
+    solve = make_fused_solver(problem, ITERATIVE_ITERATIONS, function_tolerance=0.0,
+                              strategy="iterative_schur")
+    t0 = time.perf_counter()
+    solve(s0)
+    torch.cuda.synchronize()
+    print(f"{name} iterative Schur: warm-up solve {time.perf_counter() - t0:.3f} s", flush=True)
+    ks = []
+    pcg = iterative.pcg
+
+    def counted(*args, **kw):
+        x, k = pcg(*args, **kw)
+        ks.append(k)
+        return x, k
+
+    iterative.pcg = counted
+    try:
+        reset_counts()
+        t0 = time.perf_counter()
+        state, cost, iters = solve(s0)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = read_counts()
+    finally:
+        iterative.pcg = pcg
+    cg = [int(k) for k in ks]
+    cost = cost.item()
+    rel = abs(cost - ref["cost5"]) / ref["cost5"]
+    print(f"{name} iterative Schur: {iters} iterations in {seconds:.3f} s = "
+          f"{iters / seconds:.2f} it/s; CG iterations per solve {cg}; final cost {cost!r} "
+          f"(JAX {ref['cost5']!r}, rel {rel:.2e}, tol {ITERATIVE_RTOL:.0e}); launches "
+          f"{launches}", flush=True)
+    for k, v in state.items():
+        if v.shape != s0[k].shape or not torch.isfinite(v).all():
+            fail(f"{name} iterative Schur: final state {k}: bad shape or non-finite values")
+    if iters != ITERATIVE_ITERATIONS or len(cg) != iters:
+        fail(f"{name} iterative Schur: ran {iters} iterations ({len(cg)} CG solves)")
+    if not rel <= ITERATIVE_RTOL:
+        fail(f"{name} iterative Schur: final cost differs from the JAX package's by {rel:.2e}")
+    spec = kernels.problem_spec(problem)
+    branch = ("linearize_rows se3 pinhole static" if spec.splines[0].kind == "se3"
+              else "linearize_rows split atan lifting")
+    # the speculative loop linearizes state0 and each candidate; nothing is
+    # assembled and nothing re-costs
+    check_launches(f"{name} iterative Schur", launches, {
+        branch: iters + 1, "linearize_rows": iters + 1, "assemble_schur_blocks": 0,
+        "cost_rows": 0, "imu_rows": 0})
+    return dict(it_per_s=iters / seconds, cg=cg)
+
+
+def phase_lifting_strategies(name, prob):
+    """The estimator's phase-split ``lm.solve`` (10 iterations) on config
+    3-atan-lifting's objects under ``schur`` and ``iterative_schur``: the
+    same initial cost, the iteration-1 costs within 1e-6, and each
+    strategy's per-phase times per iteration."""
+    from kontiki_tpu_torch.solver.lm import solve as lm_solve
+    from kontiki_tpu_torch.solver.problem import Problem
+
+    out = {}
+    for strategy in ("schur", "iterative_schur"):
+        problem = Problem(prob["trajectory"], prob["measurements"])
+        lm_solve(problem, max_iterations=1, strategy=strategy)
+        torch.cuda.synchronize()
+        _, summary = lm_solve(problem, max_iterations=10, function_tolerance=0.0,
+                              strategy=strategy)
+        n = len(summary.iterations) - 1
+        times = {k: 1e3 * v / max(n, 1) for k, v in (
+            ("jacobian", summary.jacobian_evaluation_time_in_seconds),
+            ("linear solver", summary.linear_solver_time_in_seconds),
+            ("residual", summary.residual_evaluation_time_in_seconds))}
+        print(f"{name} lm.solve, strategy {strategy}: {summary.BriefReport()}; per iteration "
+              + ", ".join(f"{k} {v:.3f} ms" for k, v in times.items()), flush=True)
+        out[strategy] = (summary, times)
+    (a, _), (b, _) = out["schur"], out["iterative_schur"]
+    rel0 = abs(a.initial_cost - b.initial_cost) / a.initial_cost
+    rel1 = abs(a.iterations[1].cost - b.iterations[1].cost) / a.iterations[1].cost
+    print(f"{name} lm.solve: iterative Schur against Schur, initial cost rel {rel0:.2e}, "
+          f"iteration-1 cost rel {rel1:.2e} (tol {ITERATIVE_RTOL:.0e})", flush=True)
+    if not (rel0 <= 1e-12 and rel1 <= ITERATIVE_RTOL):
+        fail(f"{name} lm.solve: the iterative-Schur costs differ from the Schur strategy's")
+    return {k: v[1] for k, v in out.items()}
+
+
+def phase_banded_imu(name, problem):
+    """``make_fused_solver(problem, n, strategy="banded")`` on configs 1 and
+    2: the initial and 1-iteration costs against the JAX package's dense
+    values and the 1-iteration cost against the port's dense strategy's
+    (1e-9), an untimed warm-up, the timed 25-iteration solve (final/initial
+    under the dense path's gate, exact B4 launches: one linearization a
+    bucket per iteration and for state0, no re-cost)."""
+    from kontiki_tpu_torch.solver import kernels
+    from kontiki_tpu_torch.solver.banded import build_banded_parts
+    from kontiki_tpu_torch.solver.lm import make_fused_solver
+
+    cfg = IMU_CONFIGS[name]
+    s0 = problem.state0
+    spec = kernels.problem_spec(problem)
+    cost0 = build_banded_parts(spec)["linearize"](kernels.problem_runtime(problem), s0)[0].item()
+    dense1 = make_fused_solver(problem, 1, function_tolerance=0.0, strategy="dense")(s0)[1].item()
+    band1 = make_fused_solver(problem, 1, function_tolerance=0.0,
+                              strategy="banded")(s0)[1].item()
+    for what, got, want, tol in (("initial", cost0, cfg["cost0"], COST_RTOL),
+                                 ("1-iteration", band1, cfg["cost1"], COST_RTOL),
+                                 ("1-iteration vs the port's dense", band1, dense1,
+                                  BANDED_VS_DENSE_RTOL)):
+        rel = abs(got - want) / want
+        print(f"{name} banded: {what} cost {got!r} ({want!r}, rel {rel:.2e}, tol {tol:.0e})",
+              flush=True)
+        if not rel <= tol:
+            fail(f"{name} banded: {what} cost differs by {rel:.2e}")
+    solve = make_fused_solver(problem, 25, function_tolerance=0.0, strategy="banded")
+    t0 = time.perf_counter()
+    solve(s0)
+    torch.cuda.synchronize()
+    print(f"{name} banded: warm-up solve {time.perf_counter() - t0:.3f} s", flush=True)
+    reset_counts()
+    t0 = time.perf_counter()
+    state, cost, iters = solve(s0)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_counts()
+    ratio = cost.item() / cost0
+    print(f"{name} banded: {iters} iterations in {seconds:.4f} s = {iters / seconds:.2f} it/s; "
+          f"final cost {cost.item():.6e} ratio {ratio:.3e} (gate {cfg['final_ratio']:.0e}); "
+          f"launches {launches}", flush=True)
+    for k, v in state.items():
+        if v.shape != s0[k].shape or not torch.isfinite(v).all():
+            fail(f"{name} banded: final state {k}: bad shape or non-finite values")
+    if iters != 25 or not (math.isfinite(ratio) and ratio <= cfg["final_ratio"]):
+        fail(f"{name} banded: {iters} iterations, final/initial cost {ratio:.3e}")
+    nb = len(spec.buckets)
+    check_launches(f"{name} banded", launches, {"imu_rows": (iters + 1) * nb,
+                                                "imu_rows cost-only": 0})
+    return dict(it_per_s=iters / seconds)
+
+
+def gyro_band_problem():
+    """The 10,050-knot SO3 gyro band through the entry point, on the card."""
+    from kontiki_tpu_torch.synthetic import make_gyro_band_problem
+
+    t0 = time.time()
+    problem = make_gyro_band_problem()
+    if problem.device.type != "cuda":
+        fail(f"gyro band: RawProblem built on {problem.device}, not on the card")
+    print(f"gyro band: {problem.splines[0].n} knots, {problem.buckets['gyro'].M} gyro rows, "
+          f"num_tangent {problem.num_tangent} ({time.time() - t0:.1f} s on the host)",
+          flush=True)
+    if problem.num_tangent != JAX_GYRO_BAND["num_tangent"]:
+        fail(f"gyro band: num_tangent {problem.num_tangent} != {JAX_GYRO_BAND['num_tangent']}")
+    return problem
+
+
+def phase_gyro_band(problem):
+    """One ``make_banded_step`` step of the 10,050-knot band against the
+    JAX package's (1e-8; it must lower the cost; exact B4 launches), then a
+    timed 10-iteration fused banded solve with its peak device memory."""
+    from kontiki_tpu_torch.solver.banded import make_banded_step
+    from kontiki_tpu_torch.solver.lm import make_fused_solver
+
+    s0 = problem.state0
+    step, _ = make_banded_step(problem)
+    step(s0, 1e-2)
+    reset_counts()
+    c0, _, nc, pred, delta, _ = step(s0, 1e-2)
+    torch.cuda.synchronize()
+    check_launches("gyro band step", read_counts(), {"imu_rows": 2, "imu_rows cost-only": 1})
+    for what, got, key in (("cost", c0, "cost0"), ("new cost", nc, "new_cost"),
+                           ("pred", pred, "pred")):
+        got, want = got.item(), JAX_GYRO_BAND[key]
+        rel = abs(got - want) / abs(want)
+        print(f"gyro band step: {what} {got!r} (JAX {want!r}, rel {rel:.2e}, tol "
+              f"{GYRO_BAND_RTOL:.0e})", flush=True)
+        if not rel <= GYRO_BAND_RTOL:
+            fail(f"gyro band step: {what} differs from the JAX package's by {rel:.2e}")
+    if not (nc.item() < c0.item() and torch.isfinite(delta).all()):
+        fail("gyro band step: the step does not lower the cost")
+    solve = make_fused_solver(problem, GYRO_BAND_ITERATIONS, function_tolerance=0.0,
+                              strategy="banded")
+    t0 = time.perf_counter()
+    solve(s0)
+    torch.cuda.synchronize()
+    print(f"gyro band: warm-up solve {time.perf_counter() - t0:.3f} s", flush=True)
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state, cost, iters = solve(s0)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    print(f"gyro band: {iters} iterations in {seconds:.3f} s = {iters / seconds:.3f} it/s; "
+          f"cost {c0.item():.6e} -> {cost.item():.6e}; peak device memory "
+          f"{peak / 2**30:.3f} GiB; launches {launches}", flush=True)
+    if iters != GYRO_BAND_ITERATIONS or not cost.item() < c0.item():
+        fail(f"gyro band: {iters} iterations, final cost {cost.item()!r}")
+    check_launches("gyro band solve", launches, {"imu_rows": iters + 1,
+                                                 "imu_rows cost-only": 0})
+    return dict(it_per_s=iters / seconds, peak_gib=peak / 2**30)
+
+
+def dense_band(D, U):
+    """The symmetric block-tridiagonal matrix of ``(D, U)`` as a dense
+    ``[nb d, nb d]`` tensor."""
+    nb, d, _ = D.shape
+    T = torch.zeros(nb, d, nb, d, dtype=D.dtype, device=D.device)
+    k = torch.arange(nb, device=D.device)
+    T[k, :, k, :] = D
+    T[k[:-1], :, k[1:], :] = U[:-1]
+    T[k[1:], :, k[:-1], :] = U[:-1].transpose(1, 2)
+    return T.reshape(nb * d, nb * d)
+
+
+def band_systems(big, band_problem):
+    """The damped bands the main paths solve: config 5's at ``state0`` and
+    lam = 1e-4 (its first iteration's, landmarks eliminated, the sensor
+    border as right-hand sides) and the gyro band's at lam = 1e-2."""
+    from kontiki_tpu_torch.parallel.segments_ba import _build_segment_ba
+    from kontiki_tpu_torch.solver import kernels
+    from kontiki_tpu_torch.solver.banded import build_banded_parts
+
+    problem = big["problem"]
+    b = _build_segment_ba(problem, 1, "banded")
+    st = b["to_sharded"](problem.state0)
+    _, blocks, ml = b["whitened_blocks"](st)
+    ctx = b["eliminate"](b["assemble_band"](blocks), ml, 1e-4, st)
+    parts = build_banded_parts(kernels.problem_spec(band_problem))
+    rt = kernels.problem_runtime(band_problem)
+    _, bl = parts["linearize"](rt, band_problem.state0)
+    g = parts["grad_and_diag"](bl)[0]
+    D, U, rhs, _ = parts["damped_system"](rt, bl, g, 1e-2)
+    return {"config 5": (ctx["Dd"], ctx["Uband"], ctx["rhs"]), "gyro band": (D, U, rhs)}
+
+
+def phase_band_solve(systems):
+    """Scan and PCR on each damped band against each other and against a
+    dense LU solve of the expanded system (normwise relative), with each
+    method's median CUDA-event time."""
+    from kontiki_tpu_torch.solver.banded import _scan_solve, block_tridiag_solve
+
+    solves = {"scan": _scan_solve, "pcr": block_tridiag_solve}
+    out = {}
+    for name, (D, U, rhs) in systems.items():
+        nb, d, _ = D.shape
+        R = rhs.shape[-1]
+        sols = {m: f(D, U, rhs) for m, f in solves.items()}
+        sols["dense"] = torch.linalg.solve(dense_band(D, U),
+                                           rhs.reshape(nb * d, R)).reshape(nb, d, R)
+        for a, b in (("scan", "dense"), ("pcr", "dense"), ("pcr", "scan")):
+            rel = (torch.linalg.vector_norm(sols[a] - sols[b])
+                   / torch.linalg.vector_norm(sols[b])).item()
+            print(f"band solve {name} (nb {nb}, d {d}, R {R}): {a} vs {b} normwise rel "
+                  f"{rel:.3e} (tol {BAND_SOLVE_RTOL:.0e})", flush=True)
+            if not rel <= BAND_SOLVE_RTOL:
+                fail(f"band solve {name}: {a} and {b} differ by {rel:.3e}")
+        del sols
+        times = {"scan": cuda_ms(lambda: _scan_solve(D, U, rhs), reps=5, warmup=1),
+                 "pcr": cuda_ms(lambda: block_tridiag_solve(D, U, rhs))}
+        print(f"band solve {name} (nb {nb}, d {d}, R {R}): scan {times['scan']:.3f} ms, pcr "
+              f"{times['pcr']:.3f} ms ({CARD})", flush=True)
+        out[name] = times
+    return out
+
+
+def phase_config5_methods(big):
+    """Config 5's banded solve with its band solve (PCR) and with the scan
+    reference patched in: the 1-iteration costs within 1e-10 of each
+    other, the 6-iteration costs within config 5's 1e-4, and each one's
+    iterations per second."""
+    from kontiki_tpu_torch.parallel import segments_ba as sba
+    from kontiki_tpu_torch.solver.banded import _scan_solve, block_tridiag_solve
+
+    problem = big["problem"]
+    s0 = problem.state0
+    out = {}
+    try:
+        for method, solve_band in (("scan", _scan_solve), ("pcr", block_tridiag_solve)):
+            sba.block_tridiag_solve = solve_band
+            cost1 = sba.make_segment_ba_solver(problem, max_iterations=1,
+                                               function_tolerance=0.0)(s0)[1].item()
+            solve = sba.make_segment_ba_solver(problem, max_iterations=CONFIG5_ITERATIONS,
+                                               function_tolerance=0.0)
+            solve(s0)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, cost, iters = solve(s0)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            out[method] = dict(cost1=cost1, cost=cost.item(), it_per_s=iters / seconds)
+            print(f"config 5 banded, band solve {method}: 1-iteration cost {cost1!r}; {iters} "
+                  f"iterations in {seconds:.3f} s = {iters / seconds:.3f} it/s; final cost "
+                  f"{cost.item()!r}", flush=True)
+    finally:
+        sba.block_tridiag_solve = block_tridiag_solve
+    a, b = out["scan"], out["pcr"]
+    rel1 = abs(a["cost1"] - b["cost1"]) / a["cost1"]
+    rel6 = abs(a["cost"] - b["cost"]) / a["cost"]
+    print(f"config 5 banded: pcr vs scan, 1-iteration cost rel {rel1:.2e} (tol 1e-10), "
+          f"6-iteration rel {rel6:.2e} (tol {CONFIG5_FINAL_RTOL:.0e})", flush=True)
+    if not (rel1 <= 1e-10 and rel6 <= CONFIG5_FINAL_RTOL):
+        fail("config 5 banded: the band-solve methods give different costs")
+    return out
+
+
+def phase_config5_pcg(big):
+    """Config 5 through ``make_segment_ba_solver(mode="pcg")``: the
+    1-iteration and timed 6-iteration costs beside the JAX package's PCG
+    values, the change of both under a 1e-15 relative change of CG's
+    right-hand side (the yardstick of their gap to the JAX values), CG
+    iterations per solve, exact B1/B3 launches (a linearization and a
+    re-cost an iteration, no B6), falling costs, one step with a converged
+    CG against the banded step (1e-8), and one step with CG cut after 5
+    iterations, which depends on the preconditioner, against the JAX
+    package's (1e-10)."""
+    from kontiki_tpu_torch.parallel import segments_ba as sba
+
+    problem = big["problem"]
+    s0 = problem.state0
+    ks = []
+    pcg = sba.pcg
+
+    def counted(*args, **kw):
+        x, k = pcg(*args, **kw)
+        ks.append(k)
+        return x, k
+
+    sba.pcg = counted
+    try:
+        cost1 = sba.make_segment_ba_solver(problem, max_iterations=1, function_tolerance=0.0,
+                                           mode="pcg")(s0)[1].item()
+
+        def nudged(matvec, precond, b, *args, **kw):
+            sign = 1.0 - 2.0 * (torch.arange(b.numel(), device=b.device, dtype=b.dtype) % 2)
+            return counted(matvec, precond, b * (1.0 + 1e-15 * sign), *args, **kw)
+
+        sba.pcg = nudged
+        cost_nudged = {n: sba.make_segment_ba_solver(problem, max_iterations=n,
+                                                     function_tolerance=0.0,
+                                                     mode="pcg")(s0)[1].item()
+                       for n in (1, CONFIG5_ITERATIONS)}
+        sba.pcg = counted
+        solve = sba.make_segment_ba_solver(problem, max_iterations=CONFIG5_ITERATIONS,
+                                           function_tolerance=0.0, mode="pcg")
+        solve(s0)
+        torch.cuda.synchronize()
+        ks.clear()
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state, cost, iters = solve(s0)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = read_counts()
+        peak = torch.cuda.max_memory_allocated()
+        cg = [int(k) for k in ks]
+        ks.clear()
+        conv = sba.make_segment_ba_step(problem, mode="pcg", cg_tol=1e-12,
+                                        cg_maxiter=20_000)[0](s0, 1e-4)
+        cg_conv = int(ks[-1])
+    finally:
+        sba.pcg = pcg
+    band = sba.make_segment_ba_step(problem)[0](s0, 1e-4)
+    cut = sba.make_segment_ba_step(problem, mode="pcg", **CONFIG5_PCG_CUT)[0](s0, 1e-4)
+    ref = JAX_CONFIG5_PCG
+    cost = cost.item()
+    print(f"config 5 pcg: {iters} iterations in {seconds:.3f} s = {iters / seconds:.3f} it/s; "
+          f"CG iterations per solve {cg}; peak device memory {peak / 2**30:.2f} GiB; "
+          f"launches {launches}", flush=True)
+    for k, v in state.items():
+        if v.shape != s0[k].shape or not torch.isfinite(v).all():
+            fail(f"config 5 pcg: final state {k}: bad shape or non-finite values")
+    for what, got, want in (("1-iteration cost", cost1, ref["cost1"]),
+                            ("6-iteration cost", cost, ref["cost6"])):
+        rel = abs(got - want) / want
+        print(f"config 5 pcg: {what} {got!r} (JAX pcg {want!r}, rel {rel:.2e})", flush=True)
+    nudge = {}
+    for n, unchanged in ((1, cost1), (CONFIG5_ITERATIONS, cost)):
+        nudge[n] = abs(cost_nudged[n] - unchanged) / unchanged
+        print(f"config 5 pcg: {n}-iteration cost with CG's right-hand side changed by 1e-15 "
+              f"relative: {cost_nudged[n]!r} (rel {nudge[n]:.2e} from the unchanged solve's)",
+              flush=True)
+    rel_c = {i: abs(conv[i].item() - band[i].item()) / abs(band[i].item()) for i in (0, 2, 3)}
+    print(f"config 5 pcg: one step with a converged CG ({cg_conv} iterations): cost, new cost, "
+          f"pred {[conv[i].item() for i in (0, 2, 3)]} against the banded step's "
+          f"{[band[i].item() for i in (0, 2, 3)]}, rel {rel_c} (tol "
+          f"{CONFIG5_PCG_CONVERGED_RTOL:.0e})", flush=True)
+    rel_cut = {}
+    for i, name in ((0, "cost"), (2, "new_cost"), (3, "pred"), (4, "gmax")):
+        rel_cut[name] = abs(cut[i].item() - ref["cut"][name]) / abs(ref["cut"][name])
+    print(f"config 5 pcg: one step with CG cut after {CONFIG5_PCG_CUT['cg_maxiter']} "
+          f"iterations: cost, new cost, pred, max |g| {[cut[i].item() for i in (0, 2, 3, 4)]} "
+          f"against the JAX package's, rel {rel_cut} (tol {CONFIG5_PCG_CUT_RTOL:.0e})",
+          flush=True)
+    if not max(rel_cut.values()) <= CONFIG5_PCG_CUT_RTOL:
+        fail("config 5 pcg: the cut-CG step differs from the JAX package's")
+    if iters != ref["iterations6"]:
+        fail(f"config 5 pcg: ran {iters} iterations, the JAX package {ref['iterations6']}")
+    if not (max(rel_c.values()) <= CONFIG5_PCG_CONVERGED_RTOL and cg_conv < 20_000):
+        fail("config 5 pcg: the converged PCG step differs from the banded step")
+    if not cost < cost1 < JAX_CONFIG5["cost0"]:
+        fail(f"config 5 pcg: the costs do not fall ({JAX_CONFIG5['cost0']!r}, {cost1!r}, "
+             f"{cost!r})")
+    # one linearization (B1) and one re-cost (B3) an iteration, the cost of
+    # state0 once; nothing is expanded (B6) or assembled
+    check_launches("config 5 pcg", launches, {
+        "linearize_rows split": iters, "cost_rows": iters + 1, "onehot_expand_rows": 0,
+        "assemble_schur_blocks": 0})
+    return dict(it_per_s=iters / seconds, cg=cg, cost1=cost1, cost=cost, conv=rel_c,
+                cg_conv=cg_conv, nudge=nudge, cut=rel_cut)
+
+
+def phase_newton_segment(problem):
+    """One ``make_segment_ba_step`` banded step on config 4-Newton: its new
+    cost and predicted decrease against the port's iterative-Schur and
+    Schur steps (1e-6; the JAX package's own test), exact B8/B4/B6
+    launches, and B6 on the Newton bucket (C 85) against its plain
+    version."""
+    from kontiki_tpu_torch.ops import linearize_kernels as lk
+    from kontiki_tpu_torch.parallel.segments_ba import _build_segment_ba, make_segment_ba_step
+    from kontiki_tpu_torch.solver import kernels
+    from kontiki_tpu_torch.solver.iterative import make_iterative_step
+    from kontiki_tpu_torch.solver.schur import build_schur_parts
+
+    name = "config 4-Newton segment BA"
+    s0 = problem.state0
+    step, _ = make_segment_ba_step(problem)
+    step(s0, 1e-4)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    got = step(s0, 1e-4)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_counts()
+    spec = kernels.problem_spec(problem)
+    nb = len(spec.buckets)
+    print(f"{name}: one step {1e3 * seconds:.1f} ms; cost {got[0].item()!r}, new cost "
+          f"{got[2].item()!r}, pred {got[3].item()!r}; launches {launches}", flush=True)
+    check_launches(name, launches, {
+        "newton_rows": 2, "newton_rows cost-only": 1, "imu_rows": 2 * (nb - 1),
+        "imu_rows cost-only": nb - 1, "onehot_expand_rows": nb, "linearize_rows": 0,
+        "assemble_schur_blocks": 0})
+    it = make_iterative_step(problem, cg_tol=1e-12, cg_maxiter=2000)[0](s0, 1e-4)
+    rt = kernels.problem_runtime(problem)
+    parts = build_schur_parts(spec)
+    lin = parts["linearize"](rt, s0)
+    delta, pred = parts["solve_from_lin"](rt, s0, *lin[1:], 1e-4)
+    schur_new = parts["total_cost"](rt, parts["retract"](rt, s0, delta)).item()
+    for what, new_cost, p in (("iterative Schur", it[2].item(), it[3].item()),
+                              ("Schur", schur_new, pred.item())):
+        rels = (abs(got[2].item() - new_cost) / new_cost, abs(got[3].item() - p) / abs(p))
+        print(f"{name}: against the {what} step: new cost {new_cost!r} pred {p!r}, rel "
+              f"{rels[0]:.2e}, {rels[1]:.2e} (tol {NEWTON_SBA_RTOL:.0e})", flush=True)
+        if not max(rels) <= NEWTON_SBA_RTOL:
+            fail(f"{name}: new cost or pred differs from the {what} step's")
+    b = _build_segment_ba(problem, 1, "banded")
+    st = b["to_sharded"](s0)
+    _, blocks, _ = b["whitened_blocks"](st)
+    i = [k.kind for k in b["spec_local"].buckets].index("rs_newton")
+    blk, layout = blocks[i], b["layouts"][i]
+    rel_ids = b["colrel"](blk, layout)
+    Jw = blk["Jw"].contiguous()
+    out = {}
+    for dtype in (torch.float64, torch.float32):
+        x = Jw.to(dtype)
+        err = compare("onehot_expand_rows", dtype, ["Jd (C 85)"],
+                      [lk.onehot_expand_rows(x, rel_ids, b["WB"])],
+                      [lk.onehot_expand_rows_plain(x, rel_ids, b["WB"])])
+        out[dtype] = err
+    ms = cuda_ms(lambda: lk.onehot_expand_rows(Jw, rel_ids, b["WB"]))
+    print(f"{name}: B6 at C {Jw.shape[2]}, M {Jw.shape[0]}, WB {b['WB']}: {ms:.4f} ms "
+          f"({CARD})", flush=True)
+    return dict(b6_ms=ms)
+
+
 def main():
     phase_device()
     phase_build()
@@ -2520,6 +3105,7 @@ def main():
     b2 = phase_b2(problem4)
     phase_b2_edges()
     phase_solve("config 4", problem4)
+    phase_iterative("config 4", problem4)
     prob3, problem3 = phase_problem("config 3")
     b1_split = phase_b1(problem3)
     b3 = phase_b3({"config 3": problem3, "config 4": problem4})
@@ -2532,6 +3118,8 @@ def main():
                      "config 3-atan-lifting": atan["config 3-atan-lifting"][1]})
     for name, (_, p) in atan.items():
         phase_solve(name, p)
+    phase_iterative("config 3-atan-lifting", atan["config 3-atan-lifting"][1])
+    phase_lifting_strategies("config 3-atan-lifting", atan["config 3-atan-lifting"][0])
     for name, (prob, _) in atan.items():
         phase_atan_estimator(name, prob)
     prob4n, problem4n = phase_newton_problem()
@@ -2540,11 +3128,13 @@ def main():
     b2_newton = phase_b2(problem4n)
     phase_newton_solve(problem4n)
     phase_newton_estimator(prob4n)
+    phase_newton_segment(problem4n)
     del problem4n
     imu = {name: imu_problem(name) for name in IMU_CONFIGS}
     b4 = phase_b4(imu)
     for name, p in imu.items():
         phase_imu_solve(name, p)
+        phase_banded_imu(name, p)
     phase_breakdown(imu["config 2"])
     for name, prob in (("config 3", prob3), ("config 4", prob4)):
         phase_estimator(name, prob)
@@ -2559,6 +3149,11 @@ def main():
     phase_config5_rows(big5["problem"])
     b6 = phase_b6(big5["problem"])
     phase_config5(big5)
+    phase_config5_pcg(big5)
+    band = gyro_band_problem()
+    phase_gyro_band(band)
+    phase_band_solve(band_systems(big5, band))
+    phase_config5_methods(big5)
     n = MAIN_PATH_LAUNCHES
     print(f"main-path launches: {n}", flush=True)
     b1_source = dict(route="cuda", source="kontiki_tpu_torch/csrc/linearize_rows.cu")

@@ -1,7 +1,8 @@
 """Scale-out layouts (counterpart of ``kontiki_tpu.parallel``).
 
 Ported: ``segments_ba``, the knot-segment x landmark-block layout of
-BASELINE config 5 with its banded direct solve, on one shard. The JAX
+BASELINE config 5 with its banded direct solve and its matrix-free PCG
+mode, on one shard. The JAX
 package's measurement sharding, its other layouts and every multi-shard
 path wait for ``torch.distributed`` (ROADMAP.md Queue A 5).
 """

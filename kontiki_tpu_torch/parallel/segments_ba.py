@@ -1,28 +1,31 @@
-"""Knot-segment x landmark-block bundle adjustment, banded direct solve
-(counterpart of ``kontiki_tpu.parallel.segments_ba``; BASELINE config 5).
+"""Knot-segment x landmark-block bundle adjustment on one device, banded
+direct solve or matrix-free PCG (counterpart of
+``kontiki_tpu.parallel.segments_ba``; BASELINE config 5).
 
 The layout (``segment_ba_layout``, host numpy, any number of shards) cuts
 the knot axis into contiguous segments of ``seg`` knots and gives every
 landmark, with all of its rows, to the segment that owns its reference
-window. Superblocks of ``G`` knots are wide enough that each row and each
-landmark touches at most two consecutive superblocks, so the reduced
-system (knots and sensors, landmarks eliminated) is block-tridiagonal in
-superblocks with a dense sensor border.
+window; a lifting row's ``vt`` goes with its row. Superblocks of ``G``
+knots are wide enough that each row and each landmark touches at most two
+consecutive superblocks, so the reduced system (knots and sensors,
+landmarks eliminated) is block-tridiagonal in superblocks with a dense
+sensor border.
 
-One LM iteration of the banded mode, on one device:
+One LM iteration of the banded mode (``mode="banded"``):
 
 1. linearize: each bucket's compressed rows ``J [M, rdim, C]`` (camera rows
-   through kernel B1, IMU rows through B4), robust-whitened, columns in the
-   segment's local layout (``_whitened_blocks``);
+   through kernel B1, Newton rows through B8 on their W-knot windows, IMU
+   rows through B4, pose rows on ``torch.func``), robust-whitened, columns
+   in the segment's local layout (``whitened_blocks``);
 2. assemble: each row's columns become pair-window ids relative to its
-   anchor superblock (``_colrel``), kernel B6
+   anchor superblock (``colrel``), kernel B6
    (``ops.linearize_kernels.onehot_expand_rows``) expands the rows to dense
    pair-window rows ``Jd [M, rdim, WB]``, ``WB = 2 G BD + ns``, and batched
    products per anchor give the pair blocks ``Pa [nbloc, WB, WB]``, ``ga``
    and the landmark-slot blocks ``Ea``, ``Da``, ``gla``; lock masks apply
-   after assembly (``_assemble_band``);
+   after assembly (``assemble_band``);
 3. solve: damping from the pair blocks' diagonals, landmark elimination in
-   slot space, the block-tridiagonal Cholesky
+   slot space, the block-tridiagonal solve
    (``solver.banded.block_tridiag_solve``) with the sensor border as extra
    right-hand sides, the 13 x 13-per-sensor Schur solve, landmark
    back-substitution, and the predicted decrease from the same blocks;
@@ -30,18 +33,23 @@ One LM iteration of the banded mode, on one device:
    (``make_segment_ba_solver`` runs ``lm.trust_region_loop_spec`` on the
    carried ``(cost, assembly, mask_l)``).
 
+The PCG mode (``mode="pcg"``) linearizes the rows masked per column, with
+the gradient, the duplicate-aware diagonal and per-knot and per-sensor
+preconditioner blocks (``linearize_pcg``, on ``solver.iterative``'s
+``grad_and_diag`` and ``precond_blocks``), solves the damped Schur complement by PCG on the
+compressed rows (``solve_pcg``; a lifting row's ``vt`` is a column past the
+sensor border, preconditioned by its diagonal and clipped to [0, 1]), and
+re-costs the candidate in ``lm.trust_region_loop``.
+
 Only one shard is ported: there the halos are empty (``Hl = Hr = 0``), the
 knot and landmark arrays are the whole problem padded to ``seg`` knots, and
 the JAX package's permutes and reductions over the mesh are identities.
-``n_shards > 1`` (torch.distributed, ROADMAP.md Queue A 5), the
-matrix-free ``mode="pcg"`` (Queue A 2.5), Newton buckets (Queue A 1: kernel
-B8's rows on the banded layout) and position and orientation buckets
-(Queue A 5) raise ``NotImplementedError``.
-Lifting buckets raise ``ValueError`` in banded mode, as the JAX package's
-do: their per-row ``vt`` columns ride the PCG mode.
+``n_shards > 1`` (torch.distributed, ROADMAP.md Queue A 5) raises
+``NotImplementedError``. Lifting buckets raise ``ValueError`` in banded
+mode, as the JAX package's do: their per-row ``vt`` columns ride the PCG
+mode.
 """
 import math
-from typing import NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -50,53 +58,31 @@ from ..math import quaternion as quat
 from ..math import se3 as se3m
 from ..ops.linearize_kernels import onehot_expand_rows
 from ..solver.banded import block_tridiag_solve
+from ..solver.iterative import (
+    Columns,
+    _bucket_layout,
+    e_matvec,
+    et_matvec,
+    grad_and_diag,
+    hcc_matvec,
+    pcg,
+    precond_blocks,
+    preconditioner,
+)
 from ..solver.kernels import (
     _bucket_cost,
     bucket_terms,
+    landmark_free_mask,
     problem_runtime,
     problem_spec,
     retract_window,
 )
-from ..solver.lm import trust_region_loop_spec
+from ..solver.lm import trust_region_loop, trust_region_loop_spec
 from ..solver.problem import SENSOR_TANGENT_DIM, TANGENT_DIMS, as_tensor
 
 __all__ = ["make_segment_ba_step", "make_segment_ba_solver", "segment_ba_layout"]
 
 _SINGLE_WINDOW = ("position", "orientation", "gyro", "accel")
-
-#: bucket kinds whose rows carry their sensor's 13 tangent columns
-_SENSOR_KINDS = ("rs_static", "gyro", "accel")
-
-
-class _BucketLayout(NamedTuple):
-    """C-axis layout of one bucket's ``J [M, rdim, C]`` (the JAX package's
-    ``solver.iterative._BucketLayout``): for each (tag, spline) window a
-    ``(col_offset, spline_index, W, td)`` entry, then the sensor slot offset
-    (or -1)."""
-    windows: Tuple[Tuple[int, int, int, int], ...]
-    sensor_off: int
-    C: int
-
-
-def _bucket_layout(spec, bspec) -> _BucketLayout:
-    """Camera rows have a ref and an obs window per spline, each the 4-knot
-    window B1 differentiates (C = 61 on a split trajectory); IMU and pose
-    rows one window per spline of the bucket's width. The columns follow
-    ``solver.kernels.bucket_terms``."""
-    camera = bspec.kind == "rs_static"
-    off = 0
-    wins = []
-    for _ in ("ref", "obs") if camera else ("t",):
-        for si, sp in enumerate(spec.splines):
-            W = 4 if camera else bspec.windows[si]
-            td = TANGENT_DIMS[sp.kind]
-            wins.append((off, si, W, td))
-            off += W * td
-    sensor_off = -1
-    if bspec.kind in _SENSOR_KINDS:
-        sensor_off = off
-        off += SENSOR_TANGENT_DIM
-    return _BucketLayout(tuple(wins), sensor_off, off)
 
 
 def _numpy(a):
@@ -259,6 +245,23 @@ def segment_ba_layout(problem, n_shards):
     slot = _rank_in_groups(lm_owner)
     lid_to_padded = lm_owner * Lb + slot  # [L] -> index into [n*Lb]
 
+    # --- lifting row times: one vt per row, owned with its row (each row
+    # touches only its own vt, so the vt axis shards with row ownership)
+    V = spec.num_vt
+    vt_owner = np.zeros(max(V, 1), dtype=np.int64)
+    vt_seen = np.zeros(max(V, 1), dtype=bool)
+    for bspec, d, owner in zip(spec.buckets, data_np, owners):
+        if bspec.kind == "rs_lifting":
+            vt_owner[d["vt_idx"]] = owner
+            vt_seen[d["vt_idx"]] = True
+    Vb = 1
+    vslot = np.zeros(max(V, 1), dtype=np.int64)
+    if V:
+        Vb = max(int(np.bincount(vt_owner[vt_seen], minlength=n).max()), 1)
+        seen_ids = np.nonzero(vt_seen)[0]
+        vslot[seen_ids] = _rank_in_groups(vt_owner[seen_ids])
+    vtid_to_padded = vt_owner * Vb + vslot  # [V] -> index into [n*Vb]
+
     # --- banded-block bookkeeping ------------------------------------------
     sbG = seg // G
     hl_b, hr_b = Hl // G, Hr // G
@@ -328,6 +331,8 @@ def segment_ba_layout(problem, n_shards):
             # local slot ids replace the global ids inside a shard
             d["lid"] = np.where(valid > 0, slot[d["lid"]], 0)
             d["lrel"] = np.where(valid > 0, lrel, 0)
+            if "vt_idx" in d:
+                d["vt_idx"] = np.where(valid > 0, vslot[d["vt_idx"]], 0)
         else:
             d["t"] = np.where(valid > 0, d["t"], pin_t)
         d["valid"] = valid.astype(mask.dtype)
@@ -366,6 +371,7 @@ def segment_ba_layout(problem, n_shards):
         splines=tuple(loc_splines),
         buckets=tuple(new_buckets),
         num_landmarks=Lb,
+        num_vt=Vb if V else 0,
     )
     runtime["data"] = new_data
 
@@ -373,6 +379,10 @@ def segment_ba_layout(problem, n_shards):
     mask_l = np.zeros(n * Lb, dtype=mask.dtype)
     if L:
         mask_l[lid_to_padded] = mask[spec.landmark_offset: spec.landmark_offset + L]
+    # vt mask, permuted into padded slots
+    mask_v = np.zeros(n * Vb, dtype=mask.dtype)
+    if V:
+        mask_v[vtid_to_padded[:V]] = mask[spec.vt_offset: spec.vt_offset + V]
     # knot tangent mask, padded to nk_pad (pad knots are locked)
     kmask = []
     for sp in spec.splines:
@@ -387,6 +397,7 @@ def segment_ba_layout(problem, n_shards):
     lay = dict(
         nk=nk, nk_pad=nk_pad, seg=seg, Hl=Hl, Hr=Hr, n=n, Lb=Lb, L=L,
         t0=t0, dt=dt, Pk_loc=Pk_loc, ns=ns, nloc=nloc,
+        V=V, Vb=Vb, vtid_to_padded=vtid_to_padded[:V], mask_v=mask_v,
         lid_to_padded=lid_to_padded,
         mask_l=mask_l, mask_sen=mask_sen, kmask=kmask,
         W_max=W_max,
@@ -406,25 +417,15 @@ def _check_supported(problem, n_shards, mode):
         raise NotImplementedError(
             f"segment BA on {n_shards} shards (torch.distributed, the SPIKE band "
             f"solve) is not ported: ROADMAP.md Queue A 5")
-    if mode == "pcg":
-        raise NotImplementedError(
-            "segment BA mode='pcg' (matrix-free PCG, duplicate_cross_diag) is not "
-            "ported: ROADMAP.md Queue A 2.5")
-    for key in problem.buckets:
-        kind = key.split(":")[0]
-        if kind == "rs_lifting":
-            raise ValueError(
-                "rs_lifting buckets ride the segment-BA PCG mode (per-row vt "
-                "columns are not banded); use mode='pcg'")
-        if kind in ("rs_newton", "position", "orientation"):
-            item = ("Queue A 1, segment-BA Newton rows" if kind == "rs_newton"
-                    else "Queue A 5")
-            raise NotImplementedError(
-                f"{kind} buckets in segment BA are not ported: ROADMAP.md {item}")
+    if mode == "banded" and any(k.split(":")[0] == "rs_lifting" for k in problem.buckets):
+        raise ValueError(
+            "rs_lifting buckets ride the segment-BA PCG mode (per-row vt "
+            "columns are not banded); use mode='pcg'")
 
 
-def _build_segment_ba(problem, n_shards, mode):
-    """The single-shard banded step's parts (see the module docstring)."""
+def _build_segment_ba(problem, n_shards, mode, cg_tol=1e-10, cg_maxiter=500):
+    """The single-shard step's parts, banded or PCG (see the module
+    docstring)."""
     _check_supported(problem, n_shards, mode)
     dev = problem.device
     spec, spec_local, runtime, lay = segment_ba_layout(problem, n_shards)
@@ -433,6 +434,8 @@ def _build_segment_ba(problem, n_shards, mode):
     dtype = problem.mask.dtype
     opts = dict(dtype=dtype, device=dev)
     seg, Lb, Pk_loc, ns = lay["seg"], lay["Lb"], lay["Pk_loc"], lay["ns"]
+    # the lifting rows' vt slots: local columns past the sensor border
+    nvt = lay["Vb"] if lay["V"] else 0
     tds = [TANGENT_DIMS[sp.kind] for sp in spec.splines]
     S = len(problem.sensors)
     # owned-vector layout: per-spline [seg * td] slices (= the local layout)
@@ -451,22 +454,30 @@ def _build_segment_ba(problem, n_shards, mode):
     mask_own = torch.cat([torch.as_tensor(km[:seg].reshape(-1)) for km in lay["kmask"]]).to(**opts)
     mask_l = torch.as_tensor(lay["mask_l"][:Lb]).to(**opts)
     mask_sen = torch.as_tensor(lay["mask_sen"]).to(**opts)
+    mask_v = torch.as_tensor(lay["mask_v"][:nvt]).to(**opts)
+    # the PCG mode's columns: owned knots, sensors, then vt slots
+    mask_cat = torch.cat([mask_own, mask_sen, mask_v])
     d_max = problem.d_max.to(**opts)
 
-    # sensor columns move to [Pk_loc, Pk_loc + ns) of the local layout
+    # sensor columns move to [Pk_loc, Pk_loc + ns) of the local layout, a
+    # lifting row's vt column (vt_offset + its slot) to Pk_loc + ns + slot
     col_shift = []
     for layout in layouts:
         shift = np.zeros(layout.C, np.int64)
         if layout.sensor_off >= 0:
             shift[layout.sensor_off: layout.sensor_off + SENSOR_TANGENT_DIM] = (
                 Pk_loc - spec_local.sensor_offset)
+            vt_pos = layout.sensor_off + SENSOR_TANGENT_DIM
+            shift[vt_pos:] = Pk_loc + ns - spec_local.vt_offset
         col_shift.append(torch.as_tensor(shift, device=dev))
 
-    def whitened_blocks(state):
+    def whitened_blocks(state, col_mask=False):
         """(cost, blocks, mask_l): each bucket's robust-whitened compressed
         rows ``Jw``, ``rw``, columns in the local layout, anchors and (camera
-        rows) the landmark column, slot and slot-in-anchor. Lock masks are
-        applied after assembly, in pair-block space."""
+        rows) the landmark column, slot and slot-in-anchor. The banded mode
+        applies the lock masks after assembly, in pair-block space; with
+        ``col_mask`` (the PCG mode, whose matvecs read ``Jw``) each row's
+        columns are masked."""
         cost = torch.zeros((), **opts)
         blocks = []
         for bspec, data, shift in zip(spec_local.buckets, rt["data"], col_shift):
@@ -474,8 +485,11 @@ def _build_segment_ba(problem, n_shards, mode):
             c, rho_p = _bucket_cost(bspec, data, r)
             cost = cost + c
             sq = torch.sqrt(rho_p)
-            blk = {"rw": r * sq[:, None], "Jw": J * sq[:, None, None],
-                   "cols": cols + shift[None, :], "anchor": data["anchor"]}
+            cols = cols + shift[None, :]
+            Jw = J * sq[:, None, None]
+            if col_mask:
+                Jw = Jw * mask_cat[cols][:, None, :]
+            blk = {"rw": r * sq[:, None], "Jw": Jw, "cols": cols, "anchor": data["anchor"]}
             if J_rho is not None:
                 blk["J_rho"] = J_rho * sq[:, None] * mask_l[data["lid"]][:, None]
                 blk["lid"] = data["lid"]
@@ -667,7 +681,7 @@ def _build_segment_ba(problem, n_shards, mode):
         return back_substitute(ctx, x_band, x_sen, state)
 
     def retract_local(state, dc, dl):
-        dc_own, dc_sen = dc
+        dc_own, dc_sen = dc[0], dc[1]
         new = dict(state)
         for si, sp in enumerate(spec.splines):
             blk = dc_own[own_off[si]: own_off[si + 1]].reshape(seg, tds[si])
@@ -680,6 +694,8 @@ def _build_segment_ba(problem, n_shards, mode):
             new["abias"] = state["abias"] + sens[:, 7:10]
             new["gbias"] = state["gbias"] + sens[:, 10:13]
         new["rho"] = torch.clamp(state["rho"] + dl, min=0.0)
+        if nvt and len(dc) > 2:
+            new["vt"] = torch.clamp(state["vt"] + dc[2], 0.0, 1.0)
         return new
 
     def cost_local(state):
@@ -711,8 +727,87 @@ def _build_segment_ba(problem, n_shards, mode):
         new_state = retract_local(state, dc, dl)
         return cost, new_state, cost_local(new_state), pred, (dc, dl), gmax
 
+    # ---- matrix-free PCG on the reduced system -----------------------------
+    # one shard: the JAX package's halo fills and reductions are identities,
+    # so its (owned knots, sensor, vt) triples are one vector of
+    # n_cat = Pk_loc + ns + nvt entries
+    n_cat = Pk_loc + ns + nvt
+
+    # the block-Jacobi blocks: per owned knot of each spline, per sensor
+    pcg_columns = Columns(tuple((int(own_off[si]), seg, td) for si, td in enumerate(tds)),
+                          Pk_loc, S)
+
+    def linearize_pcg(state):
+        """``(cost, blocks, g, diag, D, g_l, kblocks, sblocks)``: the rows
+        masked per column, the gradient and the duplicate-aware diagonal
+        over the n_cat columns, the landmark blocks and the per-knot and
+        per-sensor preconditioner blocks."""
+        cost, blocks, _ = whitened_blocks(state, col_mask=True)
+        return (cost, blocks, *grad_and_diag(blocks, layouts, n_cat, Lb),
+                *precond_blocks(blocks, layouts, pcg_columns))
+
+    def schur_matvec(blocks, x, D_d, free):
+        """``A_cc x - E^T diag(free / D_d) E x``, the Schur-complement
+        matvec on the compressed rows, each row's ``Jw x`` formed once."""
+        y = torch.zeros_like(x)
+        ts = [torch.einsum("mrc,mc->mr", blk["Jw"], x[blk["cols"]]) for blk in blocks]
+        Ex = torch.zeros(Lb, **opts)
+        for blk, t in zip(blocks, ts):
+            if "J_rho" in blk:
+                Ex.index_add_(0, blk["lid"], torch.sum(blk["J_rho"] * t, dim=1))
+        w = Ex * free / D_d
+        for blk, t in zip(blocks, ts):
+            if "J_rho" in blk:
+                t = t - blk["J_rho"] * w[blk["lid"]][:, None]
+            y.index_add_(0, blk["cols"].reshape(-1),
+                         torch.einsum("mrc,mr->mc", blk["Jw"], t).reshape(-1))
+        return y
+
+    def solve_pcg(lin, lam, state):
+        """The damped PCG solve and the LM bookkeeping: ``(dc, dl, pred,
+        gmax)`` with ``dc = (owned knot step, sensor step, vt step)``, the
+        vt and landmark steps projected to their bounds."""
+        _, blocks, g, diag, D, g_l, kblocks, sblocks = lin
+        # bound active set: freeze rho = 0 landmarks with an outward gradient
+        free = landmark_free_mask(state["rho"], g_l, mask_l)
+        diag_d = lam * torch.clamp(diag, 1e-6, 1e32) + (1.0 - mask_cat)
+        D_d = D + lam * torch.clamp(D, 1e-6, 1e32) + (1.0 - free)
+        rhs = et_matvec(blocks, free * g_l / D_d, n_cat) - g
+
+        def matvec(x):
+            return schur_matvec(blocks, x, D_d, free) + diag_d * x
+
+        # a vt column by its damped diagonal entry alone, as the JAX
+        # package's segment BA preconditions it (its iterative step divides
+        # by diag + diag_d)
+        precond = preconditioner(kblocks, sblocks, pcg_columns, diag_d, diag_d)
+        x, _ = pcg(matvec, precond, rhs, cg_tol, cg_maxiter)
+        dvt = x[Pk_loc + ns:] * mask_v
+        if nvt:  # the increment the bounded retraction applies (vt in [0, 1])
+            dvt = torch.clamp(state["vt"] + dvt, 0.0, 1.0) - state["vt"]
+        dc = torch.cat([x[:Pk_loc] * mask_own, x[Pk_loc:Pk_loc + ns] * mask_sen, dvt])
+        Edc = e_matvec(blocks, dc, Lb)
+        dl = -(g_l + Edc) / D_d * free
+        dl = torch.clamp(state["rho"] + dl, min=0.0) - state["rho"]
+        gTd = g @ dc + g_l @ dl
+        dHd = dc @ hcc_matvec(blocks, dc) + 2.0 * (dl @ Edc) + dl @ (D * dl)
+        pred = -(gTd + 0.5 * dHd)
+        gmax = torch.maximum(g[:Pk_loc].abs().max(), g_l.abs().max())
+        if nvt:
+            gmax = torch.maximum(gmax, g[Pk_loc + ns:].abs().max())
+        if ns:
+            gmax = torch.maximum(gmax, g[Pk_loc:Pk_loc + ns].abs().max())
+        return (dc[:Pk_loc], dc[Pk_loc:Pk_loc + ns], dc[Pk_loc + ns:]), dl, pred, gmax
+
+    def step_local_pcg(state, lam):
+        lin = linearize_pcg(state)
+        dc, dl, pred, gmax = solve_pcg(lin, lam, state)
+        new_state = retract_local(state, dc, dl)
+        return lin[0], new_state, cost_local(new_state), pred, (dc, dl), gmax
+
     nk, nk_pad, L = lay["nk"], lay["nk_pad"], lay["L"]
     lid_to_padded = torch.as_tensor(lay["lid_to_padded"], device=dev)
+    vtid_to_padded = torch.as_tensor(lay["vtid_to_padded"], device=dev)
 
     def to_sharded(state):
         """Global state -> the shard's: knots padded to ``nk_pad`` with
@@ -727,6 +822,10 @@ def _build_segment_ba(problem, n_shards, mode):
         if L:
             rho_p[lid_to_padded] = st["rho"]
         st["rho"] = rho_p
+        if nvt:
+            vt_p = torch.zeros(lay["n"] * nvt, dtype=st["vt"].dtype, device=dev)
+            vt_p[vtid_to_padded] = st["vt"]
+            st["vt"] = vt_p
         return st
 
     def to_global(st):
@@ -734,6 +833,8 @@ def _build_segment_ba(problem, n_shards, mode):
         for sp in spec.splines:
             out[sp.kind] = st[sp.kind][:nk]
         out["rho"] = st["rho"][lid_to_padded] if L else st["rho"][:0]
+        if nvt:
+            out["vt"] = st["vt"][vtid_to_padded]
         return out
 
     # the entry points' parts, and the stages that chip_smoke.py times apart
@@ -743,18 +844,20 @@ def _build_segment_ba(problem, n_shards, mode):
         assemble_band=assemble_band, eliminate=eliminate, band_solve=band_solve,
         sensor_solve=sensor_solve, back_substitute=back_substitute,
         retract_local=retract_local, cost_local=cost_local, lin0_local=lin0,
-        step_spec_local=step_spec, step_local=step_local, to_sharded=to_sharded,
-        to_global=to_global,
+        step_spec_local=step_spec, to_sharded=to_sharded, to_global=to_global,
+        linearize_pcg=linearize_pcg, solve_pcg=solve_pcg,
+        step_local=step_local if mode == "banded" else step_local_pcg,
     )
 
 
-def make_segment_ba_step(problem, n_shards=1, mode="banded"):
+def make_segment_ba_step(problem, n_shards=1, mode="banded", cg_tol=1e-10, cg_maxiter=500):
     """``step(state, lam) -> (cost, new_state, new_cost, pred, grad_max)``
     and ``total_cost(state)`` of the segment x landmark layout (the JAX
     package's ``make_segment_ba_step`` with its mesh replaced by
-    ``n_shards``; the problem's device runs it, and states are global). ``cg_tol``/``cg_maxiter`` belong to the PCG mode, which is not
-    ported."""
-    b = _build_segment_ba(problem, n_shards, mode)
+    ``n_shards``; the problem's device runs it, and states are global).
+    ``mode`` is ``"banded"`` or ``"pcg"``, whose CG stops at ``cg_tol``
+    relative or after ``cg_maxiter`` iterations."""
+    b = _build_segment_ba(problem, n_shards, mode, cg_tol, cg_maxiter)
 
     def step(state, lam):
         cost, new_st, new_cost, pred, _, gmax = b["step_local"](b["to_sharded"](state), lam)
@@ -767,19 +870,26 @@ def make_segment_ba_step(problem, n_shards=1, mode="banded"):
 
 
 def make_segment_ba_solver(problem, n_shards=1, max_iterations=50, function_tolerance=1e-6,
-                           mode="banded"):
-    """LM with the segment x landmark layout, banded mode: the speculative
-    trust-region loop (``solver.lm.trust_region_loop_spec``) on the carried
-    ``(cost, assembly, mask_l)``. Returns ``solve(state) -> (state,
-    final_cost, iterations_run)`` with global states."""
-    b = _build_segment_ba(problem, n_shards, mode)
+                           mode="banded", cg_tol=1e-6, cg_maxiter=200):
+    """LM with the segment x landmark layout. Banded mode runs the
+    speculative trust-region loop (``solver.lm.trust_region_loop_spec``) on
+    the carried ``(cost, assembly, mask_l)``; PCG mode the classic loop
+    (``solver.lm.trust_region_loop``), each step linearizing, solving by
+    PCG (``cg_tol``, ``cg_maxiter``) and re-costing, as in the JAX
+    package. Returns ``solve(state) -> (state, final_cost,
+    iterations_run)`` with global states."""
+    b = _build_segment_ba(problem, n_shards, mode, cg_tol, cg_maxiter)
 
     def solve(state):
         st = b["to_sharded"](state)
-        st, cost, it = trust_region_loop_spec(
-            b["step_spec_local"], b["lin0_local"](st), st,
-            max_iterations=max_iterations, function_tolerance=function_tolerance,
-        )
+        if mode == "banded":
+            st, cost, it = trust_region_loop_spec(
+                b["step_spec_local"], b["lin0_local"](st), st,
+                max_iterations=max_iterations, function_tolerance=function_tolerance)
+        else:
+            st, cost, it = trust_region_loop(
+                lambda s, lam: b["step_local"](s, lam)[:4], b["cost_local"](st), st,
+                max_iterations=max_iterations, function_tolerance=function_tolerance)
         return b["to_global"](st), cost, it
 
     return solve

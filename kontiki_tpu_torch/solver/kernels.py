@@ -470,7 +470,8 @@ def _pose_rows(spec, bspec, runtime, state, data, cost_only=False):
             raise NotImplementedError(f"pose rows need 4-knot windows, got {W}")
         t0, dt = runtime["spline_t0"][si], runtime["spline_dt"][si]
         td = TANGENT_DIMS[sp.kind]
-        i_base = torch.clamp(torch.floor((t - t0) / dt).long(), 0, sp.n - W)
+        i_base = torch.clamp(torch.floor((t - t0) / dt).long(), 0,
+                             _spline_n_eval(runtime, si, sp) - W)
         wins.append(ev.gather_windows(state[sp.kind], i_base))
         i_bases.append(i_base.to(t.dtype))
         cols.append(sp.tangent_offset + i_base[:, None] * td
@@ -496,7 +497,8 @@ def bucket_terms(spec, bspec, runtime, state, data, cost_only=False):
     and no Jacobian: camera rows through B3, SO3/split IMU rows through
     B4's cost-only form, SE3 IMU rows and pose rows through their residual
     function at zero increments; Newton rows through B8 and its cost-only
-    form."""
+    form. Rows with ``valid`` 0 (the segment layout's padding) give zeros.
+    """
     kinds = [sp.kind for sp in spec.splines]
     if bspec.kind in CAMERA_KINDS:
         if cost_only:
@@ -512,6 +514,12 @@ def bucket_terms(spec, bspec, runtime, state, data, cost_only=False):
         out = _imu_rows(spec, bspec, runtime, state, data, cost_only=cost_only)
     else:
         raise NotImplementedError(f"bucket kind {bspec.kind!r} on splines {kinds}")
+    if "valid" in data and not _fused_imu_enabled(spec, bspec):
+        # padded rows of the segment layout (valid 0) contribute nothing, as
+        # B1, B3, B4 and B8 do with their valid input
+        v = data["valid"]
+        out = out * v[:, None] if cost_only else (
+            out[0] * v[:, None], out[1] * v[:, None, None], out[2])
     return out if cost_only else (*out, None)
 
 

@@ -1,5 +1,6 @@
 """Levenberg-Marquardt trust-region loops (counterpart of
-``kontiki_tpu.solver.lm``, dense and Schur strategies).
+``kontiki_tpu.solver.lm``: the dense, Schur, iterative-Schur and banded
+strategies).
 
 The policy follows Ceres's LevenbergMarquardtStrategy: radius ``mu`` with
 damping ``1/mu * diag(JtJ)`` (diagonal clamped to [1e-6, 1e32]), accept
@@ -11,9 +12,10 @@ escalating factor on failure. Three loops use it:
   reports (linearize, linear solve, retract + residual-only re-cost) one
   after another and takes each decision on the host, so iteration callbacks
   fire and the Summary carries per-phase wall times;
-- ``trust_region_loop_spec`` (Schur, fused) carries the linearization at the
-  current state and linearizes each candidate in full, so an accepted
-  iteration streams the measurement data once;
+- ``trust_region_loop_spec`` (Schur, iterative Schur and banded, fused)
+  carries the linearization at the current state and linearizes each
+  candidate in full, so an accepted iteration streams the measurement data
+  once;
 - ``trust_region_loop`` (dense, fused) linearizes, solves and re-costs the
   candidate with the residual-only pass.
 
@@ -30,20 +32,24 @@ import time
 import torch
 
 from .._ceres import CallbackReturnType, IterationSummary, Summary, TerminationType
+from .banded import build_banded_parts
+from .iterative import build_iterative_parts
 from .kernels import build_parts, landmark_free_mask, problem_runtime, problem_spec
 from .schur import build_schur_parts
+
+#: the linear-solver strategies besides 'auto'
+STRATEGIES = ("dense", "schur", "iterative_schur", "banded")
 
 
 def _resolve_strategy(problem, strategy):
     """'auto' eliminates landmarks whenever there are any (Ceres
-    SPARSE_SCHUR) and is dense otherwise; the dense and Schur strategies
-    are ported."""
+    SPARSE_SCHUR) and is dense otherwise; 'iterative_schur' (matrix-free
+    PCG) and 'banded' (the block-tridiagonal solve) are taken only by name.
+    Another name raises ``ValueError``."""
     if strategy == "auto":
         strategy = "schur" if len(problem.landmarks) else "dense"
-    if strategy not in ("dense", "schur"):
-        item = {"iterative_schur": "2.2", "banded": "2.3"}.get(strategy, "2")
-        raise NotImplementedError(
-            f"strategy {strategy!r} is not ported (ROADMAP.md Queue A {item})")
+    if strategy not in STRATEGIES:
+        raise ValueError(f"strategy must be 'auto' or one of {STRATEGIES}, got {strategy!r}")
     return strategy
 
 
@@ -127,13 +133,14 @@ def trust_region_loop_spec(step_spec, lin0, state, *, max_iterations,
 
 
 def make_fused_solver(problem, max_iterations=50, function_tolerance=1e-6,
-                      strategy="auto"):
+                      strategy="auto", cg_tol=1e-10, cg_maxiter=500):
     """LM solver over ``problem``'s device tensors, without callbacks.
 
     Returns ``solve(state) -> (state, final_cost, iterations_run)``. The
     dense strategy runs the classic loop (its re-cost is B4's cheap
-    residual-only pass); Schur runs the speculative one, as in the JAX
-    package."""
+    residual-only pass); Schur, iterative Schur and banded run the
+    speculative one, as in the JAX package. ``cg_tol`` and ``cg_maxiter``
+    are the iterative strategy's PCG stopping rule."""
     strategy = _resolve_strategy(problem, strategy)
     spec = problem_spec(problem)
     runtime = problem_runtime(problem)
@@ -149,11 +156,14 @@ def make_fused_solver(problem, max_iterations=50, function_tolerance=1e-6,
             )
 
         return solve_dense
-    parts = build_schur_parts(spec)
+    build = {"schur": build_schur_parts, "iterative_schur": build_iterative_parts,
+             "banded": build_banded_parts}[strategy]
+    parts = build(spec)
+    cg = dict(cg_tol=cg_tol, cg_maxiter=cg_maxiter) if strategy == "iterative_schur" else {}
 
     def solve(state):
         return trust_region_loop_spec(
-            lambda s, lin, lam: parts["step_spec"](runtime, s, lin, lam),
+            lambda s, lin, lam: parts["step_spec"](runtime, s, lin, lam, **cg),
             parts["linearize"](runtime, state), state,
             max_iterations=max_iterations,
             function_tolerance=function_tolerance,
@@ -166,12 +176,13 @@ def make_fused_solver(problem, max_iterations=50, function_tolerance=1e-6,
 # the phase-split solve with callbacks (TrajectoryEstimator.solve)
 # ---------------------------------------------------------------------------
 
-def _make_phases(problem, strategy):
+def _make_phases(problem, strategy, cg_tol=1e-10, cg_maxiter=500):
     """Per-phase solver functions, for the Summary's per-phase times
     (the reference's py_ceres.cc): ``linearize(state) -> (cost, lin_out)``
     [jacobian evaluation], ``solve(lin_out, lam, state) -> (delta, pred,
     grad_max)`` [linear solver], and ``retract`` / ``cost`` [residual
-    evaluation]."""
+    evaluation]. The iterative and banded strategies linearize into the
+    compressed row blocks."""
     strategy = _resolve_strategy(problem, strategy)
     spec = problem_spec(problem)
     runtime = problem_runtime(problem)
@@ -191,6 +202,22 @@ def _make_phases(problem, strategy):
             if L:
                 grad_max = torch.maximum(grad_max, g_l.abs().max())
             return delta, pred, grad_max
+
+    elif strategy in ("iterative_schur", "banded"):
+        if strategy == "banded":
+            parts = build_banded_parts(spec)
+            solve_with_pred = parts["solve_with_pred"]
+        else:
+            parts = build_iterative_parts(spec)
+
+            def solve_with_pred(rt, blocks, lam, state):
+                return parts["solve_with_pred"](rt, blocks, lam, cg_tol, cg_maxiter, state=state)
+
+        def linearize(state):
+            return parts["linearize"](runtime, state)
+
+        def solve_phase(blocks, lam, state):
+            return solve_with_pred(runtime, blocks, lam, state)
 
     else:
         parts = build_parts(spec)

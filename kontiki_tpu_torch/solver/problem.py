@@ -538,8 +538,8 @@ class RawProblem:
     tangent mask rows and ``d_max [S]``; ``rho [L]`` initial inverse depths,
     ``landmark_mask [L]`` (default all free). Knots are all free. The state
     carries an empty ``vt``: array-level lifting rows (the JAX package's
-    ``vt`` argument) are not ported; they ride segment BA's PCG mode,
-    ROADMAP.md Queue A 2.5."""
+    ``vt`` argument) are not ported, ROADMAP.md Queue A 3; lifting rows from
+    measurement objects (``Problem``) ride segment BA's PCG mode."""
 
     def __init__(self, splines, buckets, sensors, rho, landmark_mask=None,
                  device=None, dtype=default_dtype):

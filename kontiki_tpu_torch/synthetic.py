@@ -4,7 +4,8 @@ R3 + SO3 trajectory of config 2, the rolling-shutter SfM on a split
 trajectory of config 3 (with a pinhole or an atan camera, static or
 lifting rows), the SE3 rolling-shutter visual-inertial problem of config 4
 and the array-level bundle adjustment of config 5
-(``make_big_ba_problem``, a ``RawProblem``).
+(``make_big_ba_problem``, a ``RawProblem``), and a long gyro-only band
+(``make_gyro_band_problem``, a ``RawProblem``).
 
 Random draws come from ``numpy.random.default_rng(seed)`` in the same order
 as the JAX package, so both packages build the same problem from one seed.
@@ -520,6 +521,35 @@ def make_big_ba_problem(
     )
     return dict(problem=problem, true_trajectory=true_traj, trajectory=traj,
                 t1=float(t0s[0]), t2=float(t0s[-1]), n_obs=M)
+
+
+def make_gyro_band_problem(n_knots=10_050, dt=0.1, rate=20.0, seed=3, perturb_seed=1,
+                           device=None):
+    """A long gyro-only SO3 fit as a ``RawProblem`` (the JAX package's
+    ``tests/test_banded.py`` 10k-knot problem): ``n_knots`` knots of
+    ``make_so3_trajectory(duration, dt, seed, wmag=0.3)``, ideal gyro rows
+    at ``rate`` Hz on [0.5, duration - 0.5), the knots perturbed by 1e-3
+    (``perturb_seed``) and renormalized, one locked ``BasicImu``. At 10,050
+    knots its dense normal equations would take ~7 GB; the banded strategy
+    solves it in O(n)."""
+    from .solver.problem import RawBucket, RawProblem
+
+    duration = (n_knots - 4) * dt
+    traj = make_so3_trajectory(duration, dt=dt, seed=seed, wmag=0.3)
+    ts = np.arange(0.5, duration - 0.5, 1.0 / rate)
+    w, _ = _body_imu(traj, ts)
+    data = {"t": ts, "y": w, "weight": np.ones(len(ts)), "sid": np.zeros(len(ts), np.int64)}
+    knots = np.asarray(traj.knots)
+    pert = knots + np.random.default_rng(perturb_seed).normal(scale=1e-3, size=knots.shape)
+    pert /= np.linalg.norm(pert, axis=1, keepdims=True)
+    sensors = {"q_ct": np.tile([1.0, 0, 0, 0], (1, 1)), "p_ct": np.zeros((1, 3)),
+               "d": np.zeros(1), "abias": np.zeros((1, 3)), "gbias": np.zeros((1, 3)),
+               "mask": np.zeros((1, 13)), "d_max": np.zeros(1)}
+    return RawProblem(
+        splines=[("so3", pert, traj.t0, dt)],
+        buckets={"gyro": RawBucket(kind="gyro", M=len(ts), rdim=3, data=data,
+                                   window={"so3": 4})},
+        sensors=sensors, rho=np.zeros(0), device=device)
 
 
 def newton_edge_rows(ins, n=2):

@@ -1,5 +1,7 @@
-"""``solver.banded.block_tridiag_solve`` against the JAX package's (its
-"scan" method) and against a dense solve, on random symmetric positive
+"""``solver.banded._scan_solve``, the sequential block Cholesky that the
+tests hold the port's band solve (PCR: ``tests/test_torch_pcr.py``)
+against, against the JAX package's
+"scan" method and against a dense solve, on random symmetric positive
 definite block-tridiagonal systems (nb = 12 blocks of d = 12, R = 3
 right-hand sides), in float64.
 
@@ -14,7 +16,7 @@ import pytest
 import torch
 
 from kontiki_tpu.solver.banded import block_tridiag_solve as jax_solve
-from kontiki_tpu_torch.solver.banded import block_tridiag_solve
+from kontiki_tpu_torch.solver.banded import _scan_solve
 
 
 def _system(nb, d, R, seed):
@@ -37,7 +39,7 @@ def _system(nb, d, R, seed):
                                          (5, 48, 14, 3)])
 def test_block_tridiag_solve_matches_jax_and_dense(nb, d, R, seed):
     D, U, rhs, T = _system(nb, d, R, seed)
-    got = block_tridiag_solve(*(torch.from_numpy(a) for a in (D, U, rhs))).numpy()
+    got = _scan_solve(*(torch.from_numpy(a) for a in (D, U, rhs))).numpy()
     assert got.shape == (nb, d, R)
     want_jax = np.asarray(jax_solve(jnp.asarray(D), jnp.asarray(U), jnp.asarray(rhs),
                                     method="scan"))
@@ -52,7 +54,7 @@ def test_indefinite_block_gives_nan_like_jax():
     Cholesky's answer), without an error or a host read."""
     D, U, rhs, _ = _system(4, 6, 2, 4)
     D[2] = -np.eye(6)
-    got = block_tridiag_solve(*(torch.from_numpy(a) for a in (D, U, rhs))).numpy()
+    got = _scan_solve(*(torch.from_numpy(a) for a in (D, U, rhs))).numpy()
     want = np.asarray(jax_solve(jnp.asarray(D), jnp.asarray(U), jnp.asarray(rhs),
                                 method="scan"))
     assert np.isnan(want).any() and np.isnan(got).any()

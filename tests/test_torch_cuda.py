@@ -22,7 +22,11 @@ CPU to 1e-9 relative (B1's and the band solve's float64 roundoff through a
 reduced system of condition ~1e6). B1 and B3 on the atan camera and on
 lifting rows (every window x camera x rows branch) take the camera rows'
 tolerances, and so does B8 (Newton rows) on its four window x camera
-branches, linearize and cost-only, on 6- and 10-knot windows."""
+branches, linearize and cost-only, on 6- and 10-knot windows. The solver
+family on the card against the CPU path: the band solve by the scan and by
+PCR (1e-10 of the solution's largest entry), one iterative-Schur step and
+one segment-BA step in PCG mode (converged CG; 1e-9 relative, the states
+to 1e-8) and one banded-strategy step (1e-9), with their launches."""
 import numpy as np
 import pytest
 import torch
@@ -707,3 +711,88 @@ def test_newton_solve_on_cuda_matches_cpu(cuda):
     (_, cc, ci), (_, gc, gi) = out["cpu"], out["cuda"]
     assert ci == gi == 5
     np.testing.assert_allclose(gc.item(), cc.item(), rtol=1e-9)
+
+
+@pytest.mark.parametrize("method", ["scan", "pcr"])
+@pytest.mark.parametrize("nb,d,R", [(1, 12, 1), (13, 12, 14), (64, 48, 14)])
+def test_band_solve_on_cuda_matches_cpu(cuda, method, nb, d, R):
+    """The band solve (PCR) and its scan reference on the card against the
+    CPU runs and each other (1e-10 of the solution's largest entry)."""
+    from kontiki_tpu_torch.solver.banded import _scan_solve, block_tridiag_solve
+
+    solves = {"scan": _scan_solve, "pcr": block_tridiag_solve}
+    rng = np.random.default_rng(nb + d)
+    D = rng.normal(size=(nb, d, d))
+    D = torch.from_numpy(D @ D.transpose(0, 2, 1) + 4 * d * np.eye(d))
+    U = torch.from_numpy(rng.normal(size=(nb, d, d)))
+    rhs = torch.from_numpy(rng.normal(size=(nb, d, R)))
+    cpu = solves[method](D, U, rhs)
+    gpu = solves[method](D.to(cuda), U.to(cuda), rhs.to(cuda)).cpu()
+    scale = cpu.abs().max().item()
+    assert (gpu - cpu).abs().max().item() <= 1e-10 * scale
+    other = solves["pcr" if method == "scan" else "scan"](D, U, rhs)
+    assert (other - cpu).abs().max().item() <= 1e-10 * scale
+
+
+def test_iterative_step_on_cuda_matches_cpu(cuda, problems):
+    """One iterative-Schur step (converged CG) of the SE3 camera problem on
+    the card equals the CPU run, through B1 and without B2."""
+    from kontiki_tpu_torch.solver.iterative import make_iterative_step
+
+    out = {}
+    for problem in problems[1:]:
+        before = (lk.linearize_rows.launches, ak.assemble_schur_blocks.launches)
+        out[problem.device.type] = make_iterative_step(problem, cg_tol=1e-14,
+                                                       cg_maxiter=2000)[0](problem.state0, 1e-3)
+        after = (lk.linearize_rows.launches, ak.assemble_schur_blocks.launches)
+        if problem.device.type == "cuda":
+            assert after[0] == before[0] + 1 and after[1] == before[1]
+    gpu, cpu = out["cuda"], out["cpu"]
+    for i in (0, 2, 3, 5):
+        np.testing.assert_allclose(gpu[i].item(), cpu[i].item(), rtol=1e-9)
+    for k, v in cpu[1].items():
+        np.testing.assert_allclose(gpu[1][k].cpu().numpy(), v.numpy(), rtol=0, atol=1e-8)
+
+
+@pytest.mark.parametrize("method", ["scan", "pcr"])
+def test_banded_step_on_cuda_matches_cpu(cuda, method, monkeypatch):
+    """One banded-strategy step of config 2's model (1 s) on the card equals
+    the CPU run, through B4, with the band solve (PCR) or its scan
+    reference."""
+    from kontiki_tpu_torch.solver import banded
+    from kontiki_tpu_torch.solver.banded import make_banded_step
+
+    if method == "scan":
+        monkeypatch.setattr(banded, "block_tridiag_solve", banded._scan_solve)
+    out = {}
+    for device in ("cpu", cuda):
+        gen = make_imu_problem(duration=1.0, rate=100.0, seed=2)
+        problem = Problem(gen["trajectory"], gen["measurements"], device=device)
+        before = lk.imu_rows.launches
+        out[str(device)] = make_banded_step(problem)[0](problem.state0, 1e-3)
+        assert lk.imu_rows.launches - before == (4 if device == cuda else 0)
+    gpu, cpu = out["cuda"], out["cpu"]
+    for i in (0, 2, 3, 5):
+        np.testing.assert_allclose(gpu[i].item(), cpu[i].item(), rtol=1e-9)
+    np.testing.assert_allclose(gpu[4].cpu().numpy(), cpu[4].numpy(), rtol=0, atol=1e-10)
+
+
+def test_segment_ba_pcg_step_on_cuda_matches_cpu(cuda):
+    """One segment-BA step in PCG mode (converged CG) on the card equals the
+    CPU run, through B1 and without B6."""
+    out = {}
+    for device in (cuda, "cpu"):
+        big = synthetic.make_big_ba_problem(n_views=40, n_landmarks=120, obs_per_landmark=4,
+                                            seed=11, imu_rate=50.0, device=device)
+        step, _ = make_segment_ba_step(big["problem"], mode="pcg", cg_tol=1e-12,
+                                       cg_maxiter=400)
+        before = (lk.onehot_expand_rows.launches, lk.linearize_rows.split_launches)
+        out[str(device)] = step(big["problem"].state0, 1e-4)
+        after = (lk.onehot_expand_rows.launches, lk.linearize_rows.split_launches)
+        if device == cuda:
+            assert after == (before[0], before[1] + 1)
+    gpu, cpu = out["cuda"], out["cpu"]
+    for i in (0, 2, 3, 4):
+        np.testing.assert_allclose(gpu[i].item(), cpu[i].item(), rtol=1e-9)
+    for k, v in cpu[1].items():
+        np.testing.assert_allclose(gpu[1][k].cpu().numpy(), v.numpy(), rtol=0, atol=1e-8)

@@ -213,7 +213,29 @@ def test_trace_dir_records_the_phases(gyro, tmp_path):
 
 
 def test_unported_strategies_raise_in_solve(gyro):
-    problem = Problem(gyro["trajectory"], gyro["measurements"], device="cpu")
+    """The strategies ported since (iterative Schur, banded) run through
+    ``TrajectoryEstimator.solve(strategy=...)`` and agree with the JAX
+    package's ``lm.solve`` on the IMU problem: costs to 1e-9 relative or
+    1e-10 of the initial cost (iterative Schur's CG stops at 1e-10
+    relative), the same steps; the solution is written back. An unknown
+    strategy still raises."""
     for strategy in ("iterative_schur", "banded"):
-        with pytest.raises(NotImplementedError, match=r"ROADMAP.md Queue A 2\.[23]"):
-            lm.solve(problem, max_iterations=1, strategy=strategy)
+        gen = make_imu_problem(duration=0.6, rate=40.0, seed=2, noise=0.05)
+        _, want = jax_lm.solve(twin_pair(gen["trajectory"], gen["measurements"])["jax"],
+                               max_iterations=3, function_tolerance=0.0, strategy=strategy)
+        knots0 = gen["trajectory"].SO3_spline.knots.copy()
+        estimator = TrajectoryEstimator(gen["trajectory"], device="cpu")
+        for m in gen["measurements"]:
+            estimator.add_measurement(m)
+        got = estimator.solve(max_iterations=3, progress=False, function_tolerance=0.0,
+                              strategy=strategy)
+        assert len(got.iterations) == len(want.iterations) == 4
+        c0 = want.initial_cost
+        for g, w in zip(got.iterations, want.iterations):
+            assert g.step_is_successful == w.step_is_successful
+            assert g.cost == pytest.approx(w.cost, rel=1e-9, abs=1e-10 * c0)
+        assert got.final_cost < got.initial_cost
+        assert not np.allclose(gen["trajectory"].SO3_spline.knots, knots0)
+    with pytest.raises(ValueError, match="strategy"):
+        lm.solve(Problem(gyro["trajectory"], gyro["measurements"], device="cpu"),
+                 max_iterations=1, strategy="sparse_schur")

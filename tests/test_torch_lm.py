@@ -53,7 +53,16 @@ def test_function_tolerance_ends_the_solve():
 
 
 def test_unported_strategies_raise():
+    """The iterative-Schur strategy runs on the camera problem and takes
+    the Schur strategy's first step (converged CG: 1e-9 relative); the
+    banded strategy refuses landmarks with ``ValueError``, as the JAX
+    package's does; an unknown strategy raises ``ValueError``."""
     T = problem_pair()["torch"]
-    for strategy in ("iterative_schur", "banded"):
-        with pytest.raises(NotImplementedError):
-            make_fused_solver(T, 1, strategy=strategy)
+    schur = make_fused_solver(T, 1, function_tolerance=0.0, strategy="schur")(T.state0)
+    it = make_fused_solver(T, 1, function_tolerance=0.0, strategy="iterative_schur",
+                           cg_tol=1e-14, cg_maxiter=2000)(T.state0)
+    assert it[1].item() == pytest.approx(schur[1].item(), rel=1e-9)
+    with pytest.raises(ValueError, match="knot\\+sensor problems only"):
+        make_fused_solver(T, 1, strategy="banded")
+    with pytest.raises(ValueError, match="strategy"):
+        make_fused_solver(T, 1, strategy="cholesky")

@@ -21,7 +21,7 @@ def test_import_with_jax_blocked():
         "from kontiki_tpu_torch.measurements import PositionMeasurement, "
         "OrientationMeasurement\n"
         "from kontiki_tpu_torch.interop import trajectory_from_numpy, raw_problem_from_numpy\n"
-        "from kontiki_tpu_torch.solver import banded\n"
+        "from kontiki_tpu_torch.solver import banded, iterative, kkt\n"
         "from kontiki_tpu_torch.parallel import segments_ba, make_segment_ba_solver\n"
         "from kontiki_tpu_torch.ops.linearize_kernels import onehot_expand_rows\n"
         "from kontiki_tpu_torch.ops.linearize_kernels import newton_rows, newton_rows_plain\n"

@@ -13,8 +13,9 @@ landmarks, 4 observations each, seed 11; ``tests/test_segments_ba.py``):
 - a 3-iteration ``make_segment_ba_solver``: the same iterations, the final
   cost to 1e-8 relative (it falls by ~1e-10 of the initial cost, so the
   linearizations' roundoff shows there), the final state to 1e-8;
-- the parts that are not ported raise ``NotImplementedError`` (lifting
-  rows the reference's ``ValueError``);
+- two shards raise ``NotImplementedError`` (lifting rows in banded mode
+  the reference's ``ValueError``); the PCG mode, Newton rows and pose
+  rows, ported since, are held to the JAX package's steps there;
 - the loop's nested linearization, the window clamp at the real knot
   count and the ``valid`` input of the camera kernels.
 
@@ -29,16 +30,16 @@ import torch
 
 from kontiki_tpu import parallel as jax_parallel
 from kontiki_tpu.parallel import segments_ba as jax_sba
+from kontiki_tpu.solver.problem import Problem as JProblem
 from kontiki_tpu.synthetic import make_big_ba_problem as jax_make
 from kontiki_tpu_torch import interop
 from kontiki_tpu_torch.parallel import segments_ba as sba
-from kontiki_tpu_torch.solver import kernels
+from kontiki_tpu_torch.solver import iterative, kernels
 from kontiki_tpu_torch.solver.lm import trust_region_loop_spec
 from kontiki_tpu_torch.solver.problem import Problem
 from kontiki_tpu_torch.synthetic import (
     make_big_ba_problem,
-    make_pose_measurements,
-    make_split_trajectory,
+    make_rsvi_problem,
 )
 
 SIZE = dict(n_views=60, n_landmarks=300, obs_per_landmark=4, seed=11)
@@ -145,31 +146,97 @@ def _renamed(tp, kind):
     return interop.raw_problem_from_numpy(**arrays, device="cpu")
 
 
+#: a converged CG, so that the PCG step is the exact damped step of either
+#: package (CG at its iteration cap is roundoff-chaotic: a 1e-15 change of
+#: its right-hand side moves the new cost by ~5e-5 relative here)
+CG = dict(cg_tol=1e-12, cg_maxiter=400)
+
+
+def _check_against(got, want, state_atol, state_rtol=0.0):
+    """Cost, new cost, pred and max |gradient| of two steps (the JAX
+    iterative step has its max |gradient| last), and their new states."""
+    for i, j, rtol in ((0, 0, 1e-10), (2, 2, 1e-9), (3, 3, 1e-8), (4, len(want) - 1, 1e-10)):
+        np.testing.assert_allclose(got[i].item(), float(want[j]), rtol=rtol, err_msg=str(i))
+    for k, v in got[1].items():
+        if v.numel():
+            np.testing.assert_allclose(v.numpy(), np.asarray(want[1][k]), rtol=state_rtol,
+                                       atol=state_atol, err_msg=k)
+
+
+@functools.lru_cache(maxsize=None)
+def _rows_pair(rs, free_sensors=False):
+    """The JAX package's segment-BA test problem with Newton or lifting rows
+    (``tests/test_segments_ba.py``), generated by the port, with its JAX
+    twin; with ``free_sensors`` the camera's pose and time offset and the
+    IMU's orientation are unlocked (the test problem locks them), so the
+    sensor columns move."""
+    from test_torch_split_camera import twin_pair
+
+    gen = make_rsvi_problem(nviews=8, nlandmarks=12, imu_rate=40.0,
+                            seed=21 if rs == "newton" else 29, rs=rs, perturb_rho=0.03,
+                            sigma_p=0.01, sigma_q=0.005, noise_px=0.5, trajectory="split")
+    if free_sensors:
+        for lock in ("relative_orientation_locked", "relative_position_locked",
+                     "time_offset_locked"):
+            setattr(gen["camera"], lock, False)
+        gen["imu"].relative_orientation_locked = False
+    p = twin_pair(gen["trajectory"], gen["measurements"])
+    return p["jax"], p["torch"]
+
+
 @pytest.mark.parametrize("case", ["two shards", "pcg", "rs_newton", "rs_lifting", "pose rows"])
 def test_unported_parts_raise(camera, case):
-    _, tp = camera
-    kw = {}
+    """Two shards (ROADMAP.md Queue A 5) and lifting rows in banded mode (the
+    JAX package's ``ValueError``) still raise. The parts ported since are
+    held to the JAX package instead: the PCG mode's step against the JAX
+    package's one-shard PCG step (converged CG); Newton rows' banded step
+    against the JAX package's one-shard banded step (and the port's
+    iterative step), the state to 1e-7 (the problem's terminal knot is
+    weakly determined, as the JAX test notes); pose rows' steps in both
+    modes against the JAX package's iterative step on the same problem (its
+    segment-BA step returns a zero step on pose rows in banded mode and a
+    cost-raising one in PCG mode there; ROADMAP.md Queue C)."""
+    jp, tp = camera
+    mesh = jax_parallel.default_mesh(n_devices=1)
     if case == "two shards":
-        kw = dict(n_shards=2)
+        for make in (sba.make_segment_ba_step, sba.make_segment_ba_solver):
+            with pytest.raises(NotImplementedError, match="ROADMAP.md Queue A 5"):
+                make(tp, n_shards=2)
+    elif case == "rs_lifting":
+        for make in (sba.make_segment_ba_step, sba.make_segment_ba_solver):
+            with pytest.raises(ValueError, match="mode='pcg'"):
+                make(_renamed(tp, case))
     elif case == "pcg":
-        kw = dict(mode="pcg")
-    elif case.startswith("rs_"):
-        tp = _renamed(tp, case)
+        want = jax_sba.make_segment_ba_step(jp, mesh, mode="pcg", **CG)[0](jp.state0, 1e-4)
+        step, cost = sba.make_segment_ba_step(tp, mode="pcg", **CG)
+        _check_against(step(tp.state0, 1e-4), want, 1e-9)
+        np.testing.assert_allclose(cost(tp.state0).item(), float(want[0]), rtol=1e-10)
+        # converged PCG solves the banded mode's damped system
+        pcg = sba.make_segment_ba_solver(tp, max_iterations=2, function_tolerance=0.0,
+                                         mode="pcg", **CG)(tp.state0)
+        band = sba.make_segment_ba_solver(tp, max_iterations=2,
+                                          function_tolerance=0.0)(tp.state0)
+        assert pcg[2] == band[2] == 2
+        np.testing.assert_allclose(pcg[1].item(), band[1].item(), rtol=1e-6)
+    elif case == "rs_newton":
+        jn, tn = _rows_pair("newton")
+        want = jax_sba.make_segment_ba_step(jn, mesh, mode="banded")[0](jn.state0, 1e-4)
+        got = sba.make_segment_ba_step(tn)[0](tn.state0, 1e-4)
+        _check_against(got, want, 1e-7)
+        ref = iterative.make_iterative_step(tn, **CG)[0](tn.state0, 1e-4)
+        for i in (2, 3):
+            np.testing.assert_allclose(got[i].item(), ref[i].item(), rtol=1e-6)
     else:
-        truth = make_split_trajectory(2.0, seed=3)
-        tp = Problem(truth, make_pose_measurements(truth, 0.0, 1.5, 20.0, seed=3),
-                     device="cpu")
-    # the JAX package's banded mode rejects lifting rows itself (ValueError);
-    # every other case names the ROADMAP.md item that ports it
-    error, match = {"two shards": (NotImplementedError, "ROADMAP.md Queue A 5"),
-                    "pcg": (NotImplementedError, r"ROADMAP.md Queue A 2\.5"),
-                    "rs_newton": (NotImplementedError,
-                                  "ROADMAP.md Queue A 1, segment-BA Newton rows"),
-                    "rs_lifting": (ValueError, "mode='pcg'"),
-                    "pose rows": (NotImplementedError, "ROADMAP.md Queue A 5")}[case]
-    for make in (sba.make_segment_ba_step, sba.make_segment_ba_solver):
-        with pytest.raises(error, match=match):
-            make(tp, **kw)
+        from kontiki_tpu.solver.iterative import make_iterative_step
+        from test_torch_pose import _fit
+
+        start, ms, jt, jms = _fit()
+        tpose = Problem(start, ms, device="cpu")
+        want = make_iterative_step(JProblem(jt, jms), **CG)[0](JProblem(jt, jms).state0, 1e-4)
+        for mode in ("banded", "pcg"):
+            got = sba.make_segment_ba_step(tpose, mode=mode, **CG)[0](tpose.state0, 1e-4)
+            assert got[2].item() < got[0].item()
+            _check_against(got, want, 1e-8)
 
 
 def test_unknown_mode_is_an_error(camera):
