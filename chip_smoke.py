@@ -170,10 +170,31 @@ Phases, in order; any failure exits non-zero without the final line:
     normwise), with each method's time; config 5's banded solve with each,
     patched into ``parallel.segments_ba``, with its rate.
 
+25. the long-sequence IMU path (``synthetic.make_long_imu_problem``): a
+    1,000 s recording at 200 Hz on a split trajectory of 10,014 knots per
+    spline, config 2's biases unlocked; SEW's knot spacings and variances
+    (beside the grid's 0.1 s) against the JAX package's, the weights ``1 /
+    sqrt(variance)`` in one ``GyroscopeMeasurements`` and one
+    ``AccelerometerMeasurements``; ``Problem`` from the two containers and
+    from the same 400,000 rows as per-object measurements, their host build
+    times, the two equal exactly and their counts the JAX package's; the
+    native helper (C++) against its numpy versions on those times, with
+    both times; B4 at 200,000 rows of each kind against its plain version,
+    each form's time per launch, the plain time and the bound; one banded
+    iteration's stages timed on the card;
+    ``TrajectoryEstimator(trajectory).solve(max_iterations=5,
+    strategy="banded", function_tolerance=0.0)`` on the card, first on the
+    rows of the first 100 s (every cost against the JAX package's banded
+    ``lm.solve``: initial and 1-iteration within 1e-9, the last at most the
+    JAX package's), then on all 400,000 rows (the initial cost against the
+    JAX package's, every step accepted), each with exact B4 launches,
+    it/s, the Summary's phase times and the peak device memory.
+
 The JAX values of phases 19-20 come from ``JAX_PLATFORMS=cpu python3
 tools/atan_lifting_reference.py``, those of phases 21-22 from
 ``JAX_PLATFORMS=cpu python3 tools/newton_reference.py``, those of phases
-23-24 from ``JAX_PLATFORMS=cpu python3 tools/solvers_reference.py``.
+23-24 from ``JAX_PLATFORMS=cpu python3 tools/solvers_reference.py``, those
+of phase 25 from ``JAX_PLATFORMS=cpu python3 tools/imu_long_reference.py``.
 
 Each path's launch counts are set to 0 just before its timed solve and
 read just after. A kernel's bound is the larger of its bytes (each input
@@ -209,6 +230,7 @@ from concurrent.futures import ThreadPoolExecutor
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
+import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 # BASELINE config 4 (bench.py config4): rolling-shutter VI on an SE3 spline.
@@ -664,15 +686,20 @@ def phase_device():
 def phase_build():
     from kontiki_tpu_torch.ops import build
 
+    from kontiki_tpu_torch import native
+
     t0 = time.time()
-    # the host row code compiles beside the nvcc processes
-    with ThreadPoolExecutor(max_workers=1) as pool:
+    # the host row code and the native helper compile beside the nvcc processes
+    with ThreadPoolExecutor(max_workers=2) as pool:
         host = pool.submit(build.load_host_library)
+        helper = pool.submit(native._lib)
         so = build.build()
         build.load_library()
         print(f"build: {time.time() - t0:.1f} s -> {os.path.relpath(so, ROOT)}", flush=True)
         host.result()
-    print(f"host row code: ready {time.time() - t0:.1f} s after the build began", flush=True)
+        helper.result()
+    print(f"host row code and native helper: ready {time.time() - t0:.1f} s after the build "
+          "began", flush=True)
     log = so.with_suffix(".log").read_text()
     for line in log.splitlines():
         if ("Compiling entry" in line or "Function properties" in line
@@ -3096,6 +3123,330 @@ def phase_newton_segment(problem):
     return dict(b6_ms=ms)
 
 
+# ---------------------------------------------------------------------------
+# the long-sequence IMU path: SEW, batch containers, the native helper, the
+# banded estimator on kernel B4 at 200,000 rows of each kind
+# ---------------------------------------------------------------------------
+
+#: synthetic.make_long_imu_problem: a 1,000 s recording at 200 Hz of
+#: make_split_trajectory(1001.0, dt=0.1, seed=2) (10,014 knots per spline),
+#: config 2's biases (unlocked), SEW weights at quality 0.99, the start
+#: perturbed as in config 2
+LONG_IMU = dict(duration=1000.0, rate=200.0, knot_dt=0.1, seed=2, quality=0.99)
+LONG_IMU_ROWS = 200_000
+LONG_IMU_ITERATIONS = 5
+LONG_IMU_COUNTS = SUMMARY_COUNTS[:3] + ("num_parameter_blocks_reduced", "num_residuals",
+                                        "num_residual_blocks", "num_residuals_reduced",
+                                        "num_residual_blocks_reduced")
+#: the JAX package's values (JAX_PLATFORMS=cpu python3
+#: tools/imu_long_reference.py): SEW's (spacing, variance) per signal, the
+#: problem's counts and initial cost at 1,000 s, and the banded lm.solve's
+#: costs on the rows of the first 100 s (the JAX band assembly needs ~33 GB
+#: of host memory at 1,000 s)
+JAX_LONG_IMU = dict(
+    sew={"gyro": (0.29890395494040833, 0.000277633763220701),
+         "accel": (0.45465758751066476, 0.29803958614501896)},
+    num_tangent=60097,
+    counts=(70035, 20011, 70027, 20008, 1200000, 400000, 1200000, 400000),
+    cost0=76706848.10652633,
+    cut=100.0,
+    cut_costs=(7686239.91143666, 784.8834805178585, 0.6731213970796224, 0.12536476070958782,
+               0.03534723876221713, 0.009085533778585167),
+)
+#: initial and 1-iteration costs against the JAX package's (the same
+#: arrays; on the CPU the two agree to 2e-14 after one iteration at 300 s);
+#: SEW's spacing and variance (numpy on both sides, the signals differ by
+#: roundoff); the final cost at most the JAX package's after as many
+#: iterations, to roundoff
+LONG_IMU_RTOL = 1e-9
+SEW_RTOL = 1e-9
+LONG_IMU_FINAL_SLACK = 1e-6
+
+
+def long_imu_problem():
+    """The long recording through ``synthetic.make_long_imu_problem`` (SEW
+    inside): rows and knots, SEW's spacings beside the grid's, against the
+    JAX package's."""
+    from kontiki_tpu_torch import synthetic
+
+    t0 = time.time()
+    gen = synthetic.make_long_imu_problem(**LONG_IMU)
+    g, a = gen["measurements"]
+    traj = gen["trajectory"]
+    print(f"long IMU: {len(g)} gyro and {len(a)} accel rows on "
+          f"{len(traj.R3_spline)} + {len(traj.SO3_spline)} knots, generated with SEW in "
+          f"{time.time() - t0:.1f} s on the host", flush=True)
+    if (len(g), len(a)) != (LONG_IMU_ROWS, LONG_IMU_ROWS):
+        fail(f"long IMU: {len(g)} gyro and {len(a)} accel rows, not {LONG_IMU_ROWS}")
+    for kind, (dt, var) in gen["sew"].items():
+        jdt, jvar = JAX_LONG_IMU["sew"][kind]
+        rel = max(abs(dt - jdt) / jdt, abs(var - jvar) / jvar)
+        print(f"long IMU SEW {kind}: knot spacing {dt!r} s (the grid's {LONG_IMU['knot_dt']} s), "
+              f"variance {var!r}, weight {1 / math.sqrt(var)!r}; JAX rel {rel:.2e} "
+              f"(tol {SEW_RTOL:.0e})", flush=True)
+        if not rel <= SEW_RTOL:
+            fail(f"long IMU SEW {kind}: differs from the JAX package's by {rel:.2e}")
+    return gen
+
+
+def _objects(batches):
+    """The containers' rows as per-object measurements, in order."""
+    from kontiki_tpu_torch.measurements import (AccelerometerMeasurement,
+                                                GyroscopeMeasurement)
+
+    out = []
+    for b in batches:
+        cls, y = ((GyroscopeMeasurement, b.w) if hasattr(b, "w")
+                  else (AccelerometerMeasurement, b.a))
+        out += [cls(b.imu, t, yi, weight=w)
+                for t, yi, w in zip(b.t.tolist(), y, b.weight.tolist())]
+    return out
+
+
+def phase_long_imu_build(gen):
+    """``Problem`` from the two containers and from the same 400,000 rows as
+    per-object measurements, both on the card: host build times, and the
+    two equal exactly (buckets, state0, mask, active knots, counts); the
+    counts against the JAX package's."""
+    from kontiki_tpu_torch.solver.problem import Problem
+
+    traj, batches = gen["trajectory"], gen["measurements"]
+    t0 = time.perf_counter()
+    batch = Problem(traj, batches)
+    torch.cuda.synchronize()
+    t_batch = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    objs = _objects(batches)
+    t_objs = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    per_object = Problem(traj, objs)
+    torch.cuda.synchronize()
+    t_obj = time.perf_counter() - t0
+    print(f"long IMU build on the host: batch containers {t_batch:.3f} s; per-object "
+          f"{t_obj:.3f} s for {len(objs)} objects (making them {t_objs:.3f} s), "
+          f"{t_obj / t_batch:.0f}x", flush=True)
+    if batch.device.type != "cuda":
+        fail(f"long IMU: Problem built on {batch.device}, not on the card")
+    for key, b in batch.buckets.items():
+        o = per_object.buckets[key]
+        if (b.M, b.window, b.data.keys()) != (o.M, o.window, o.data.keys()) or not all(
+                torch.equal(v, o.data[k]) for k, v in b.data.items()):
+            fail(f"long IMU: bucket {key} differs between the batch and per-object builds")
+    if list(batch.buckets) != list(per_object.buckets) or not all(
+            torch.equal(v, per_object.state0[k]) for k, v in batch.state0.items()) or not (
+            torch.equal(batch.mask, per_object.mask)) or not all(
+            np.array_equal(x.active, y.active) for x, y in zip(batch.splines, per_object.splines)):
+        fail("long IMU: state0, mask or active knots differ between the two builds")
+    counts = tuple(getattr(batch, k) for k in LONG_IMU_COUNTS)
+    if counts != tuple(getattr(per_object, k) for k in LONG_IMU_COUNTS):
+        fail("long IMU: counts differ between the batch and per-object builds")
+    print(f"long IMU: the two builds equal exactly; num_tangent {batch.num_tangent}, "
+          f"counts {counts}", flush=True)
+    if (batch.num_tangent, counts) != (JAX_LONG_IMU["num_tangent"], JAX_LONG_IMU["counts"]):
+        fail(f"long IMU: num_tangent and counts {batch.num_tangent} {counts} != the JAX "
+             f"package's {JAX_LONG_IMU['num_tangent']} {JAX_LONG_IMU['counts']}")
+    del per_object, objs
+    return batch
+
+
+def _host_median_ms(fn, reps=3):
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        out = fn()
+        times.append(time.perf_counter() - t0)
+    return out, 1e3 * sorted(times)[len(times) // 2]
+
+
+def phase_native(gen, problem):
+    """The native helper (``kontiki_tpu_torch.native``, C++) against its
+    plain numpy versions on the problem's 400,000 row times: the batch
+    path's checked activation per container and spline, window bases,
+    span checks, a stable argsort (ties: both containers share their
+    times) and the active knots' segments. Outputs equal exactly; the
+    median host time of each."""
+    from kontiki_tpu_torch import native
+
+    traj, batches = gen["trajectory"], gen["measurements"]
+    times = np.concatenate([b.t for b in batches])
+    tmin, tmax = traj.min_time, traj.max_time
+    sp = problem.splines[0]
+    srt = np.sort(times)
+    cases = {
+        "activate_points": lambda n: [
+            getattr(native, n)(b.t, 0.0, tmin, tmax, s.t0, s.dt, s.n)
+            for b in batches for s in problem.splines],
+        "window_bases": lambda n: getattr(native, n)(times, sp.t0, sp.dt, sp.n, 4),
+        "check_spans": lambda n: getattr(native, n)(srt, srt, tmin, tmax),
+        "argsort_times": lambda n: getattr(native, n)(times),
+        "coalesce": lambda n: getattr(native, n)(sp.active),
+    }
+    for name, call in cases.items():
+        got, ms = _host_median_ms(lambda: call(name))
+        want, plain_ms = _host_median_ms(lambda: call(name + "_plain"))
+        same = (got == want if name == "coalesce" or got is None
+                else all(np.array_equal(x, y) for x, y in zip(
+                    got if isinstance(got, list) else [got],
+                    want if isinstance(want, list) else [want])))
+        print(f"native {name} on {len(times)} times: C++ {ms:.3f} ms, plain numpy "
+              f"{plain_ms:.3f} ms, outputs {'equal' if same else 'DIFFER'}", flush=True)
+        if not same:
+            fail(f"native {name}: the C++ and numpy outputs differ")
+
+
+def phase_long_imu_b4(problem):
+    """B4 at the long path's 200,000 rows of each kind, at ``state0``: the
+    kernel against its plain version (f64, its TOL), the median CUDA-event
+    time of one launch of each form, the plain version's time once (after
+    one untimed call), and the bound. Returns each form's numbers on the
+    accel rows, the worst error over both kinds."""
+    from kontiki_tpu_torch.ops import linearize_kernels as lk
+    from kontiki_tpu_torch.solver import kernels
+
+    spec = kernels.problem_spec(problem)
+    runtime = kernels.problem_runtime(problem)
+    forms, worst = {}, 0.0
+    for bspec, data in zip(spec.buckets, runtime["data"]):
+        cfg, ins, _ = kernels._imu_inputs(spec, bspec, runtime, problem.state0, data)
+        M = bspec.M
+        got = (*lk.imu_rows(cfg, ins), lk.imu_rows(cfg, ins, cost_only=True))
+        torch.cuda.synchronize()
+        want = lk.imu_rows_plain(cfg, ins)
+        print(f"  long IMU {bspec.kind} M={M}:", flush=True)
+        worst = max(worst, compare("imu_rows", torch.float64, ("r", "J", "r cost-only"), got,
+                                   (*want, want[0])))
+        del got, want
+        n_in = sum(k for n, k in lk.IMU_INPUTS if n in ins)
+        for form, cost_only in (("linearize", False), ("cost-only", True)):
+            ms = cuda_ms(lambda: lk.imu_rows(cfg, ins, cost_only=cost_only))
+            plain_ms = cuda_ms(lambda: lk.imu_rows_plain(cfg, ins, cost_only=cost_only),
+                               reps=1, warmup=1)
+            nbytes = 8 * M * (n_in + 3 + (0 if cost_only else 3 * lk.imu_columns(cfg)))
+            ops = lk.imu_rows_ops(cfg, ins, cost_only=cost_only)
+            b_ms, b_by = bound(nbytes, ops)
+            print(f"  imu_rows f64 long IMU {bspec.kind} {form} M={M}: kernel {ms:.4f} ms a "
+                  f"launch, plain {plain_ms:.3f} ms, bound {b_ms:.5f} ms by {b_by} "
+                  f"({nbytes} bytes, {ops} operations) [{CARD}]", flush=True)
+            if bspec.kind == "accel":
+                forms[form] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                                   library_ms=None)  # no single PyTorch call
+    for r in forms.values():
+        r["max_abs_err"] = worst
+    return forms
+
+
+def phase_long_imu_breakdown(problem):
+    """Where one banded iteration's time goes at the long path's 400,000
+    rows (state0, lam 1e-4): median CUDA-event ms of the linearization
+    (B4 and the compressed rows), then the linear-solver phase's stages:
+    gradient and diagonal, the band and border assembly (``index_add_`` of
+    each row's [C, C] product), the damped system (with the assembly), the
+    PCR band solve, the bordered solve (all of it but the prediction), and
+    the whole phase (``solve_with_pred``)."""
+    from kontiki_tpu_torch.solver import kernels
+    from kontiki_tpu_torch.solver.banded import block_tridiag_solve, build_banded_parts
+
+    spec, runtime, s0 = kernels.problem_spec(problem), kernels.problem_runtime(problem), \
+        problem.state0
+    parts = build_banded_parts(spec)
+    lam = 1e-4
+    _, blocks = parts["linearize"](runtime, s0)
+    g = parts["grad_and_diag"](blocks)[0]
+    D, U, rhs, _ = parts["damped_system"](runtime, blocks, g, lam)
+    stages = {
+        "linearize": lambda: parts["linearize"](runtime, s0),
+        "grad_and_diag": lambda: parts["grad_and_diag"](blocks),
+        "assemble": lambda: parts["assemble"](blocks, problem.dtype, problem.device),
+        "damped_system": lambda: parts["damped_system"](runtime, blocks, g, lam),
+        "block_tridiag_solve": lambda: block_tridiag_solve(D, U, rhs),
+        "banded_solve": lambda: parts["banded_solve"](runtime, blocks, g, lam),
+        "solve_with_pred": lambda: parts["solve_with_pred"](runtime, blocks, lam, s0),
+    }
+    ms = {k: cuda_ms(fn, reps=3, warmup=1) for k, fn in stages.items()}
+    print("long IMU banded iteration breakdown (CUDA events, median of 3): "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in ms.items())
+          + f"; band {tuple(D.shape)} with {rhs.shape[-1]} right-hand sides [{CARD}]",
+          flush=True)
+    return ms
+
+
+def _solve_long(traj, batches, what):
+    """``TrajectoryEstimator(traj).solve(LONG_IMU_ITERATIONS,
+    strategy="banded", function_tolerance=0.0)`` on the card, counts reset
+    just before and read just after; exact B4 launches (each iteration
+    linearizes and re-costs both buckets), the rate, the Summary's phase
+    times and the peak device memory."""
+    from kontiki_tpu_torch import TrajectoryEstimator
+
+    est = TrajectoryEstimator(traj)
+    for b in batches:
+        est.add_measurement(b)
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    summary = est.solve(max_iterations=LONG_IMU_ITERATIONS, progress=False,
+                        strategy="banded", function_tolerance=0.0)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    n = len(summary.iterations) - 1
+    costs = [it.cost for it in summary.iterations]
+    times = (("jacobian", summary.jacobian_evaluation_time_in_seconds),
+             ("linear solver", summary.linear_solver_time_in_seconds),
+             ("residual", summary.residual_evaluation_time_in_seconds))
+    print(f"{what}: {summary.BriefReport()}; {n} iterations, minimizer "
+          f"{summary.minimizer_time_in_seconds:.3f} s = "
+          f"{n / summary.minimizer_time_in_seconds:.3f} it/s, {seconds:.3f} s with the "
+          f"problem build and write-back; per iteration "
+          + ", ".join(f"{k} {1e3 * v / max(n, 1):.3f} ms" for k, v in times)
+          + f"; peak device memory {peak / 2**30:.3f} GiB; costs {costs}; launches "
+          f"{ {k: v for k, v in launches.items() if v} }", flush=True)
+    if n != LONG_IMU_ITERATIONS or not all(it.step_is_successful for it in summary.iterations):
+        fail(f"{what}: {n} iterations, steps "
+             f"{[it.step_is_successful for it in summary.iterations]}")
+    check_launches(what, launches, {"imu_rows": 4 * n, "imu_rows cost-only": 2 * n})
+    return summary, costs, launches
+
+
+def phase_long_imu_solve(gen):
+    """The banded estimator on the long recording: first on the rows of its
+    first 100 s (copies of the objects), every cost against the JAX
+    package's banded ``lm.solve`` (initial and 1-iteration within 1e-9, the
+    last at most the JAX package's), then on all 400,000 rows: the initial
+    cost against the JAX package's, every step accepted, exact launches."""
+    import copy
+
+    traj, batches = gen["trajectory"], gen["measurements"]
+    cut_traj, cut_batches = copy.deepcopy((traj, batches))  # the IMU object shared
+    end = 0.5 + JAX_LONG_IMU["cut"]
+    cut_batches = [type(b)(b.imu, b.t[b.t < end], getattr(b, b._value_field)[b.t < end],
+                           weight=b.weight[b.t < end]) for b in cut_batches]
+    _, costs, _ = _solve_long(cut_traj, cut_batches, f"long IMU, first {JAX_LONG_IMU['cut']} s")
+    jax_costs = JAX_LONG_IMU["cut_costs"]
+    for i, (got, want) in enumerate(zip(costs, jax_costs)):
+        rel = abs(got - want) / want
+        print(f"long IMU, first {JAX_LONG_IMU['cut']} s: cost {i} {got!r} (JAX {want!r}, "
+              f"rel {rel:.2e})", flush=True)
+        if i < 2 and not rel <= LONG_IMU_RTOL:
+            fail(f"long IMU: cost {i} differs from the JAX package's by {rel:.2e}")
+    if not costs[-1] <= jax_costs[-1] * (1 + LONG_IMU_FINAL_SLACK):
+        fail(f"long IMU: final cost {costs[-1]!r} above the JAX package's {jax_costs[-1]!r}")
+
+    what = f"long IMU, {LONG_IMU['duration']:g} s"
+    summary, costs, launches = _solve_long(traj, batches, what)
+    rel = abs(costs[0] - JAX_LONG_IMU["cost0"]) / JAX_LONG_IMU["cost0"]
+    print(f"{what}: initial cost {costs[0]!r} (JAX {JAX_LONG_IMU['cost0']!r}, rel "
+          f"{rel:.2e}, tol {LONG_IMU_RTOL:.0e}); final/initial {costs[-1] / costs[0]:.3e} "
+          f"(the first 100 s: {jax_costs[-1] / jax_costs[0]:.3e} in the JAX package)",
+          flush=True)
+    if not rel <= LONG_IMU_RTOL:
+        fail(f"long IMU: initial cost differs from the JAX package's by {rel:.2e}")
+    if not (math.isfinite(costs[-1]) and costs[-1] < costs[0]):
+        fail(f"long IMU: the solve did not lower the cost ({costs[0]!r} -> {costs[-1]!r})")
+    return launches
+
+
 def main():
     phase_device()
     phase_build()
@@ -3154,6 +3505,14 @@ def main():
     phase_gyro_band(band)
     phase_band_solve(band_systems(big5, band))
     phase_config5_methods(big5)
+    del big5, band
+    long_imu = long_imu_problem()
+    long_problem = phase_long_imu_build(long_imu)
+    phase_native(long_imu, long_problem)
+    b4_long = phase_long_imu_b4(long_problem)
+    phase_long_imu_breakdown(long_problem)
+    del long_problem
+    long_launches = phase_long_imu_solve(long_imu)
     n = MAIN_PATH_LAUNCHES
     print(f"main-path launches: {n}", flush=True)
     b1_source = dict(route="cuda", source="kontiki_tpu_torch/csrc/linearize_rows.cu")
@@ -3200,6 +3559,14 @@ def main():
                replaces="kontiki_tpu/ops/linearize_kernels.py:1601",
                launches=(n["imu_rows cost-only"] if form == "cost-only"
                          else n["imu_rows"] - n["imu_rows cost-only"]), **b4[form])
+          for form in ("linearize", "cost-only")],
+        *[dict(name=f"imu_rows ({form}, per launch at the long-sequence path's 200,000 "
+                    "accel rows)",
+               route="cuda", source="kontiki_tpu_torch/csrc/imu_rows.cu",
+               replaces="kontiki_tpu/ops/linearize_kernels.py:1601",
+               launches=(long_launches["imu_rows cost-only"] if form == "cost-only"
+                         else long_launches["imu_rows"] - long_launches["imu_rows cost-only"]),
+               **b4_long[form])
           for form in ("linearize", "cost-only")],
         *[dict(name=f"evaluate_windows ({kind})", route="cuda",
                source="kontiki_tpu_torch/csrc/eval_windows.cu",

@@ -10,13 +10,17 @@ the IMU-fusion solves of configs 1 and 2 (gyro and accel rows), of config
 5's banded segment BA (one-hot row expansion) and of the trajectory queries
 (window evaluation, the R3 spline at arbitrary times) are hand-written CUDA
 C++ for Hopper (``csrc/``), each beside a plain PyTorch version that runs
-for CPU tensors.
+for CPU tensors. Long IMU recordings go in as arrays (the batch containers
+``measurements.GyroscopeMeasurements`` / ``AccelerometerMeasurements``,
+weighted by ``sew``), compiled through the native C++ host helper
+(``native``); ``io`` reads and writes the reference's HDF5 files (it needs
+``h5py`` and is not imported here).
 """
 from . import config  # noqa: F401
 
 __version__ = "0.1.0"
 
-from . import constants, math, rotations, utils  # noqa: F401,E402
+from . import constants, math, rotations, sew, utils  # noqa: F401,E402
 from .trajectories import (  # noqa: F401,E402
     SplitTrajectory,
     UniformR3SplineTrajectory,

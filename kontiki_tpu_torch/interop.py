@@ -110,10 +110,11 @@ def raw_problem_arrays(problem):
         sensors=sensors,
         rho=state["rho"],
         landmark_mask=mask[lo: lo + L],
+        vt=state["vt"],
     )
 
 
-def raw_problem_from_numpy(splines, buckets, sensors, rho, landmark_mask=None,
+def raw_problem_from_numpy(splines, buckets, sensors, rho, landmark_mask=None, vt=None,
                            device=None, dtype=default_dtype):
     """The port's ``solver.problem.RawProblem`` on ``device`` (None: the CUDA
     card) from numpy arrays in ``raw_problem_arrays``'s form; a bucket's
@@ -127,5 +128,5 @@ def raw_problem_from_numpy(splines, buckets, sensors, rho, landmark_mask=None,
         M = int(next(iter(b["data"].values())).shape[0]) if b["data"] else 0
         raw[key] = RawBucket(kind=key, M=M, rdim=int(b["rdim"]), data=dict(b["data"]),
                              window=dict(b["window"]), camera_cls=cam)
-    return RawProblem(splines, raw, sensors, rho, landmark_mask=landmark_mask,
+    return RawProblem(splines, raw, sensors, rho, landmark_mask=landmark_mask, vt=vt,
                       device=device, dtype=dtype)

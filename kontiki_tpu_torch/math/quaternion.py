@@ -43,6 +43,16 @@ def qconj(q):
     return torch.cat([q[..., :1], -q[..., 1:]], dim=-1)
 
 
+def qvec(q):
+    """Vector (imaginary) part."""
+    return q[..., 1:]
+
+
+def embed_vector(v):
+    """Embed a 3-vector as a pure quaternion (0, v)."""
+    return torch.cat([torch.zeros_like(v[..., :1]), v], dim=-1)
+
+
 def qrotate(q, v):
     """Rotate vector(s) v by unit quaternion(s) q: (q (0,v) q*).vec, in the
     15-multiply form."""
@@ -83,6 +93,21 @@ def angular_velocity(q, dq):
     """World-frame angular velocity ``2 (dq q^-1).vec``
     (reference quaternion_math.h:92-96)."""
     return 2.0 * qmul(dq, qconj(q))[..., 1:]
+
+
+def dq_from_angular_velocity(w, q):
+    """Orientation derivative from world angular velocity: 0.5 (0,w) q."""
+    return 0.5 * qmul(embed_vector(w), q)
+
+
+def vector_sandwich(qa, x, qb):
+    """``(qa * (0,x) * qb).vec`` (reference quaternion_math.h:107-114)."""
+    return qmul(qa, qmul(embed_vector(x), qb))[..., 1:]
+
+
+def is_unit_quaternion(q, tol=EPS_UNIT_CHECK):
+    """|‖q‖ − 1| < tol elementwise over the last axis (reference tol 1e-5)."""
+    return torch.abs(torch.linalg.vector_norm(q, dim=-1) - 1.0) < tol
 
 
 def qnormalize(q):

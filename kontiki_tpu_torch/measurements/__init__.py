@@ -25,10 +25,18 @@ struct-of-arrays compilation lives in ``kontiki_tpu_torch.solver.problem``.
   ``vt`` in [0, 1] (observed time ``view.t0 + time_offset + vt * readout``);
   ``w * (uv - reproject, rows (vt - vt_orig))`` (3,)
   (lifting_rscamera_measurement.h:98-113).
+- GyroscopeMeasurements / AccelerometerMeasurements: batches of IMU rows as
+  arrays (sorted times ``[M]``, values ``[M, 3]``, scalar or ``[M]``
+  weights), the long-sequence path: ``Problem`` activates their knots in
+  one native pass and splices the arrays into the bucket, and ``measure``
+  evaluates all times in one trajectory query.
 """
 import numpy as np
+import torch
 
 from ..config import host_dtype
+from ..constants import GRAVITY
+from ..math import quaternion as quat
 from ..rotations import quat_conj, quat_mult, quat_to_rotation_matrix
 
 __all__ = [
@@ -259,3 +267,72 @@ class LiftingRsCameraMeasurement:
         e[:2] = self.observation.uv - self.project(trajectory)
         e[2] = self.camera.rows * (self.vt - self.vt_orig)
         return self.weight * e
+
+
+# ---------------------------------------------------------------------------
+# Batch (struct-of-arrays) IMU containers: the long-sequence path. Adding
+# 10^5 measurement objects one at a time makes problem compilation a Python
+# loop; these carry dense arrays end to end.
+# ---------------------------------------------------------------------------
+
+
+class _ImuMeasurements:
+    """Base batch IMU container: times [M] (sorted), values [M, 3],
+    scalar or [M] weights."""
+
+    _value_field = "y"
+
+    def __init__(self, imu, t, y, weight=1.0):
+        self.imu = imu
+        self.t = np.ascontiguousarray(t, dtype=host_dtype)
+        y = np.ascontiguousarray(y, dtype=host_dtype)
+        if y.shape != (len(self.t), 3):
+            raise ValueError(f"values must be [{len(self.t)}, 3], got {y.shape}")
+        if len(self.t) > 1 and np.any(np.diff(self.t) < 0):
+            raise ValueError("batch measurement times must be sorted")
+        setattr(self, self._value_field, y)
+        self.weight = np.broadcast_to(
+            np.asarray(weight, dtype=host_dtype), (len(self.t),)
+        ).copy()
+
+    def __len__(self):
+        return len(self.t)
+
+    def _body(self, trajectory):
+        """The trajectory at every ``t + time_offset`` in one query (its
+        device), and the body-frame rotation of a world vector there."""
+        res = trajectory._eval(self.t + self.imu.time_offset)
+        q_conj = quat.qconj(torch.from_numpy(res["orientation"]))
+        return res, lambda v: quat.qrotate(q_conj, torch.from_numpy(v)).numpy()
+
+    def error(self, trajectory):
+        return self.weight[:, None] * (
+            getattr(self, self._value_field) - self.measure(trajectory)
+        )
+
+
+class GyroscopeMeasurements(_ImuMeasurements):
+    """Batch of body-frame angular-rate measurements (the struct-of-arrays
+    form of GyroscopeMeasurement, gyroscope_measurement.h:26-105)."""
+
+    _value_field = "w"
+
+    def measure(self, trajectory):
+        res, to_body = self._body(trajectory)
+        return to_body(res["angular_velocity"]) + getattr(
+            self.imu, "gyroscope_bias", np.zeros(3))
+
+
+class AccelerometerMeasurements(_ImuMeasurements):
+    """Batch of body-frame specific-force measurements (the struct-of-arrays
+    form of AccelerometerMeasurement, accelerometer_measurement.h:17-114)."""
+
+    _value_field = "a"
+
+    def measure(self, trajectory):
+        res, to_body = self._body(trajectory)
+        return to_body(res["acceleration"] + GRAVITY) + getattr(
+            self.imu, "accelerometer_bias", np.zeros(3))
+
+
+__all__ += ["GyroscopeMeasurements", "AccelerometerMeasurements"]

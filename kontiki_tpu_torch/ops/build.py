@@ -8,10 +8,11 @@ and linked into one shared library with a plain C interface, bound with
 the sources and flags, so a changed source is rebuilt and an unchanged one
 is loaded as it is.
 
-``build_host`` compiles the kernels' per-row code for the host with a plain
-C++ compiler (``csrc/host_rows.cpp``): the row math on ``double`` for checks
-without a card, and on an operation-counting scalar for the operation side
-of a kernel's bound.
+``build_host`` compiles host sources with a plain C++ compiler: the
+kernels' per-row code (``csrc/host_rows.cpp``: the row math on ``double``
+for checks without a card, and on an operation-counting scalar for the
+operation side of a kernel's bound), and the problem compiler's native
+helper (``csrc/kontiki_host.cpp``, bound by ``kontiki_tpu_torch.native``).
 """
 import contextlib
 import ctypes
@@ -163,11 +164,20 @@ def _build(so):
             Path(obj).unlink(missing_ok=True)
 
 
-def build_host():
-    """Compile ``csrc/host_rows.cpp`` with the host C++ compiler if needed;
-    returns the library's path."""
-    src = CSRC / "host_rows.cpp"
-    so = _library_path("kontiki_host", HOST_FLAGS, [src, *_sources()])
+#: host sources: file in ``csrc`` -> (library stem, whether it includes
+#: the ``.cu`` sources, whose text then keys the library's name too)
+HOST_SOURCES = {
+    "host_rows.cpp": ("kontiki_host", True),  # the kernels' row code
+    "kontiki_host.cpp": ("kontiki_native", False),  # the problem compiler's helper
+}
+
+
+def build_host(source="host_rows.cpp"):
+    """Compile a host source of ``csrc`` (``HOST_SOURCES``) with the host
+    C++ compiler if needed; returns the library's path."""
+    stem, includes_cu = HOST_SOURCES[source]
+    src = CSRC / source
+    so = _library_path(stem, HOST_FLAGS, [src, *(_sources() if includes_cu else ())])
     if so.exists():
         return so
     cxx = os.environ.get("CXX") or shutil.which("c++") or "g++"

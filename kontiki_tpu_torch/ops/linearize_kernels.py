@@ -1292,12 +1292,20 @@ def imu_rows_host(cfg, ins, cost_only=False, wide=False):
 def imu_rows_ops(cfg, ins, cost_only=False):
     """Floating-point operations B4's function needs on ``ins``, counted by
     running its row code on the host once per row in one full-width jet,
-    with structural zeros and ones free (``csrc/host_rows.cpp``)."""
+    with structural zeros and ones free (``csrc/host_rows.cpp``), in chunks
+    of rows on parallel threads (``count_in_chunks``)."""
     from .build import load_host_library
 
     M = _check_imu_inputs(cfg, ins)
-    keep, ptrs = _host_args(IMU_INPUTS, ins)
-    return load_host_library().kontiki_count_imu_rows(ptrs, M, _imu_flags(cfg, cost_only))
+    fn = load_host_library().kontiki_count_imu_rows
+    flags = _imu_flags(cfg, cost_only)
+    host = {k: v.detach().to("cpu", torch.float64) for k, v in ins.items()}
+
+    def count(a, b):
+        keep, ptrs = _host_args(IMU_INPUTS, {k: v[:, a:b] for k, v in host.items()})
+        return fn(ptrs, b - a, flags)
+
+    return count_in_chunks(count, M, chunk=1 << 14)
 
 
 def linearize_rows_host(cfg, ins, wide=False, lanes=False):

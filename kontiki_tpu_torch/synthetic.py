@@ -1,6 +1,8 @@
 """Synthetic problem generators (counterpart of ``kontiki_tpu.synthetic``):
 the gyro-only SO3 fit of BASELINE config 1, the IMU fusion on a split
-R3 + SO3 trajectory of config 2, the rolling-shutter SfM on a split
+R3 + SO3 trajectory of config 2 (and a 1,000 s recording of it in
+batch containers weighted by SEW, ``make_long_imu_problem``), the
+rolling-shutter SfM on a split
 trajectory of config 3 (with a pinhole or an atan camera, static or
 lifting rows), the SE3 rolling-shutter visual-inertial problem of config 4
 and the array-level bundle adjustment of config 5
@@ -24,7 +26,9 @@ from .constants import GRAVITY
 from .math import quaternion as quat
 from .measurements import (
     AccelerometerMeasurement,
+    AccelerometerMeasurements,
     GyroscopeMeasurement,
+    GyroscopeMeasurements,
     LiftingRsCameraMeasurement,
     NewtonRsCameraMeasurement,
     OrientationMeasurement,
@@ -193,23 +197,63 @@ def make_gyro_problem(duration=5.0, rate=200.0, knot_dt=0.1, seed=0, noise=0.0,
     return dict(trajectory=traj, true_trajectory=true_traj, imu=imu, measurements=ms)
 
 
-def make_imu_problem(duration=5.0, rate=200.0, knot_dt=0.1, seed=0, noise=0.0,
-                     bias=True, sigma_p=0.05, sigma_q=0.02):
-    """BASELINE config 2: gyro + accel fusion on a split trajectory, with
-    unlocked constant biases when ``bias``."""
-    true_traj = make_split_trajectory(duration + 1.0, dt=knot_dt, seed=seed)
+def _bias_imu(seed):
+    """Config 2's IMU: constant biases drawn from ``seed + 7``, unlocked."""
     rng = np.random.default_rng(seed + 7)
-    if bias:
-        imu = ConstantBiasImu(rng.normal(scale=0.05, size=3), rng.normal(scale=0.01, size=3))
-        imu.accelerometer_bias_locked = False
-        imu.gyroscope_bias_locked = False
-    else:
-        imu = BasicImu()
+    imu = ConstantBiasImu(rng.normal(scale=0.05, size=3), rng.normal(scale=0.01, size=3))
+    imu.accelerometer_bias_locked = False
+    imu.gyroscope_bias_locked = False
+    return imu
+
+
+def make_imu_problem(duration=5.0, rate=200.0, knot_dt=0.1, seed=0, noise=0.0,
+                     bias=True, sigma_p=0.05, sigma_q=0.02, position_rate=0.0):
+    """BASELINE config 2: gyro + accel fusion on a split trajectory, with
+    unlocked constant biases when ``bias``. ``position_rate > 0`` adds
+    position rows at that rate on the same span: gyro and accel alone leave
+    the global position and a constant velocity unobservable, so a fit
+    scored against the truth needs the anchor."""
+    true_traj = make_split_trajectory(duration + 1.0, dt=knot_dt, seed=seed)
+    imu = _bias_imu(seed) if bias else BasicImu()
     ms = make_imu_measurements(
         true_traj, imu, 0.5, 0.5 + duration, rate, noise=noise, seed=seed
     )
+    if position_rate:
+        ts = np.arange(0.5, 0.5 + duration, 1.0 / position_rate)
+        ps = true_traj._eval(ts, device="cpu")["position"]
+        ms += [PositionMeasurement(t, p) for t, p in zip(ts, ps)]
     traj = perturb_trajectory(true_traj, sigma_p=sigma_p, sigma_q=sigma_q, seed=seed + 1)
     return dict(trajectory=traj, true_trajectory=true_traj, imu=imu, measurements=ms)
+
+
+def make_long_imu_problem(duration=1000.0, rate=200.0, knot_dt=0.1, seed=2, quality=0.99,
+                          sigma_p=0.05, sigma_q=0.02):
+    """A long IMU recording through the reference's workflow: ideal gyro and
+    accel samples at ``rate`` Hz on [0.5, 0.5 + duration) of
+    ``make_split_trajectory(duration + 1.0, knot_dt, seed)``, with config
+    2's constant biases (``make_imu_problem``'s draws, both unlocked) added;
+    SEW (``sew.knot_spacing_and_variance`` at ``quality``) picks each
+    signal's spacing and fit-error variance, and the weights ``1 /
+    sqrt(variance)`` go into one ``GyroscopeMeasurements`` and one
+    ``AccelerometerMeasurements``. The start is the truth perturbed as in
+    config 2. The trajectory keeps its knot grid (SEW's spacings are
+    returned, not applied), so the banded strategy takes it. At the default
+    1,000 s: 10,014 knots per spline, 200,000 rows of each kind."""
+    from . import sew
+
+    true_traj = make_split_trajectory(duration + 1.0, dt=knot_dt, seed=seed)
+    imu = _bias_imu(seed)
+    ts = np.arange(0.5, 0.5 + duration, 1.0 / rate)
+    w, a = _body_imu(true_traj, ts)
+    w = w + imu.gyroscope_bias
+    a = a + imu.accelerometer_bias
+    spacing = {"gyro": sew.knot_spacing_and_variance(w.T, ts, quality),
+               "accel": sew.knot_spacing_and_variance(a.T, ts, quality)}
+    ms = [GyroscopeMeasurements(imu, ts, w, weight=1.0 / np.sqrt(spacing["gyro"][1])),
+          AccelerometerMeasurements(imu, ts, a, weight=1.0 / np.sqrt(spacing["accel"][1]))]
+    traj = perturb_trajectory(true_traj, sigma_p=sigma_p, sigma_q=sigma_q, seed=seed + 1)
+    return dict(trajectory=traj, true_trajectory=true_traj, imu=imu, measurements=ms,
+                sew=spacing)
 
 
 _DEFAULT_K = np.array([[500.0, 0.0, 320.0], [0.0, 500.0, 240.0], [0.0, 0.0, 1.0]])

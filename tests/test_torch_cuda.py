@@ -26,7 +26,12 @@ branches, linearize and cost-only, on 6- and 10-knot windows. The solver
 family on the card against the CPU path: the band solve by the scan and by
 PCR (1e-10 of the solution's largest entry), one iterative-Schur step and
 one segment-BA step in PCG mode (converged CG; 1e-9 relative, the states
-to 1e-8) and one banded-strategy step (1e-9), with their launches."""
+to 1e-8) and one banded-strategy step (1e-9), with their launches. B4 at
+the long-sequence path's 200,000 rows of each kind takes 1e-10; its batch
+containers compile to the same tensors on the card as on the CPU, and one
+banded estimator iteration on their first 20 s agrees to 1e-9."""
+import copy
+
 import numpy as np
 import pytest
 import torch
@@ -796,3 +801,63 @@ def test_segment_ba_pcg_step_on_cuda_matches_cpu(cuda):
         np.testing.assert_allclose(gpu[i].item(), cpu[i].item(), rtol=1e-9)
     for k, v in cpu[1].items():
         np.testing.assert_allclose(gpu[1][k].cpu().numpy(), v.numpy(), rtol=0, atol=1e-8)
+
+
+@pytest.fixture(scope="module")
+def long_imu(cuda):
+    """The long-sequence path's 1,000 s recording (200,000 gyro and 200,000
+    accel rows in batch containers) compiled on the card and on the CPU."""
+    gen = synthetic.make_long_imu_problem()
+    return (gen, Problem(gen["trajectory"], gen["measurements"], device=cuda),
+            Problem(gen["trajectory"], gen["measurements"], device="cpu"))
+
+
+@pytest.mark.parametrize("cost_only", [False, True], ids=["linearize", "cost-only"])
+@pytest.mark.parametrize("kind", ["gyro", "accel"])
+def test_imu_rows_kernel_at_200k_rows(long_imu, kind, cost_only):
+    """B4 at the long path's 200,000 rows of each kind (float64, 1e-10)."""
+    problem = long_imu[1]
+    spec, rt = kernels.problem_spec(problem), kernels.problem_runtime(problem)
+    (i,) = [i for i, b in enumerate(spec.buckets) if b.kind == kind]
+    cfg, ins, _ = kernels._imu_inputs(spec, spec.buckets[i], rt, problem.state0, rt["data"][i])
+    assert ins["u_so3"].shape[1] == 200_000
+    before = lk.imu_rows.launches
+    got = lk.imu_rows(cfg, ins, cost_only=cost_only)
+    assert lk.imu_rows.launches == before + 1
+    want = lk.imu_rows_plain(cfg, ins, cost_only=cost_only)
+    _assert_close((got,) if cost_only else got, (want,) if cost_only else want, 1e-10)
+
+
+def test_batch_problem_on_cuda_equals_cpu(long_imu):
+    """The containers compile to the same tensors on the card as on the
+    CPU (the native helper's activation, the splice), and one banded
+    estimator iteration on the first 20 s agrees (1e-9)."""
+    gen, gpu, cpu = long_imu
+    assert gpu.device.type == "cuda" and cpu.device.type == "cpu"
+    assert list(gpu.buckets) == list(cpu.buckets) == ["gyro", "accel"]
+    for key, b in gpu.buckets.items():
+        assert b.M == cpu.buckets[key].M == 200_000
+        for k, v in b.data.items():
+            assert v.device.type == "cuda" and torch.equal(v.cpu(), cpu.buckets[key].data[k])
+    for k, v in gpu.state0.items():
+        assert torch.equal(v.cpu(), cpu.state0[k]), k
+    assert torch.equal(gpu.mask.cpu(), cpu.mask)
+    for name in ("num_parameters", "num_parameter_blocks", "num_parameters_reduced",
+                 "num_parameter_blocks_reduced", "num_residuals", "num_residual_blocks",
+                 "num_residuals_reduced", "num_residual_blocks_reduced"):
+        assert getattr(gpu, name) == getattr(cpu, name), name
+    costs = {}
+    for device in (None, "cpu"):
+        # copies: the solve writes back into the trajectory and the IMU
+        traj, batches = copy.deepcopy((gen["trajectory"], gen["measurements"]))
+        if device == "cpu":
+            traj = SplitTrajectory(traj.R3_spline, traj.SO3_spline, device="cpu")
+        est = TrajectoryEstimator(traj, device=device)
+        for m in batches:
+            est.add_measurement(type(m)(m.imu, m.t[m.t < 20.5],
+                                        getattr(m, m._value_field)[m.t < 20.5],
+                                        weight=m.weight[m.t < 20.5]))
+        summary = est.solve(max_iterations=1, progress=False, strategy="banded",
+                            function_tolerance=0.0)
+        costs[device] = [it.cost for it in summary.iterations]
+    np.testing.assert_allclose(costs[None], costs["cpu"], rtol=1e-9)

@@ -26,6 +26,10 @@ def test_import_with_jax_blocked():
         "from kontiki_tpu_torch.ops.linearize_kernels import onehot_expand_rows\n"
         "from kontiki_tpu_torch.ops.linearize_kernels import newton_rows, newton_rows_plain\n"
         "from kontiki_tpu_torch.measurements import NewtonRsCameraMeasurement\n"
+        "from kontiki_tpu_torch import native, sew, io\n"
+        "from kontiki_tpu_torch.measurements import GyroscopeMeasurements, "
+        "AccelerometerMeasurements\n"
+        "assert native.available()\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'kontiki_tpu.')) "
         "for m in sys.modules if sys.modules[m] is not None)\n"
     )
