@@ -190,6 +190,25 @@ Phases, in order; any failure exits non-zero without the final line:
     JAX package's, every step accepted), each with exact B4 launches,
     it/s, the Summary's phase times and the peak device memory.
 
+26. the scale-out layer (``kontiki_tpu_torch.parallel``), after config 5's
+    one-shard phases, each world spawned once by ``parallel.launch.
+    run_spmd`` on ``cuda:0`` (a one-card rehearsal over host-staged gloo,
+    not a scaling figure): config 5 at full size on 4 gloo ranks through
+    ``make_segment_ba_step`` / ``_solver`` with a mesh (``total_cost``, one
+    banded step, one PCG step with CG cut after 5 iterations and config
+    4-Newton's banded step against the one-shard path at 1e-9 with the
+    state at 1e-9; the timed 6-iteration solve, its iterations and final
+    cost against the one-shard solve's; every rank the same bits; per rank
+    the B1/B3/B6/B8 (and B4) launches, peak memory, it/s and one step's
+    stages with the time inside the collectives); SPIKE on 4 ranks on
+    config 5's and the gyro band's damped bands against
+    ``block_tridiag_solve`` (1e-9); a one-rank NCCL world running config
+    5's step (device-side ``all_reduce``, a self ``ppermute``; 1e-12 from
+    the one-shard path); config 4 through ``make_sharded_schur_step`` (B1,
+    B2 a rank) and config 2 through ``make_sharded_step`` (B4 a rank) on 2
+    gloo ranks against the port's one-device steps (1e-9). Each prints its
+    backend and transport; a failing rank fails the script.
+
 The JAX values of phases 19-20 come from ``JAX_PLATFORMS=cpu python3
 tools/atan_lifting_reference.py``, those of phases 21-22 from
 ``JAX_PLATFORMS=cpu python3 tools/newton_reference.py``, those of phases
@@ -1963,7 +1982,7 @@ def config5_camera_rows(problem):
     from kontiki_tpu_torch.parallel.segments_ba import _build_segment_ba
     from kontiki_tpu_torch.solver import kernels
 
-    b = _build_segment_ba(problem, 1, "banded")
+    b = _build_segment_ba(problem, None, "banded")
     rt = b["runtime"]
     cfg, ins, _ = kernels._camera_inputs(b["spec_local"], rt, b["to_sharded"](problem.state0),
                                          rt["data"][0])
@@ -2017,7 +2036,7 @@ def phase_b6(problem):
     from kontiki_tpu_torch.ops import linearize_kernels as lk
     from kontiki_tpu_torch.parallel.segments_ba import _build_segment_ba
 
-    b = _build_segment_ba(problem, 1, "banded")
+    b = _build_segment_ba(problem, None, "banded")
     _, blocks, _ = b["whitened_blocks"](b["to_sharded"](problem.state0))
     (blk,), (layout,) = blocks, b["layouts"]
     WB = b["WB"]
@@ -2143,7 +2162,7 @@ def phase_config5(big):
         "cost_rows": 0, "imu_rows": 0})
 
     # one iteration by part (host clock, synchronize after each, median of 3)
-    b = _build_segment_ba(problem, 1, "banded")
+    b = _build_segment_ba(problem, None, "banded")
     st = b["to_sharded"](s0)
     spec_l, rt = b["spec_local"], b["runtime"]
     cfg, ins, _ = kernels._camera_inputs(spec_l, rt, st, rt["data"][0])
@@ -2870,7 +2889,7 @@ def band_systems(big, band_problem):
     from kontiki_tpu_torch.solver.banded import build_banded_parts
 
     problem = big["problem"]
-    b = _build_segment_ba(problem, 1, "banded")
+    b = _build_segment_ba(problem, None, "banded")
     st = b["to_sharded"](problem.state0)
     _, blocks, ml = b["whitened_blocks"](st)
     ctx = b["eliminate"](b["assemble_band"](blocks), ml, 1e-4, st)
@@ -3103,7 +3122,7 @@ def phase_newton_segment(problem):
               f"{rels[0]:.2e}, {rels[1]:.2e} (tol {NEWTON_SBA_RTOL:.0e})", flush=True)
         if not max(rels) <= NEWTON_SBA_RTOL:
             fail(f"{name}: new cost or pred differs from the {what} step's")
-    b = _build_segment_ba(problem, 1, "banded")
+    b = _build_segment_ba(problem, None, "banded")
     st = b["to_sharded"](s0)
     _, blocks, _ = b["whitened_blocks"](st)
     i = [k.kind for k in b["spec_local"].buckets].index("rs_newton")
@@ -3447,6 +3466,391 @@ def phase_long_imu_solve(gen):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the scale-out layer: process-group meshes on the one card (a rehearsal of
+# the multi-shard paths over host-staged gloo, not a scaling figure)
+# ---------------------------------------------------------------------------
+
+#: ranks of the config-5 rehearsal, of the sharded Schur and dense steps
+SHARDED_RANKS = 4
+SCHUR_RANKS = 2
+#: sharded against one-shard results: costs and the state after one step
+SHARDED_RTOL = 1e-9
+SHARDED_STATE_ATOL = 1e-9
+#: the one-rank NCCL world's cost against the one-shard path's
+NCCL_RTOL = 1e-12
+#: the group's bound on every collective (seconds)
+SPMD_TIMEOUT = 300.0
+
+
+def _timed_collectives(mesh):
+    """Wrap ``mesh``'s ``psum``, ``pmax`` and ``ppermute`` to add their host
+    milliseconds (the card synchronized on either side) to the returned
+    dict; ``allgather`` and ``barrier`` go through ``psum``."""
+    acc = {"ppermute": 0.0, "psum": 0.0, "pmax": 0.0}
+
+    def timed(name, fn):
+        def call(*args):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args)
+            torch.cuda.synchronize()
+            acc[name] += 1e3 * (time.perf_counter() - t0)
+            return out
+        return call
+
+    for name in acc:
+        setattr(mesh, name, timed(name, getattr(mesh, name)))
+    return acc
+
+
+def _stage_ms(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, 1e3 * (time.perf_counter() - t0)
+
+
+def _rank_config5(mesh, arrays):
+    """One rank of the config-5 rehearsal: the problem from the parent's
+    arrays on this rank's card; banded ``total_cost``, one step and the
+    timed 6-iteration solve (after an untimed one; launches counted from 0
+    just before, read just after); one PCG step with CG cut after 5
+    iterations; config 4-Newton's banded step (B8 and B4 on every rank);
+    one banded step's stages timed, with the time inside the collectives."""
+    from kontiki_tpu_torch import interop
+    from kontiki_tpu_torch.parallel.segments_ba import (
+        _build_segment_ba,
+        make_segment_ba_solver,
+        make_segment_ba_step,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = dict(rank=mesh.rank, backend=mesh.backend, transport=mesh.transport,
+               device=str(mesh.device))
+    problem = interop.raw_problem_from_numpy(**arrays, device=mesh.device)
+    s0 = problem.state0
+    step, total_cost = make_segment_ba_step(problem, mesh)
+    out["total_cost0"] = total_cost(s0).item()
+    reset_counts()
+    out["step"] = step(s0, 1e-4)
+    out["step_launches"] = read_counts()
+    out["pcg_cut"] = make_segment_ba_step(problem, mesh, mode="pcg", **CONFIG5_PCG_CUT)[0](
+        s0, 1e-4)
+    solve = make_segment_ba_solver(problem, mesh, max_iterations=CONFIG5_ITERATIONS,
+                                   function_tolerance=0.0)
+    solve(s0)
+    torch.cuda.synchronize()
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state, cost, iters = solve(s0)
+    torch.cuda.synchronize()
+    out["solve"] = dict(state=state, cost=cost.item(), iterations=iters,
+                        seconds=time.perf_counter() - t0, launches=read_counts(),
+                        peak=torch.cuda.max_memory_allocated())
+
+    # config 4-Newton's banded step: Newton rows (B8) and IMU rows (B4)
+    _, newton = newton_problem(CONFIG4_NEWTON)
+    nstep, _ = make_segment_ba_step(newton, mesh)
+    reset_counts()
+    out["newton_step"] = nstep(newton.state0, 1e-4)
+    out["newton_launches"] = read_counts()
+    del newton, nstep
+
+    # one banded step by stage; the collectives' time inside them
+    b = _build_segment_ba(problem, mesh, "banded")
+    st = b["to_sharded"](s0)
+    lam = torch.tensor(1e-4, dtype=problem.dtype, device=problem.device)
+    b["step_local"](st, lam)
+    acc = _timed_collectives(mesh)
+    ms = {}
+    (c, blocks, ml), ms["rows (halo_state, whitened rows, cost psum)"] = _stage_ms(
+        lambda: b["whitened_blocks"](st))
+    asm, ms["assembly (colrel, B6, pair blocks)"] = _stage_ms(lambda: b["assemble_band"](blocks))
+    del blocks
+    ctx, ms["elimination, fold, halo reduce, sensor psums"] = _stage_ms(
+        lambda: b["eliminate"](asm, ml, lam, st))
+    sol, ms["SPIKE band solve"] = _stage_ms(lambda: b["band_solve"](ctx))
+    (xb, xs), ms["sensor solve"] = _stage_ms(lambda: b["sensor_solve"](ctx, sol, lam))
+    (dc, dl, _, _), ms["back-substitution and pred"] = _stage_ms(
+        lambda: b["back_substitute"](ctx, xb, xs, st))
+    new, ms["retract"] = _stage_ms(lambda: b["retract_local"](st, dc, dl))
+    _, ms["re-cost (cost_local)"] = _stage_ms(lambda: b["cost_local"](new))
+    out["stages_ms"] = ms
+    out["collectives_ms"] = dict(acc)
+    return out
+
+
+def phase_sharded_config5(big):
+    """Config 5 at full size on ``SHARDED_RANKS`` gloo ranks on the one card
+    through ``make_segment_ba_step`` / ``_solver`` against the one-shard
+    path of this script (whose values are pinned to the JAX package's):
+    ``total_cost``, one banded step (costs to 1e-9 relative, the state to
+    1e-9), the 6-iteration solve (the same iterations, the final cost
+    within config 5's 1e-4), one PCG step with CG cut after 5 iterations
+    (1e-9), config 4-Newton's banded step (1e-9); every rank the same bits;
+    per rank the B1/B3/B6/B8 launches, peak memory, it/s and one step's
+    stages. Labelled a one-card rehearsal over host-staged gloo."""
+    from kontiki_tpu_torch import interop
+    from kontiki_tpu_torch.parallel.launch import backend_for, run_spmd
+    from kontiki_tpu_torch.parallel.segments_ba import make_segment_ba_solver, make_segment_ba_step
+
+    problem = big["problem"]
+    s0 = problem.state0
+    one = dict(total_cost0=make_segment_ba_step(problem)[1](s0).item(),
+               step=make_segment_ba_step(problem)[0](s0, 1e-4),
+               pcg_cut=make_segment_ba_step(problem, mode="pcg", **CONFIG5_PCG_CUT)[0](s0, 1e-4))
+    one["solve"] = make_segment_ba_solver(problem, max_iterations=CONFIG5_ITERATIONS,
+                                          function_tolerance=0.0)(s0)
+    _, newton = newton_problem(CONFIG4_NEWTON)
+    one["newton_step"] = make_segment_ba_step(newton)[0](newton.state0, 1e-4)
+    del newton
+    arrays = interop.raw_problem_arrays(problem)
+    n = SHARDED_RANKS
+    label = (f"one-card rehearsal, {n} ranks on cuda:0 over {backend_for('cuda:0', n)}, "
+             f"not a scaling figure [{CARD}]")
+    t0 = time.perf_counter()
+    outs = run_spmd(_rank_config5, n, "cuda:0", arrays, timeout=SPMD_TIMEOUT)
+    print(f"sharded config 5: {n} ranks ran in {time.perf_counter() - t0:.1f} s with the "
+          f"spawn and each rank's build ({label})", flush=True)
+
+    def check(what, got, want, rtol):
+        rel = abs(got - want) / abs(want)
+        print(f"sharded config 5: {what} {got!r} (one shard {want!r}, rel {rel:.2e}, tol "
+              f"{rtol:.0e})", flush=True)
+        if not rel <= rtol:
+            fail(f"sharded config 5: {what} differs from the one-shard path's by {rel:.2e}")
+
+    def same_bits(what, get):
+        ref = get(outs[0])
+        for o in outs[1:]:
+            x = get(o)
+            if isinstance(ref, dict):
+                ok = all(torch.equal(x[k], ref[k]) for k in ref)
+            else:
+                ok = all(torch.equal(a, b) if torch.is_tensor(a) else a == b
+                         for a, b in zip(x, ref))
+            if not ok:
+                fail(f"sharded config 5: {what} differs between rank 0 and rank {o['rank']}")
+
+    r0 = outs[0]
+    print(f"sharded config 5: backend {r0['backend']}, transport {r0['transport']}, devices "
+          f"{[o['device'] for o in outs]}", flush=True)
+    check("total_cost at state0", r0["total_cost0"], one["total_cost0"], SHARDED_RTOL)
+    for name in ("step", "pcg_cut", "newton_step"):
+        for i, what in ((0, "cost"), (2, "new cost"), (3, "pred"), (4, "max |g|")):
+            check(f"{name} {what}", r0[name][i].item(), one[name][i].item(), SHARDED_RTOL)
+        err = max((r0[name][1][k].cpu() - v.cpu()).abs().max().item()
+                  for k, v in one[name][1].items() if v.numel())
+        print(f"sharded config 5: {name} state max abs diff {err:.3e} (tol "
+              f"{SHARDED_STATE_ATOL:.0e})", flush=True)
+        if not err <= SHARDED_STATE_ATOL:
+            fail(f"sharded config 5: {name} state differs from the one-shard step's by {err:.3e}")
+        same_bits(f"{name} outputs", lambda o: (*[o[name][i] for i in (0, 2, 3, 4)],))
+        same_bits(f"{name} state", lambda o: o[name][1])
+    sol = r0["solve"]
+    if sol["iterations"] != one["solve"][2]:
+        fail(f"sharded config 5: {sol['iterations']} iterations, one shard {one['solve'][2]}")
+    check(f"{CONFIG5_ITERATIONS}-iteration cost", sol["cost"], one["solve"][1].item(),
+          CONFIG5_FINAL_RTOL)
+    same_bits("solve state", lambda o: o["solve"]["state"])
+    want = {"linearize_rows split": CONFIG5_ITERATIONS + 1,
+            "onehot_expand_rows": CONFIG5_ITERATIONS + 1, "cost_rows": 0}
+    for o in outs:
+        s = o["solve"]
+        counts = {k: v for k, v in s["launches"].items() if v}
+        print(f"sharded config 5 rank {o['rank']}: {s['iterations']} iterations in "
+              f"{s['seconds']:.3f} s = {s['iterations'] / s['seconds']:.3f} it/s, peak device "
+              f"memory {s['peak'] / 2**30:.2f} GiB, solve launches {counts}; step launches "
+              f"{ {k: v for k, v in o['step_launches'].items() if v} }; config 4-Newton step "
+              f"launches { {k: v for k, v in o['newton_launches'].items() if v} } ({label})",
+              flush=True)
+        check_launches(f"sharded config 5 rank {o['rank']} solve", s["launches"], want)
+        check_launches(f"sharded config 5 rank {o['rank']} step", o["step_launches"],
+                       {"linearize_rows split": 1, "cost_rows": 1, "onehot_expand_rows": 1})
+        if not (o["newton_launches"]["newton_rows"] > 0 and o["newton_launches"]["imu_rows"] > 0):
+            fail(f"sharded config 5 rank {o['rank']}: config 4-Newton's step launched no B8/B4")
+        stages = ", ".join(f"{k} {v:.3f}" for k, v in o["stages_ms"].items())
+        coll = ", ".join(f"{k} {v:.3f}" for k, v in o["collectives_ms"].items())
+        print(f"sharded config 5 rank {o['rank']} one banded step by stage (host ms, card "
+              f"synchronized): {stages}; inside them, collectives: {coll} ({label})",
+              flush=True)
+        for name, counts in (("solve", s["launches"]), ("step", o["step_launches"]),
+                             ("newton", o["newton_launches"])):
+            for k, v in counts.items():
+                MAIN_PATH_LAUNCHES[k] = MAIN_PATH_LAUNCHES.get(k, 0) + v
+    return outs
+
+
+def _rank_schur(mesh, names):
+    """Config 4 through ``make_sharded_schur_step`` (B1, B2 a rank) and
+    config 2 through ``make_sharded_step`` (B4 a rank), rebuilt from their
+    seeds on this rank's card; one step each at lam 1e-4, launches counted."""
+    from kontiki_tpu_torch import parallel, synthetic
+    from kontiki_tpu_torch.solver.problem import Problem
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = dict(rank=mesh.rank, backend=mesh.backend, transport=mesh.transport)
+    prob = synthetic.make_rsvi_problem(**CONFIG4)
+    p4 = Problem(prob["trajectory"], prob["measurements"])
+    reset_counts()
+    out["config 4"] = parallel.make_sharded_schur_step(p4, mesh)[0](p4.state0, 1e-4)
+    out["config 4 launches"] = read_counts()
+    cfg = IMU_CONFIGS["config 2"]
+    prob = getattr(synthetic, cfg["make"])(**cfg["kwargs"])
+    p2 = Problem(prob["trajectory"], prob["measurements"])
+    reset_counts()
+    out["config 2"] = parallel.make_sharded_step(p2, mesh)[0](p2.state0, 1e-4)
+    out["config 2 launches"] = read_counts()
+    return out
+
+
+def phase_sharded_schur(problem4, problem2):
+    """Config 4 through the landmark-block-sharded Schur step and config 2
+    through the measurement-sharded dense step on ``SCHUR_RANKS`` gloo ranks
+    on the one card, against the port's one-device steps (1e-9), with
+    B1/B2 and B4 launches on every rank."""
+    from kontiki_tpu_torch.parallel.launch import backend_for, run_spmd
+    from kontiki_tpu_torch.solver import kernels
+    from kontiki_tpu_torch.solver.schur import build_schur_parts
+
+    ref = {}
+    spec, rt = kernels.problem_spec(problem4), kernels.problem_runtime(problem4)
+    parts = build_schur_parts(spec)
+    s0 = problem4.state0
+    cost, *lin = parts["linearize"](rt, s0)
+    delta, pred = parts["solve_from_lin"](rt, s0, *lin, 1e-4)
+    new = parts["retract"](rt, s0, delta)
+    ref["config 4"] = (cost, new, parts["total_cost"](rt, new), pred)
+    spec, rt = kernels.problem_spec(problem2), kernels.problem_runtime(problem2)
+    ref["config 2"] = kernels.build_parts(spec)["step"](rt, problem2.state0, 1e-4)[:4]
+    n = SCHUR_RANKS
+    outs = run_spmd(_rank_schur, n, "cuda:0", list(ref), timeout=SPMD_TIMEOUT)
+    print(f"sharded Schur and dense steps: {n} ranks, backend {outs[0]['backend']}, "
+          f"transport {outs[0]['transport']} (one-card rehearsal over "
+          f"{backend_for('cuda:0', n)}) [{CARD}]", flush=True)
+    for name, want_launch in (("config 4", ("linearize_rows", "assemble_schur_blocks")),
+                              ("config 2", ("imu_rows",))):
+        got = outs[0][name]
+        for i, what in ((0, "cost"), (2, "new cost"), (3, "pred")):
+            g, w = got[i].item(), ref[name][i].item()
+            rel = abs(g - w) / abs(w)
+            print(f"sharded {name}: {what} {g!r} (one device {w!r}, rel {rel:.2e}, tol "
+                  f"{SHARDED_RTOL:.0e})", flush=True)
+            if not rel <= SHARDED_RTOL:
+                fail(f"sharded {name}: {what} differs from the one-device step's by {rel:.2e}")
+        err = max((got[1][k] - v.cpu()).abs().max().item() for k, v in ref[name][1].items()
+                  if v.numel())
+        print(f"sharded {name}: state max abs diff {err:.3e}", flush=True)
+        if not err <= SHARDED_STATE_ATOL:
+            fail(f"sharded {name}: state differs from the one-device step's by {err:.3e}")
+        for o in outs:
+            launches = o[f"{name} launches"]
+            print(f"sharded {name} rank {o['rank']}: launches "
+                  f"{ {k: v for k, v in launches.items() if v} }", flush=True)
+            if not all(launches[k] > 0 for k in want_launch):
+                fail(f"sharded {name} rank {o['rank']}: {want_launch} not all launched")
+            if not all(torch.equal(o[name][1][k], got[1][k]) for k in got[1]):
+                fail(f"sharded {name}: rank {o['rank']}'s state differs from rank 0's")
+            for k, v in launches.items():
+                MAIN_PATH_LAUNCHES[k] = MAIN_PATH_LAUNCHES.get(k, 0) + v
+
+
+def _rank_spike(mesh, systems):
+    """SPIKE on this rank's super-blocks of each system; its time."""
+    from kontiki_tpu_torch.solver.banded import spike_block_tridiag_solve
+
+    out = dict(transport=mesh.transport)
+    for name, (D, U, rhs) in systems.items():
+        sb = D.shape[0] // mesh.size
+        part = [a[mesh.rank * sb:(mesh.rank + 1) * sb].to(mesh.device) for a in (D, U, rhs)]
+        spike_block_tridiag_solve(*part, mesh)
+        out[name] = _stage_ms(lambda: spike_block_tridiag_solve(*part, mesh))
+    return out
+
+
+def phase_spike(systems):
+    """SPIKE (``solver.banded.spike_block_tridiag_solve``) on
+    ``SHARDED_RANKS`` gloo ranks on config 5's damped band (``band_systems``;
+    its blocks padded to a multiple of the ranks with identity blocks)
+    against ``block_tridiag_solve`` on one device (rtol 1e-9), with its
+    time per rank."""
+    from kontiki_tpu_torch.parallel.launch import run_spmd
+    from kontiki_tpu_torch.solver.banded import block_tridiag_solve
+
+    n = SHARDED_RANKS
+    ref, inputs = {}, {}
+    for name, (D, U, rhs) in systems.items():
+        nb, d, _ = D.shape
+        pad = (-nb) % n + (n if (nb + (-nb) % n) // n < 2 else 0)
+        eye = torch.eye(d, dtype=D.dtype, device=D.device).expand(pad, d, d)
+        U = U.clone()
+        U[-1] = 0.0
+        D = torch.cat([D, eye])
+        U = torch.cat([U, torch.zeros_like(eye)])
+        rhs = torch.cat([rhs, torch.zeros(pad, d, rhs.shape[-1], dtype=rhs.dtype,
+                                          device=rhs.device)])
+        ref[name] = block_tridiag_solve(D, U, rhs).cpu()
+        inputs[name] = (D.cpu(), U.cpu(), rhs.cpu())
+    outs = run_spmd(_rank_spike, n, "cuda:0", inputs, timeout=SPMD_TIMEOUT)
+    for name in systems:
+        x = torch.cat([o[name][0] for o in outs])
+        err = ((x - ref[name]).abs().max() / ref[name].abs().max()).item()
+        ms = [round(o[name][1], 3) for o in outs]
+        print(f"SPIKE on {n} gloo ranks, {name} ({tuple(inputs[name][0].shape)} blocks, "
+              f"{inputs[name][2].shape[-1]} right-hand sides): rel err {err:.2e} against "
+              f"block_tridiag_solve (tol 1e-9); ms per rank {ms} (one-card rehearsal, "
+              f"{outs[0]['transport']}) [{CARD}]", flush=True)
+        if not err <= 1e-9:
+            fail(f"SPIKE on {name}: rel error {err:.2e} against block_tridiag_solve")
+
+
+def _rank_nccl(mesh, arrays):
+    """The one-rank NCCL world: config 5's segment-BA banded step through
+    the same code (device-side ``all_reduce``), and a self ``ppermute``."""
+    from kontiki_tpu_torch import interop
+    from kontiki_tpu_torch.parallel.segments_ba import make_segment_ba_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    problem = interop.raw_problem_from_numpy(**arrays, device=mesh.device)
+    step, total_cost = make_segment_ba_step(problem, mesh)
+    x = torch.arange(5.0, dtype=torch.float64, device=mesh.device)
+    return dict(backend=mesh.backend, transport=mesh.transport,
+                total_cost0=total_cost(problem.state0).item(),
+                step=step(problem.state0, 1e-4), self_copy=mesh.ppermute(x, [(0, 0)]),
+                psum=mesh.psum(x), on_card=x.is_cuda)
+
+
+def phase_sharded_nccl(big):
+    """A one-rank NCCL world runs config 5's segment-BA step: its costs
+    against the one-shard path's (1e-12), the self ``ppermute`` a copy."""
+    from kontiki_tpu_torch import interop
+    from kontiki_tpu_torch.parallel.launch import run_spmd
+    from kontiki_tpu_torch.parallel.segments_ba import make_segment_ba_step
+
+    problem = big["problem"]
+    step, total_cost = make_segment_ba_step(problem)
+    want = step(problem.state0, 1e-4)
+    want_total = total_cost(problem.state0).item()
+    (o,) = run_spmd(_rank_nccl, 1, "cuda:0", interop.raw_problem_arrays(problem),
+                    timeout=SPMD_TIMEOUT)
+    x = torch.arange(5.0, dtype=torch.float64)
+    print(f"one-rank world: backend {o['backend']}, transport {o['transport']}; self "
+          f"ppermute {o['self_copy'].tolist()}, psum {o['psum'].tolist()}", flush=True)
+    if o["backend"] != "nccl" or not (torch.equal(o["self_copy"], x) and torch.equal(o["psum"], x)):
+        fail("one-rank NCCL world: wrong backend, or its self ppermute or psum is not a copy")
+    for what, got, w in (("total_cost", o["total_cost0"], want_total),
+                         ("step cost", o["step"][0].item(), want[0].item()),
+                         ("step new cost", o["step"][2].item(), want[2].item())):
+        rel = abs(got - w) / abs(w)
+        print(f"one-rank NCCL world, config 5: {what} {got!r} (one shard {w!r}, rel {rel:.2e}, "
+              f"tol {NCCL_RTOL:.0e})", flush=True)
+        if not rel <= NCCL_RTOL:
+            fail(f"one-rank NCCL world: {what} differs from the one-shard path's by {rel:.2e}")
+
+
 def main():
     phase_device()
     phase_build()
@@ -3503,9 +3907,14 @@ def main():
     phase_config5_pcg(big5)
     band = gyro_band_problem()
     phase_gyro_band(band)
-    phase_band_solve(band_systems(big5, band))
+    systems = band_systems(big5, band)
+    phase_band_solve(systems)
     phase_config5_methods(big5)
-    del big5, band
+    phase_sharded_config5(big5)
+    phase_spike(systems)
+    phase_sharded_nccl(big5)
+    phase_sharded_schur(problem4, imu["config 2"])
+    del big5, band, systems
     long_imu = long_imu_problem()
     long_problem = phase_long_imu_build(long_imu)
     phase_native(long_imu, long_problem)

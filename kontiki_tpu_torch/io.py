@@ -13,9 +13,10 @@ move between the three:
 ``h5py`` is imported here only, and the package's ``__init__`` does not
 import this module. Loaded trajectories and solver states go to the device
 the caller names, the CUDA card by default (``config.resolve_device``):
-trajectories take it for their queries, states as the tensors' device. A
-multi-host gather of sharded state comes with the sharded paths (ROADMAP.md
-Queue A 5); every state here is whole on one device.
+trajectories take it for their queries, states as the tensors' device.
+The sharded solvers (``parallel``) return the global state, the same on
+every rank; ``save_solver_state(..., mesh=...)`` writes it once, from rank
+0, behind a barrier (the JAX package gathers its sharded arrays there).
 """
 from contextlib import contextmanager
 
@@ -182,21 +183,26 @@ def load_atan_camera(path):
 # ---------------------------------------------------------------------------
 
 def save_solver_state(location, state, *, trust_region_radius=None, iteration=0,
-                      group_name="solver_state"):
+                      group_name="solver_state", mesh=None):
     """Checkpoint a solver state (a dict of tensors on any device: knots,
     sensor parameters, inverse depths, row times) and the LM trust-region
     state to HDF5. Resuming is ``solve(problem,
     initial_trust_region_radius=tr, ...)`` after writing the loaded state
-    back into the problem's objects."""
-    with _create_h5_group(location, group_name) as group:
-        for key, value in state.items():
-            group[key] = (value.detach().cpu().numpy() if torch.is_tensor(value)
-                          else np.asarray(value))
-        group.attrs["keys"] = ",".join(state.keys())
-        group.attrs["iteration"] = int(iteration)
-        group.attrs["format_version"] = 1
-        if trust_region_radius is not None:
-            group.attrs["trust_region_radius"] = float(trust_region_radius)
+    back into the problem's objects. Under a multi-rank ``mesh``
+    (``parallel.mesh.Mesh``) ``state`` is the global state every rank holds:
+    rank 0 writes it, and every rank returns once it is written."""
+    if mesh is None or mesh.axis_index() == 0:
+        with _create_h5_group(location, group_name) as group:
+            for key, value in state.items():
+                group[key] = (value.detach().cpu().numpy() if torch.is_tensor(value)
+                              else np.asarray(value))
+            group.attrs["keys"] = ",".join(state.keys())
+            group.attrs["iteration"] = int(iteration)
+            group.attrs["format_version"] = 1
+            if trust_region_radius is not None:
+                group.attrs["trust_region_radius"] = float(trust_region_radius)
+    if mesh is not None:
+        mesh.barrier()
 
 
 def load_solver_state(location, group_name="solver_state", device=None,

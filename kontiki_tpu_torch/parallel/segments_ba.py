@@ -1,5 +1,5 @@
-"""Knot-segment x landmark-block bundle adjustment on one device, banded
-direct solve or matrix-free PCG (counterpart of
+"""Knot-segment x landmark-block bundle adjustment on a process-group
+mesh, banded direct solve or matrix-free PCG (counterpart of
 ``kontiki_tpu.parallel.segments_ba``; BASELINE config 5).
 
 The layout (``segment_ba_layout``, host numpy, any number of shards) cuts
@@ -25,9 +25,9 @@ One LM iteration of the banded mode (``mode="banded"``):
    and the landmark-slot blocks ``Ea``, ``Da``, ``gla``; lock masks apply
    after assembly (``assemble_band``);
 3. solve: damping from the pair blocks' diagonals, landmark elimination in
-   slot space, the block-tridiagonal solve
-   (``solver.banded.block_tridiag_solve``) with the sensor border as extra
-   right-hand sides, the 13 x 13-per-sensor Schur solve, landmark
+   slot space, the block-tridiagonal solve (``solver.banded.
+   block_tridiag_solve``; SPIKE on several shards) with the sensor border
+   as extra right-hand sides, the 13 x 13-per-sensor Schur solve, landmark
    back-substitution, and the predicted decrease from the same blocks;
 4. retract and re-linearize the candidate: its cost is the re-cost
    (``make_segment_ba_solver`` runs ``lm.trust_region_loop_spec`` on the
@@ -41,11 +41,22 @@ compressed rows (``solve_pcg``; a lifting row's ``vt`` is a column past the
 sensor border, preconditioned by its diagonal and clipped to [0, 1]), and
 re-costs the candidate in ``lm.trust_region_loop``.
 
-Only one shard is ported: there the halos are empty (``Hl = Hr = 0``), the
-knot and landmark arrays are the whole problem padded to ``seg`` knots, and
-the JAX package's permutes and reductions over the mesh are identities.
-``n_shards > 1`` (torch.distributed, ROADMAP.md Queue A 5) raises
-``NotImplementedError``. Lifting buckets raise ``ValueError`` in banded
+Each shard is one rank of a ``parallel.mesh.Mesh``: it stores its
+``seg`` knots of each spline, its ``Lb`` landmark slots and its lifting
+rows' ``vt`` slots, and holds the rows it owns. Windows that cross the
+segment read two-sided knot halos (``Hl`` knots from the left neighbour,
+``Hr`` from the right: one ``ppermute`` a side for all splines), and the
+halo columns' sums go back to their owners (``reduce_halo``: knot
+gradients, diagonals and preconditioner blocks in PCG mode, the pair
+blocks folded per anchor in banded mode). The sensor border, the costs,
+the predicted decrease and the CG dots are ``psum``s, max |gradient| a
+``pmax``; the band is solved by SPIKE across the shards
+(``solver.banded.spike_block_tridiag_solve``); ``to_global`` gathers the
+segments, so every rank returns the same global state. The trust-region
+loop runs on every rank and reads the same reduced scalars. ``mesh=None``
+is the one-shard mesh: the halos are empty (``Hl = Hr = 0``), the knot and
+landmark arrays are the whole problem padded to ``seg`` knots, and every
+collective is an identity. Lifting buckets raise ``ValueError`` in banded
 mode, as the JAX package's do: their per-row ``vt`` columns ride the PCG
 mode.
 """
@@ -57,7 +68,7 @@ import torch
 from ..math import quaternion as quat
 from ..math import se3 as se3m
 from ..ops.linearize_kernels import onehot_expand_rows
-from ..solver.banded import block_tridiag_solve
+from ..solver.banded import block_tridiag_solve, spike_block_tridiag_solve
 from ..solver.iterative import (
     Columns,
     _bucket_layout,
@@ -79,6 +90,7 @@ from ..solver.kernels import (
 )
 from ..solver.lm import trust_region_loop, trust_region_loop_spec
 from ..solver.problem import SENSOR_TANGENT_DIM, TANGENT_DIMS, as_tensor
+from .mesh import Mesh
 
 __all__ = ["make_segment_ba_step", "make_segment_ba_solver", "segment_ba_layout"]
 
@@ -410,82 +422,166 @@ def segment_ba_layout(problem, n_shards):
     return spec, spec_local, runtime, lay
 
 
-def _check_supported(problem, n_shards, mode):
+def _check_supported(problem, mode):
     if mode not in ("banded", "pcg"):
         raise ValueError(f"segment BA mode must be 'banded' or 'pcg', got {mode!r}")
-    if n_shards != 1:
-        raise NotImplementedError(
-            f"segment BA on {n_shards} shards (torch.distributed, the SPIKE band "
-            f"solve) is not ported: ROADMAP.md Queue A 5")
     if mode == "banded" and any(k.split(":")[0] == "rs_lifting" for k in problem.buckets):
         raise ValueError(
             "rs_lifting buckets ride the segment-BA PCG mode (per-row vt "
             "columns are not banded); use mode='pcg'")
 
 
-def _build_segment_ba(problem, n_shards, mode, cg_tol=1e-10, cg_maxiter=500):
-    """The single-shard step's parts, banded or PCG (see the module
-    docstring)."""
-    _check_supported(problem, n_shards, mode)
+def _as_mesh(mesh, n_shards, device):
+    """The mesh of the entry points: ``mesh`` as given, or with ``mesh=None``
+    the one-shard mesh (``n_shards`` None or 1, the callers from before the
+    mesh argument)."""
+    if mesh is None:
+        if n_shards not in (None, 1):
+            raise ValueError(
+                f"segment BA on {n_shards} shards runs on a mesh of {n_shards} ranks: pass "
+                "mesh= (parallel.launch.run_spmd, parallel.distributed.global_mesh)")
+        return Mesh(device=device)
+    if n_shards not in (None, mesh.size):
+        raise ValueError(f"n_shards={n_shards} on a mesh of {mesh.size} ranks")
+    return mesh
+
+
+def _build_segment_ba(problem, mesh, mode, cg_tol=1e-10, cg_maxiter=500):
+    """This rank's parts of the step, banded or PCG (see the module
+    docstring); ``mesh`` is a ``parallel.mesh.Mesh`` or None (one shard)."""
+    _check_supported(problem, mode)
+    mesh = _as_mesh(mesh, None, problem.device)
+    n, s = mesh.size, mesh.axis_index()
     dev = problem.device
-    spec, spec_local, runtime, lay = segment_ba_layout(problem, n_shards)
-    assert lay["Hl"] == lay["Hr"] == 0  # one shard: no halos
+    spec, spec_local, runtime, lay = segment_ba_layout(problem, n)
+    # this rank's rows: the layout orders every bucket by owning shard
+    spec_local = spec_local._replace(
+        buckets=tuple(b._replace(M=b.M // n) for b in spec_local.buckets))
     layouts = [_bucket_layout(spec_local, b) for b in spec_local.buckets]
     dtype = problem.mask.dtype
     opts = dict(dtype=dtype, device=dev)
-    seg, Lb, Pk_loc, ns = lay["seg"], lay["Lb"], lay["Pk_loc"], lay["ns"]
+    seg, Hl, Hr, nloc = lay["seg"], lay["Hl"], lay["Hr"], lay["nloc"]
+    Lb, Pk_loc, ns = lay["Lb"], lay["Pk_loc"], lay["ns"]
     # the lifting rows' vt slots: local columns past the sensor border
     nvt = lay["Vb"] if lay["V"] else 0
     tds = [TANGENT_DIMS[sp.kind] for sp in spec.splines]
     S = len(problem.sensors)
-    # owned-vector layout: per-spline [seg * td] slices (= the local layout)
+    # owned-vector layout: per-spline [seg * td] slices; local: [nloc * td]
     own_off = np.concatenate([[0], np.cumsum([seg * td for td in tds])]).astype(np.int64)
+    loc_off = np.concatenate([[0], np.cumsum([nloc * td for td in tds])]).astype(np.int64)
+    Pown = int(own_off[-1])
 
+    # local knot i is global knot s * seg - Hl + i: the spline origins shift,
+    # and window bases clamp at the real spline's knot count in local ids. A
+    # shard past the real spline end holds pad rows only (valid 0, zero
+    # Jacobians); the bound W_max keeps their bases at 0 or above, where the
+    # JAX package's bases go negative and its scatters wrap them (a shard
+    # with rows has more than Hl + W local knots, so W_max changes nothing
+    # there).
+    shift = s * seg - Hl
+    W_max = lay["W_max"]
     rt = {
         "mask": runtime["mask"].to(dev),
         "d_max": runtime["d_max"].to(dev),
-        # window bases clamp at the real spline's knot count, not at the
-        # padded local arrays' end
-        "spline_t0": list(runtime["spline_t0"]),
+        "spline_t0": [t0 + shift * dt for t0, dt in zip(runtime["spline_t0"],
+                                                         runtime["spline_dt"])],
         "spline_dt": list(runtime["spline_dt"]),
-        "spline_n_eval": [sp.n for sp in spec.splines],
-        "data": [{k: v.to(dev) for k, v in d.items()} for d in runtime["data"]],
+        "spline_n_eval": [max(sp.n - shift, W_max) for sp in spec.splines],
+        "data": [{k: v[s * b.M:(s + 1) * b.M].to(dev) for k, v in d.items()}
+                 for b, d in zip(spec_local.buckets, runtime["data"])],
     }
-    mask_own = torch.cat([torch.as_tensor(km[:seg].reshape(-1)) for km in lay["kmask"]]).to(**opts)
-    mask_l = torch.as_tensor(lay["mask_l"][:Lb]).to(**opts)
+
+    # ---- halos: the knots next to the segment on either side --------------
+    # to_right: shard i sends to i + 1 (this shard's left halo comes from
+    # s - 1); to_left: shard i sends to i - 1. Both cyclic, as in the JAX
+    # package: the wrapped halos are fetched and never read.
+    to_left = [(i, (i - 1) % n) for i in range(n)]
+    to_right = [(i, (i + 1) % n) for i in range(n)]
+
+    def fill_halo(arrs, hl, hr):
+        """Owned ``[core, ...]`` arrays -> ``[hl + core + hr, ...]`` with the
+        neighbours' edge rows (JAX ``_halo_fill`` / ``_halo_state``): one
+        ``ppermute`` a side for all of them."""
+        if not (hl or hr):
+            return list(arrs)
+        lefts = (mesh.ppermute([a[a.shape[0] - hl:] for a in arrs], to_right) if hl
+                 else [a[:0] for a in arrs])
+        rights = mesh.ppermute([a[:hr] for a in arrs], to_left) if hr else [a[:0] for a in arrs]
+        return [torch.cat([lf, a, rg]) for lf, a, rg in zip(lefts, arrs, rights)]
+
+    def reduce_halo(arrs, hl, hr):
+        """Local ``[hl + core + hr, ...]`` sums -> owned ``[core, ...]``, the
+        halo rows' sums returned to their owners and added (JAX
+        ``_halo_reduce`` / ``_halo_reduce_blocks`` /
+        ``_halo_reduce_anchors``)."""
+        cores = [a[hl:a.shape[0] - hr].clone() for a in arrs]
+        if hl:
+            for c, f in zip(cores, mesh.ppermute([a[:hl] for a in arrs], to_left)):
+                c[c.shape[0] - hl:] += f
+        if hr:
+            for c, f in zip(cores, mesh.ppermute([a[a.shape[0] - hr:] for a in arrs],
+                                                 to_right)):
+                c[:hr] += f
+        return cores
+
+    def knot_parts(x, off, rows):
+        return [x[off[si]:off[si + 1]].reshape(rows, td) for si, td in enumerate(tds)]
+
+    def halo_fill(x_own):
+        """[Pown] owned knot tangents -> [Pk_loc], both halos filled."""
+        return torch.cat([p.reshape(-1) for p in fill_halo(knot_parts(x_own, own_off, seg),
+                                                           Hl, Hr)])
+
+    def halo_state(state):
+        """This rank's state with its knot arrays extended by both halos."""
+        out = dict(state)
+        for sp, arr in zip(spec.splines, fill_halo([state[sp.kind] for sp in spec.splines],
+                                                   Hl, Hr)):
+            out[sp.kind] = arr
+        return out
+
+    def own_slice(a, rows):
+        return torch.as_tensor(a[s * rows:(s + 1) * rows]).to(**opts)
+
+    mask_own = torch.cat([own_slice(km, seg).reshape(-1) for km in lay["kmask"]])
+    mask_l = own_slice(lay["mask_l"], Lb)
     mask_sen = torch.as_tensor(lay["mask_sen"]).to(**opts)
-    mask_v = torch.as_tensor(lay["mask_v"][:nvt]).to(**opts)
-    # the PCG mode's columns: owned knots, sensors, then vt slots
-    mask_cat = torch.cat([mask_own, mask_sen, mask_v])
+    mask_v = own_slice(lay["mask_v"], nvt)
+    mask_loc = halo_fill(mask_own)
+    # the PCG mode's local columns: knots with halos, sensors, vt slots; its
+    # vectors: owned knots, sensors, vt slots
+    mask_cat = torch.cat([mask_loc, mask_sen, mask_v])
+    mask_own_cat = torch.cat([mask_own, mask_sen, mask_v])
     d_max = problem.d_max.to(**opts)
 
     # sensor columns move to [Pk_loc, Pk_loc + ns) of the local layout, a
     # lifting row's vt column (vt_offset + its slot) to Pk_loc + ns + slot
     col_shift = []
     for layout in layouts:
-        shift = np.zeros(layout.C, np.int64)
+        shift_c = np.zeros(layout.C, np.int64)
         if layout.sensor_off >= 0:
-            shift[layout.sensor_off: layout.sensor_off + SENSOR_TANGENT_DIM] = (
+            shift_c[layout.sensor_off: layout.sensor_off + SENSOR_TANGENT_DIM] = (
                 Pk_loc - spec_local.sensor_offset)
             vt_pos = layout.sensor_off + SENSOR_TANGENT_DIM
-            shift[vt_pos:] = Pk_loc + ns - spec_local.vt_offset
-        col_shift.append(torch.as_tensor(shift, device=dev))
+            shift_c[vt_pos:] = Pk_loc + ns - spec_local.vt_offset
+        col_shift.append(torch.as_tensor(shift_c, device=dev))
 
     def whitened_blocks(state, col_mask=False):
         """(cost, blocks, mask_l): each bucket's robust-whitened compressed
         rows ``Jw``, ``rw``, columns in the local layout, anchors and (camera
-        rows) the landmark column, slot and slot-in-anchor. The banded mode
-        applies the lock masks after assembly, in pair-block space; with
-        ``col_mask`` (the PCG mode, whose matvecs read ``Jw``) each row's
-        columns are masked."""
+        rows) the landmark column, slot and slot-in-anchor; the cost summed
+        over the shards. The banded mode applies the lock masks after
+        assembly, in pair-block space; with ``col_mask`` (the PCG mode,
+        whose matvecs read ``Jw``) each row's columns are masked."""
+        st = halo_state(state)
         cost = torch.zeros((), **opts)
         blocks = []
-        for bspec, data, shift in zip(spec_local.buckets, rt["data"], col_shift):
-            r, J, cols, J_rho = bucket_terms(spec_local, bspec, rt, state, data)
+        for bspec, data, sh in zip(spec_local.buckets, rt["data"], col_shift):
+            r, J, cols, J_rho = bucket_terms(spec_local, bspec, rt, st, data)
             c, rho_p = _bucket_cost(bspec, data, r)
             cost = cost + c
             sq = torch.sqrt(rho_p)
-            cols = cols + shift[None, :]
+            cols = cols + sh[None, :]
             Jw = J * sq[:, None, None]
             if col_mask:
                 Jw = Jw * mask_cat[cols][:, None, :]
@@ -495,37 +591,41 @@ def _build_segment_ba(problem, n_shards, mode, cg_tol=1e-10, cg_maxiter=500):
                 blk["lid"] = data["lid"]
                 blk["lrel"] = data["lrel"]
             blocks.append(blk)
-        return cost, blocks, mask_l
+        return mesh.psum(cost), blocks, mask_l
 
     # ---- banded reduced system ---------------------------------------------
     G, sbG, nbloc, LaMax = lay["G"], lay["sbG"], lay["nbloc"], lay["LaMax"]
+    hl_b, hr_b = lay["hl_b"], lay["hr_b"]
     BD = sum(tds)
     GBD = G * BD
     WB = 2 * GBD + ns
     sub_off = np.concatenate([[0], np.cumsum(tds)[:-1]]).astype(np.int64)
 
-    # permutations between the per-spline-contiguous ("ps") and the
-    # knot-interleaved banded layouts of the owned knot tangents
-    ps_of_band = np.zeros(seg * BD, dtype=np.int64)
-    for si, td in enumerate(tds):
-        k, j = np.meshgrid(np.arange(seg), np.arange(td), indexing="ij")
-        ps_of_band[(k * BD + sub_off[si] + j).ravel()] = (own_off[si] + k * td + j).ravel()
-    band_of_ps = np.zeros_like(ps_of_band)
-    band_of_ps[ps_of_band] = np.arange(len(ps_of_band))
-    ps_of_band = torch.as_tensor(ps_of_band, device=dev)
-    band_of_ps = torch.as_tensor(band_of_ps, device=dev)
+    def band_perms(n_knots, offsets):
+        """Permutations between the per-spline-contiguous ("ps") and the
+        knot-interleaved banded layouts of ``n_knots`` knots."""
+        ps_of_band = np.zeros(n_knots * BD, dtype=np.int64)
+        for si, td in enumerate(tds):
+            k, j = np.meshgrid(np.arange(n_knots), np.arange(td), indexing="ij")
+            ps_of_band[(k * BD + sub_off[si] + j).ravel()] = (offsets[si] + k * td + j).ravel()
+        band_of_ps = np.zeros_like(ps_of_band)
+        band_of_ps[ps_of_band] = np.arange(len(ps_of_band))
+        return torch.as_tensor(ps_of_band, device=dev), torch.as_tensor(band_of_ps, device=dev)
 
-    tables = [dict(perm=torch.as_tensor(t["perm"][0], device=dev),
-                   pmask=torch.as_tensor(t["pmask"][0]).to(**opts).reshape(nbloc, t["Ma"]),
+    ps_of_band, band_of_ps = band_perms(seg, own_off)
+    ps_of_band_loc, _ = band_perms(nloc, loc_off)
+
+    tables = [dict(perm=torch.as_tensor(t["perm"][s], device=dev),
+                   pmask=torch.as_tensor(t["pmask"][s]).to(**opts).reshape(nbloc, t["Ma"]),
                    Ma=t["Ma"]) for t in lay["banded_tables"]]
-    lid_slot = torch.as_tensor(lay["lid_of_slot"][0], device=dev)
-    smask = torch.as_tensor(lay["smask"][0]).to(**opts)
+    lid_slot = torch.as_tensor(lay["lid_of_slot"][s], device=dev)
+    smask = torch.as_tensor(lay["smask"][s]).to(**opts)
     smask_a = smask.reshape(nbloc, LaMax)
     slots = torch.arange(LaMax, device=dev)
 
     # lock mask of each anchor's pair window: H = M J^T J M, g = M J^T r,
     # E = E M, applied to the assembled blocks instead of to every row
-    mb = mask_own[ps_of_band].reshape(nbloc, GBD)
+    mb = mask_loc[ps_of_band_loc].reshape(nbloc, GBD)
     mask_w = torch.cat([mb, torch.cat([mb[1:], torch.zeros(1, GBD, **opts)]),
                         mask_sen[None, :].expand(nbloc, ns)], dim=1)
 
@@ -537,7 +637,7 @@ def _build_segment_ba(problem, n_shards, mode, cg_tol=1e-10, cg_maxiter=500):
         M = cols.shape[0]
         parts = []
         for off, si, W, td in layout.windows:
-            k0 = (cols[:, off] - int(own_off[si])) // td
+            k0 = (cols[:, off] - int(loc_off[si])) // td
             w = torch.arange(W, device=dev)
             j = torch.arange(td, device=dev)
             b = (k0[:, None, None] + w[None, :, None]) * BD + int(sub_off[si]) + j[None, None, :]
@@ -553,9 +653,10 @@ def _build_segment_ba(problem, n_shards, mode, cg_tol=1e-10, cg_maxiter=500):
         return onehot_expand_rows(blk["Jw"].contiguous(), colrel(blk, layout), WB)
 
     def assemble_band(blocks):
-        """Lock-masked pair-block assembly ``{Pa, ga, Ea, Da, gla}``; it
-        depends only on the linearization, so the speculative loop carries
-        it and re-solves it with a new damping on a rejected step."""
+        """Lock-masked pair-block assembly ``{Pa, ga, Ea, Da, gla}`` over this
+        rank's anchors (halo blocks included); it depends only on the
+        linearization, so the speculative loop carries it and re-solves it
+        with a new damping on a rejected step."""
         Pa = torch.zeros(nbloc, WB, WB, **opts)
         ga = torch.zeros(nbloc, WB, **opts)
         Ea = torch.zeros(nbloc, LaMax, WB, **opts)
@@ -581,24 +682,21 @@ def _build_segment_ba(problem, n_shards, mode, cg_tol=1e-10, cg_maxiter=500):
         Pa = Pa * mask_w[:, :, None] * mask_w[:, None, :]
         return dict(Pa=Pa, ga=ga * mask_w, Ea=Ea * mask_w[:, None, :], Da=Da, gla=gla)
 
-    def fold(blocks_a):
-        """[nbloc, ..., WB-part] pair quantities -> per-superblock sums: the
-        anchor's first half plus the previous anchor's second half."""
-        out = blocks_a[0].clone()
-        out[1:] += blocks_a[1][:-1]
+    def fold(a, b):
+        """Pair quantities -> per-block sums: the anchor's first half plus
+        the previous anchor's second half."""
+        out = a.clone()
+        out[1:] += b[:-1]
         return out
 
     def eliminate(asm, mask_l, lam, state):
         """Damping diagonals from the pair blocks (pre-elimination, as the
-        exact-Schur path damps), landmark elimination in slot space, and the
-        fold into the band ``(Dd, U)``, the sensor border and the right-hand
-        sides. Returns the context of the later stages."""
+        exact-Schur path damps), landmark elimination in slot space, the
+        fold into per-block band, border and gradient parts, their halo
+        blocks returned to the owners, the sensor sums over the shards.
+        Returns the context of the later stages."""
         Pa, ga, Ea, Da, gla = (asm[k] for k in ("Pa", "ga", "Ea", "Da", "gla"))
         diagPa = torch.diagonal(Pa, dim1=1, dim2=2)
-        diag_band = fold((diagPa[:, :GBD], diagPa[:, GBD:2 * GBD])).reshape(-1)
-        diag_sen = diagPa[:, 2 * GBD:].sum(0)
-        g_band_raw = fold((ga[:, :GBD], ga[:, GBD:2 * GBD])).reshape(-1)
-        g_sen_raw = ga[:, 2 * GBD:].sum(0)
 
         # bound active set: freeze rho = 0 slots with an outward gradient
         rho_slots = state["rho"][lid_slot].reshape(nbloc, LaMax)
@@ -610,35 +708,43 @@ def _build_segment_ba(problem, n_shards, mode, cg_tol=1e-10, cg_maxiter=500):
         Pe = Pa - torch.einsum("alw,alv->awv", Ew, Ea)
         ge = ga - torch.einsum("alw,al->aw", Ew, gla)
 
-        Dband = fold((Pe[:, :GBD, :GBD], Pe[:, GBD:2 * GBD, GBD:2 * GBD]))
-        Uband = Pe[:, :GBD, GBD:2 * GBD]
-        Bown = fold((Pe[:, 2 * GBD:, :GBD], Pe[:, 2 * GBD:, GBD:2 * GBD]))  # [sbG, ns, GBD]
-        gband = fold((ge[:, :GBD], ge[:, GBD:2 * GBD])).reshape(-1)
+        k1, k2 = slice(0, GBD), slice(GBD, 2 * GBD)
+        sen = slice(2 * GBD, None)
+        diag_b, graw_b, Dband, Uband, Bown, gband = reduce_halo([
+            fold(diagPa[:, k1], diagPa[:, k2]), fold(ga[:, k1], ga[:, k2]),
+            fold(Pe[:, k1, k1], Pe[:, k2, k2]), Pe[:, k1, k2],
+            fold(Pe[:, sen, k1], Pe[:, sen, k2]),  # [sbG, ns, GBD]
+            fold(ge[:, k1], ge[:, k2])], hl_b, hr_b)
+        diag_sen, g_sen_raw, Csen, gsen = mesh.psum([
+            diagPa[:, sen].sum(0), ga[:, sen].sum(0), Pe[:, sen, sen].sum(0), ge[:, sen].sum(0)])
         mask_band = mask_own[ps_of_band]
-        damp = lam * torch.clamp(diag_band, 1e-6, 1e32) + (1.0 - mask_band)
+        damp = lam * torch.clamp(diag_b.reshape(-1), 1e-6, 1e32) + (1.0 - mask_band)
         Dd = Dband + torch.diag_embed(damp.reshape(sbG, GBD))
         Bloc = Bown.permute(1, 0, 2).reshape(ns, sbG * GBD)
-        rhs = torch.cat([-gband[:, None], Bloc.T], dim=1).reshape(sbG, GBD, 1 + ns)
-        return dict(Dd=Dd, Uband=Uband, rhs=rhs, Bloc=Bloc,
-                    Csen=Pe[:, 2 * GBD:, 2 * GBD:].sum(0), gsen=ge[:, 2 * GBD:].sum(0),
-                    diag_sen=diag_sen, g_band_raw=g_band_raw, g_sen_raw=g_sen_raw,
+        rhs = torch.cat([-gband.reshape(-1, 1), Bloc.T], dim=1).reshape(sbG, GBD, 1 + ns)
+        return dict(Dd=Dd, Uband=Uband, rhs=rhs, Bloc=Bloc, Csen=Csen, gsen=gsen,
+                    diag_sen=diag_sen, g_band_raw=graw_b.reshape(-1), g_sen_raw=g_sen_raw,
                     mask_band=mask_band, mask_l_slots=mask_l_slots, D_d_slots=D_d_slots,
                     Pa_raw=Pa, Ea=Ea, Da=Da, gla=gla)
 
     def band_solve(ctx):
-        """The block-tridiagonal Cholesky solve, [sbG * GBD, 1 + ns]."""
-        return block_tridiag_solve(ctx["Dd"], ctx["Uband"], ctx["rhs"]).reshape(sbG * GBD, -1)
+        """The block-tridiagonal solve, SPIKE across the shards: this
+        rank's [sbG * GBD, 1 + ns]."""
+        args = (ctx["Dd"], ctx["Uband"], ctx["rhs"])
+        sol = block_tridiag_solve(*args) if n == 1 else spike_block_tridiag_solve(*args, mesh)
+        return sol.reshape(sbG * GBD, -1)
 
     def sensor_solve(ctx, sol, lam):
-        """The sensors' Schur complement (ns x ns) and the band step."""
+        """The sensors' Schur complement (ns x ns, its border products summed
+        over the shards) and this rank's band step."""
         y = sol[:, 0]
         if not ns:
             return y * ctx["mask_band"], torch.zeros(0, **opts)
         X, Bloc = sol[:, 1:], ctx["Bloc"]
+        BX, By = mesh.psum([Bloc @ X, Bloc @ y])
         damp_s = lam * torch.clamp(ctx["diag_sen"], 1e-6, 1e32) + (1.0 - mask_sen)
-        Ssen = ctx["Csen"] + torch.diag(damp_s) - Bloc @ X
-        rhs_s = -ctx["gsen"] - Bloc @ y
-        x_sen = torch.linalg.solve(Ssen, rhs_s) * mask_sen
+        Ssen = ctx["Csen"] + torch.diag(damp_s) - BX
+        x_sen = torch.linalg.solve(Ssen, -ctx["gsen"] - By) * mask_sen
         return (y - X @ x_sen) * ctx["mask_band"], x_sen
 
     def slot_sum(v):
@@ -647,12 +753,13 @@ def _build_segment_ba(problem, n_shards, mode, cg_tol=1e-10, cg_maxiter=500):
             0, lid_slot, torch.where(smask > 0, v.reshape(-1), 0.0))
 
     def back_substitute(ctx, x_band, x_sen, state):
-        """Landmark back-substitution in slot space and the predicted
-        decrease ``-(g.d + d.H d / 2)`` and max |gradient| from the
-        assembled (pre-elimination) blocks. Returns ``(dc, dl, pred,
-        gmax)`` with ``dc = (owned knot step, sensor step)``."""
+        """Landmark back-substitution in slot space (the knot step's halos
+        from the neighbours) and the predicted decrease ``-(g.d + d.H d /
+        2)`` and max |gradient| from the assembled (pre-elimination) blocks,
+        summed over the shards. Returns ``(dc, dl, pred, gmax)`` with ``dc =
+        (owned knot step, sensor step)``."""
         dc_own = x_band[band_of_ps] * mask_own
-        xb = dc_own[ps_of_band].reshape(nbloc, GBD)
+        xb = halo_fill(dc_own)[ps_of_band_loc].reshape(nbloc, GBD)
         dcw = torch.cat([xb, torch.cat([xb[1:], torch.zeros(1, GBD, **opts)]),
                          x_sen[None, :].expand(nbloc, ns)], dim=1)
         Edc_slots = torch.einsum("alw,aw->al", ctx["Ea"], dcw)
@@ -663,12 +770,14 @@ def _build_segment_ba(problem, n_shards, mode, cg_tol=1e-10, cg_maxiter=500):
 
         g_own = ctx["g_band_raw"][band_of_ps]
         gl = slot_sum(ctx["gla"])
-        gTd = g_own @ dc_own + ctx["g_sen_raw"] @ x_sen + gl @ dl
-        # H = sum_a S_a^T Pa_a S_a with S_a dc = dcw_a
-        dHd = torch.einsum("aw,awv,av->", dcw, ctx["Pa_raw"], dcw)
-        dHd = dHd + 2.0 * (dl @ slot_sum(Edc_slots)) + dl @ (slot_sum(ctx["Da"]) * dl)
-        pred = -(gTd + 0.5 * dHd)
-        gmax = torch.maximum(g_own.abs().max(), gl.abs().max())
+        # H = sum_a S_a^T Pa_a S_a with S_a dc = dcw_a: each row lies in one
+        # anchor of one shard, so the sums over the shards count it once
+        gTd_own, dHd_own = mesh.psum(torch.stack([
+            g_own @ dc_own + gl @ dl,
+            torch.einsum("aw,awv,av->", dcw, ctx["Pa_raw"], dcw)
+            + 2.0 * (dl @ slot_sum(Edc_slots)) + dl @ (slot_sum(ctx["Da"]) * dl)]))
+        pred = -(gTd_own + ctx["g_sen_raw"] @ x_sen + 0.5 * dHd_own)
+        gmax = mesh.pmax(torch.stack([g_own.abs().max(), gl.abs().max()])).max()
         if ns:
             gmax = torch.maximum(gmax, ctx["g_sen_raw"].abs().max())
         return (dc_own, x_sen), dl, pred, gmax
@@ -699,12 +808,14 @@ def _build_segment_ba(problem, n_shards, mode, cg_tol=1e-10, cg_maxiter=500):
         return new
 
     def cost_local(state):
-        """The cost from the rows' residuals alone (B3 for camera rows)."""
+        """The cost from the rows' residuals alone (B3 for camera rows),
+        summed over the shards."""
+        st = halo_state(state)
         cost = torch.zeros((), **opts)
         for bspec, data in zip(spec_local.buckets, rt["data"]):
-            r = bucket_terms(spec_local, bspec, rt, state, data, cost_only=True)
+            r = bucket_terms(spec_local, bspec, rt, st, data, cost_only=True)
             cost = cost + _bucket_cost(bspec, data, r)[0]
-        return cost
+        return mesh.psum(cost)
 
     def lin0(state):
         """(cost, assembly, mask_l): the speculative loop's carried
@@ -728,27 +839,63 @@ def _build_segment_ba(problem, n_shards, mode, cg_tol=1e-10, cg_maxiter=500):
         return cost, new_state, cost_local(new_state), pred, (dc, dl), gmax
 
     # ---- matrix-free PCG on the reduced system -----------------------------
-    # one shard: the JAX package's halo fills and reductions are identities,
-    # so its (owned knots, sensor, vt) triples are one vector of
-    # n_cat = Pk_loc + ns + nvt entries
+    # local columns (n_cat): knots with halos, sensors, vt slots; the PCG
+    # vectors (n_own): owned knots, sensors, vt slots
     n_cat = Pk_loc + ns + nvt
-
-    # the block-Jacobi blocks: per owned knot of each spline, per sensor
-    pcg_columns = Columns(tuple((int(own_off[si]), seg, td) for si, td in enumerate(tds)),
+    loc_columns = Columns(tuple((int(loc_off[si]), nloc, td) for si, td in enumerate(tds)),
                           Pk_loc, S)
+    own_columns = Columns(tuple((int(own_off[si]), seg, td) for si, td in enumerate(tds)),
+                          Pown, S)
+
+    # one shard has no halos: its local columns are the owned ones, and the
+    # CG's vectors pass through unchanged
+    def to_local(x):
+        """Owned (knots, sensors, vt) -> local columns, halos filled."""
+        if n == 1:
+            return x
+        return torch.cat([halo_fill(x[:Pown]), x[Pown:]])
+
+    def to_owned(y):
+        """Local column sums -> owned: halo sums returned to their owners,
+        sensor sums over the shards, vt slots local."""
+        if n == 1:
+            return y
+        knots = reduce_halo(knot_parts(y, loc_off, nloc), Hl, Hr)
+        return torch.cat([p.reshape(-1) for p in knots]
+                         + [mesh.psum(y[Pk_loc:Pk_loc + ns]), y[Pk_loc + ns:]])
+
+    def pdot(a, b):
+        """Dot of two owned vectors: knot and vt parts summed over the
+        shards, the sensor part replicated."""
+        if n == 1:
+            return a @ b
+        own = a[:Pown] @ b[:Pown] + a[Pown + ns:] @ b[Pown + ns:]
+        return mesh.psum(own) + a[Pown:Pown + ns] @ b[Pown:Pown + ns]
 
     def linearize_pcg(state):
         """``(cost, blocks, g, diag, D, g_l, kblocks, sblocks)``: the rows
-        masked per column, the gradient and the duplicate-aware diagonal
-        over the n_cat columns, the landmark blocks and the per-knot and
-        per-sensor preconditioner blocks."""
+        masked per column, and over the owned columns the gradient, the
+        duplicate-aware diagonal and the per-knot and per-sensor
+        preconditioner blocks (local sums, halo-reduced and summed over the
+        shards), the landmark blocks of this rank."""
         cost, blocks, _ = whitened_blocks(state, col_mask=True)
-        return (cost, blocks, *grad_and_diag(blocks, layouts, n_cat, Lb),
-                *precond_blocks(blocks, layouts, pcg_columns))
+        g, diag, D, g_l = grad_and_diag(blocks, layouts, n_cat, Lb)
+        kb, sb = precond_blocks(blocks, layouts, loc_columns)
+        kp = [k.reshape(nloc, -1) for k in kb]
+        red = reduce_halo(knot_parts(g, loc_off, nloc) + knot_parts(diag, loc_off, nloc) + kp,
+                          Hl, Hr)
+        nsp = len(tds)
+        g_sen, diag_sen, sb = mesh.psum([g[Pk_loc:Pk_loc + ns], diag[Pk_loc:Pk_loc + ns], sb])
+        g_o = torch.cat([p.reshape(-1) for p in red[:nsp]] + [g_sen, g[Pk_loc + ns:]])
+        diag_o = torch.cat([p.reshape(-1) for p in red[nsp:2 * nsp]]
+                           + [diag_sen, diag[Pk_loc + ns:]])
+        kblocks = [p.reshape(seg, td, td) for p, td in zip(red[2 * nsp:], tds)]
+        return cost, blocks, g_o, diag_o, D, g_l, kblocks, sb
 
     def schur_matvec(blocks, x, D_d, free):
-        """``A_cc x - E^T diag(free / D_d) E x``, the Schur-complement
-        matvec on the compressed rows, each row's ``Jw x`` formed once."""
+        """``A_cc x - E^T diag(free / D_d) E x`` on the local columns, each
+        row's ``Jw x`` formed once (a landmark's rows are all on its
+        rank)."""
         y = torch.zeros_like(x)
         ts = [torch.einsum("mrc,mc->mr", blk["Jw"], x[blk["cols"]]) for blk in blocks]
         Ex = torch.zeros(Lb, **opts)
@@ -770,34 +917,36 @@ def _build_segment_ba(problem, n_shards, mode, cg_tol=1e-10, cg_maxiter=500):
         _, blocks, g, diag, D, g_l, kblocks, sblocks = lin
         # bound active set: freeze rho = 0 landmarks with an outward gradient
         free = landmark_free_mask(state["rho"], g_l, mask_l)
-        diag_d = lam * torch.clamp(diag, 1e-6, 1e32) + (1.0 - mask_cat)
+        diag_d = lam * torch.clamp(diag, 1e-6, 1e32) + (1.0 - mask_own_cat)
         D_d = D + lam * torch.clamp(D, 1e-6, 1e32) + (1.0 - free)
-        rhs = et_matvec(blocks, free * g_l / D_d, n_cat) - g
+        rhs = to_owned(et_matvec(blocks, free * g_l / D_d, n_cat)) - g
 
         def matvec(x):
-            return schur_matvec(blocks, x, D_d, free) + diag_d * x
+            return to_owned(schur_matvec(blocks, to_local(x), D_d, free)) + diag_d * x
 
         # a vt column by its damped diagonal entry alone, as the JAX
-        # package's segment BA preconditions it (its iterative step divides
-        # by diag + diag_d)
-        precond = preconditioner(kblocks, sblocks, pcg_columns, diag_d, diag_d)
-        x, _ = pcg(matvec, precond, rhs, cg_tol, cg_maxiter)
-        dvt = x[Pk_loc + ns:] * mask_v
+        # package's segment BA preconditions it
+        precond = preconditioner(kblocks, sblocks, own_columns, diag_d, diag_d)
+        x, _ = pcg(matvec, precond, rhs, cg_tol, cg_maxiter, dot=pdot)
+        dvt = x[Pown + ns:] * mask_v
         if nvt:  # the increment the bounded retraction applies (vt in [0, 1])
             dvt = torch.clamp(state["vt"] + dvt, 0.0, 1.0) - state["vt"]
-        dc = torch.cat([x[:Pk_loc] * mask_own, x[Pk_loc:Pk_loc + ns] * mask_sen, dvt])
-        Edc = e_matvec(blocks, dc, Lb)
+        dc = torch.cat([x[:Pown] * mask_own, x[Pown:Pown + ns] * mask_sen, dvt])
+        dc_loc = to_local(dc)
+        Edc = e_matvec(blocks, dc_loc, Lb)
         dl = -(g_l + Edc) / D_d * free
         dl = torch.clamp(state["rho"] + dl, min=0.0) - state["rho"]
-        gTd = g @ dc + g_l @ dl
-        dHd = dc @ hcc_matvec(blocks, dc) + 2.0 * (dl @ Edc) + dl @ (D * dl)
+        lm_dot, lm_dHd = mesh.psum(torch.stack([g_l @ dl, 2.0 * (dl @ Edc) + dl @ (D * dl)]))
+        gTd = pdot(g, dc) + lm_dot
+        dHd = pdot(dc, to_owned(hcc_matvec(blocks, dc_loc))) + lm_dHd
         pred = -(gTd + 0.5 * dHd)
-        gmax = torch.maximum(g[:Pk_loc].abs().max(), g_l.abs().max())
+        gm = [g[:Pown].abs().max(), g_l.abs().max()]
         if nvt:
-            gmax = torch.maximum(gmax, g[Pk_loc + ns:].abs().max())
+            gm.append(g[Pown + ns:].abs().max())
+        gmax = mesh.pmax(torch.stack(gm)).max()
         if ns:
-            gmax = torch.maximum(gmax, g[Pk_loc:Pk_loc + ns].abs().max())
-        return (dc[:Pk_loc], dc[Pk_loc:Pk_loc + ns], dc[Pk_loc + ns:]), dl, pred, gmax
+            gmax = torch.maximum(gmax, g[Pown:Pown + ns].abs().max())
+        return (dc[:Pown], dc[Pown:Pown + ns], dc[Pown + ns:]), dl, pred, gmax
 
     def step_local_pcg(state, lam):
         lin = linearize_pcg(state)
@@ -805,36 +954,43 @@ def _build_segment_ba(problem, n_shards, mode, cg_tol=1e-10, cg_maxiter=500):
         new_state = retract_local(state, dc, dl)
         return lin[0], new_state, cost_local(new_state), pred, (dc, dl), gmax
 
+    # ---- global <-> this rank's state ---------------------------------------
     nk, nk_pad, L = lay["nk"], lay["nk_pad"], lay["L"]
     lid_to_padded = torch.as_tensor(lay["lid_to_padded"], device=dev)
     vtid_to_padded = torch.as_tensor(lay["vtid_to_padded"], device=dev)
 
     def to_sharded(state):
-        """Global state -> the shard's: knots padded to ``nk_pad`` with
-        copies of the last knot, inverse depths in landmark slots."""
+        """Global state -> this rank's: its ``seg`` knots of each spline (the
+        knots padded to ``nk_pad`` with copies of the last one), its ``Lb``
+        landmark slots and its ``Vb`` row-time slots; sensors replicated."""
         st = {k: v.to(dev) for k, v in state.items()}
         for sp in spec.splines:
             arr = st[sp.kind]
             pad = nk_pad - arr.shape[0]
             if pad:
-                st[sp.kind] = torch.cat([arr, arr[-1:].expand(pad, -1)])
-        rho_p = torch.zeros(lay["n"] * Lb, dtype=st["rho"].dtype, device=dev)
+                arr = torch.cat([arr, arr[-1:].expand(pad, -1)])
+            st[sp.kind] = arr[s * seg:(s + 1) * seg].clone()
+        rho_p = torch.zeros(n * Lb, dtype=st["rho"].dtype, device=dev)
         if L:
             rho_p[lid_to_padded] = st["rho"]
-        st["rho"] = rho_p
+        st["rho"] = rho_p[s * Lb:(s + 1) * Lb].clone()
         if nvt:
-            vt_p = torch.zeros(lay["n"] * nvt, dtype=st["vt"].dtype, device=dev)
+            vt_p = torch.zeros(n * nvt, dtype=st["vt"].dtype, device=dev)
             vt_p[vtid_to_padded] = st["vt"]
-            st["vt"] = vt_p
+            st["vt"] = vt_p[s * nvt:(s + 1) * nvt].clone()
         return st
 
     def to_global(st):
+        """This rank's state -> the global state, the segments gathered from
+        every rank (the same on every rank)."""
+        keys = [sp.kind for sp in spec.splines] + ["rho"] + (["vt"] if nvt else [])
+        full = dict(zip(keys, mesh.allgather([st[k] for k in keys])))
         out = dict(st)
         for sp in spec.splines:
-            out[sp.kind] = st[sp.kind][:nk]
-        out["rho"] = st["rho"][lid_to_padded] if L else st["rho"][:0]
+            out[sp.kind] = full[sp.kind][:nk]
+        out["rho"] = full["rho"][lid_to_padded] if L else full["rho"][:0]
         if nvt:
-            out["vt"] = st["vt"][vtid_to_padded]
+            out["vt"] = full["vt"][vtid_to_padded]
         return out
 
     # the entry points' parts, and the stages that chip_smoke.py times apart
@@ -850,14 +1006,17 @@ def _build_segment_ba(problem, n_shards, mode, cg_tol=1e-10, cg_maxiter=500):
     )
 
 
-def make_segment_ba_step(problem, n_shards=1, mode="banded", cg_tol=1e-10, cg_maxiter=500):
+def make_segment_ba_step(problem, mesh=None, cg_tol=1e-10, cg_maxiter=500, mode="banded",
+                         n_shards=None):
     """``step(state, lam) -> (cost, new_state, new_cost, pred, grad_max)``
-    and ``total_cost(state)`` of the segment x landmark layout (the JAX
-    package's ``make_segment_ba_step`` with its mesh replaced by
-    ``n_shards``; the problem's device runs it, and states are global).
-    ``mode`` is ``"banded"`` or ``"pcg"``, whose CG stops at ``cg_tol``
-    relative or after ``cg_maxiter`` iterations."""
-    b = _build_segment_ba(problem, n_shards, mode, cg_tol, cg_maxiter)
+    and ``total_cost(state)`` of the segment x landmark layout on ``mesh``
+    (the JAX package's ``make_segment_ba_step``; ``mesh=None`` is one shard,
+    as is ``n_shards=1``). States are global, the same on every rank; the
+    problem's device runs this rank's part. ``mode`` is ``"banded"`` or
+    ``"pcg"``, whose CG stops at ``cg_tol`` relative or after
+    ``cg_maxiter`` iterations."""
+    b = _build_segment_ba(problem, _as_mesh(mesh, n_shards, problem.device), mode, cg_tol,
+                          cg_maxiter)
 
     def step(state, lam):
         cost, new_st, new_cost, pred, _, gmax = b["step_local"](b["to_sharded"](state), lam)
@@ -869,16 +1028,19 @@ def make_segment_ba_step(problem, n_shards=1, mode="banded", cg_tol=1e-10, cg_ma
     return step, total_cost
 
 
-def make_segment_ba_solver(problem, n_shards=1, max_iterations=50, function_tolerance=1e-6,
-                           mode="banded", cg_tol=1e-6, cg_maxiter=200):
-    """LM with the segment x landmark layout. Banded mode runs the
-    speculative trust-region loop (``solver.lm.trust_region_loop_spec``) on
-    the carried ``(cost, assembly, mask_l)``; PCG mode the classic loop
+def make_segment_ba_solver(problem, mesh=None, max_iterations=50, function_tolerance=1e-6,
+                           cg_tol=1e-6, cg_maxiter=200, mode="banded", n_shards=None):
+    """LM with the segment x landmark layout on ``mesh`` (``None``: one
+    shard). The whole trust-region loop runs on every rank on its part of
+    the state, every rank reading the same reduced scalars. Banded mode
+    runs the speculative loop (``solver.lm.trust_region_loop_spec``) on the
+    carried ``(cost, assembly, mask_l)``; PCG mode the classic loop
     (``solver.lm.trust_region_loop``), each step linearizing, solving by
-    PCG (``cg_tol``, ``cg_maxiter``) and re-costing, as in the JAX
-    package. Returns ``solve(state) -> (state, final_cost,
-    iterations_run)`` with global states."""
-    b = _build_segment_ba(problem, n_shards, mode, cg_tol, cg_maxiter)
+    PCG (``cg_tol``, ``cg_maxiter``) and re-costing, as in the JAX package.
+    Returns ``solve(state) -> (state, final_cost, iterations_run)`` with
+    global states, the same on every rank."""
+    b = _build_segment_ba(problem, _as_mesh(mesh, n_shards, problem.device), mode, cg_tol,
+                          cg_maxiter)
 
     def solve(state):
         st = b["to_sharded"](state)

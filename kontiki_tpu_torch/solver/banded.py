@@ -32,6 +32,13 @@ PCR solve, the 10,050-knot gyro band (2,513 blocks of 12, 14 right-hand
 sides) 788.1 ms and 5.5 ms; the scan's ~10 launches a block are its cost
 there. The scan stays as ``_scan_solve``, the reference that the tests
 and ``chip_smoke.py`` hold PCR against.
+
+``spike_block_tridiag_solve`` is the distributed solve of such a band
+whose blocks lie on the shards of a ``parallel.mesh.Mesh`` (SPIKE: each
+shard's interior by ``block_tridiag_solve``, the shards' boundary pairs by
+``pcr_block_tridiag_row_solve``, parallel cyclic reduction with one row a
+shard over ``ppermute``); ``parallel.segments`` and ``parallel.segments_ba``
+call it.
 """
 import numpy as np
 import torch
@@ -165,6 +172,87 @@ def _pcr_apply(fac, rhs):
     for h, alpha, beta in levels:
         b = b - torch.bmm(alpha, _down(b, h, zero_b)) - torch.bmm(beta, _up(b, h, zero_b))
     return torch.linalg.lu_solve(*lu, b)
+
+
+def _rsolve(A, B):
+    """``A B^-1`` without forming the inverse (batched LU of ``B^T``)."""
+    return _solve(B.transpose(-1, -2), A.transpose(-1, -2)).transpose(-1, -2)
+
+
+def pcr_block_tridiag_row_solve(L, U, b, mesh):
+    """Distributed parallel cyclic reduction with one K-block row per shard
+    of ``mesh`` (``parallel.mesh.Mesh``): solves ``u_s + L_s u_{s-1} + U_s
+    u_{s+1} = b_s`` (``L_0 = U_{n-1} = 0``), shard s holding ``L, U [K, K]``
+    and ``b [K, R]``. Each of the ceil(log2 n) levels fetches the rows at
+    distance h with two ``ppermute``s (below and above; cyclic pairs, whose
+    wrapped rows meet ``L = 0`` or ``U = 0``) and eliminates them; then every
+    shard solves its decoupled K-system. Returns ``u_s [K, R]``."""
+    n = mesh.size
+    K = b.shape[0]
+    D = torch.eye(K, dtype=b.dtype, device=b.device)
+    h = 1
+    for _ in range(max(1, (n - 1).bit_length())):
+        below = [(i, (i + h) % n) for i in range(n)]  # receive row s - h
+        above = [(i, (i - h) % n) for i in range(n)]  # receive row s + h
+        D_m, L_m, U_m, b_m = mesh.ppermute([D, L, U, b], below)
+        D_p, L_p, U_p, b_p = mesh.ppermute([D, L, U, b], above)
+        alpha = _rsolve(L, D_m)
+        beta = _rsolve(U, D_p)
+        D = D - alpha @ U_m - beta @ L_p
+        b = b - alpha @ b_m - beta @ b_p
+        L = -alpha @ L_m
+        U = -beta @ U_p
+        h *= 2
+    return _solve(D, b)
+
+
+def spike_block_tridiag_solve(D, U, rhs, mesh):
+    """Distributed exact solve of a symmetric block-tridiagonal system whose
+    super-blocks lie ``sb`` consecutive ones a shard of ``mesh``: ``D [sb,
+    B, B]`` the diagonal blocks, ``U [sb, B, B]`` the couplings to the next
+    block (``U[sb-1]`` to the next shard's first block, zero on the last
+    shard), ``rhs [sb, B, R]``.
+
+    SPIKE (the JAX package's ``spike_block_tridiag_solve``): each shard
+    factors its interior once by ``block_tridiag_solve`` (PCR and one
+    refinement step) with ``R + 2B`` right-hand sides, the rhs and the two
+    boundary spikes; the shards' [first; last] boundary pairs form a
+    block-tridiagonal interface system with one 2B row a shard, solved by
+    ``pcr_block_tridiag_row_solve``; one local combination finishes. A
+    one-shard mesh is ``block_tridiag_solve``. Needs ``sb >= 2``. Returns
+    this shard's ``x [sb, B, R]``."""
+    sb, B, _ = D.shape
+    R = rhs.shape[-1]
+    n = mesh.size
+    if n == 1:
+        return block_tridiag_solve(D, U, rhs)
+    if sb < 2:
+        raise ValueError("spike solve requires >= 2 super-blocks per shard")
+    idx = mesh.axis_index()
+    first = 1.0 if idx == 0 else 0.0
+    last = 1.0 if idx == n - 1 else 0.0
+    # the coupling into block 0 from the previous shard's last block is, by
+    # symmetry, that shard's U[sb-1]^T
+    U_from_left = mesh.ppermute(U[sb - 1], [(i, (i + 1) % n) for i in range(n)])
+    U_loc = U.clone()
+    U_loc[sb - 1] = 0.0
+    aug = torch.zeros(sb, B, R + 2 * B, dtype=D.dtype, device=D.device)
+    aug[:, :, :R] = rhs
+    aug[0, :, R:R + B] = (1.0 - first) * U_from_left.T
+    aug[sb - 1, :, R + B:] = (1.0 - last) * U[sb - 1]
+    sol = block_tridiag_solve(D, U_loc, aug)
+    Y = sol[:, :, :R]
+    W = sol[:, :, R:R + B]  # x -= W x_{previous shard, last block}
+    V = sol[:, :, R + B:]   # x -= V x_{next shard, first block}
+    zB = torch.zeros(B, B, dtype=D.dtype, device=D.device)
+    L_row = torch.cat([torch.cat([zB, W[0]], dim=1), torch.cat([zB, W[sb - 1]], dim=1)])
+    U_row = torch.cat([torch.cat([V[0], zB], dim=1), torch.cat([V[sb - 1], zB], dim=1)])
+    u = pcr_block_tridiag_row_solve(L_row, U_row, torch.cat([Y[0], Y[sb - 1]]), mesh)
+    # the neighbours' boundary values (the wrapped ones meet W = 0 on the
+    # first shard and V = 0 on the last)
+    z_prev = mesh.ppermute(u, [(i, (i + 1) % n) for i in range(n)])[B:]
+    z_next = mesh.ppermute(u, [(i, (i - 1) % n) for i in range(n)])[:B]
+    return Y - torch.einsum("kbc,cr->kbr", W, z_prev) - torch.einsum("kbc,cr->kbr", V, z_next)
 
 
 # ---------------------------------------------------------------------------

@@ -149,30 +149,36 @@ def et_matvec(blocks, w, n):
     return y
 
 
-def pcg(matvec, precond, b, tol, maxiter, chunk=PCG_CHUNK):
+def _dot(a, b):
+    return a @ b
+
+
+def pcg(matvec, precond, b, tol, maxiter, chunk=PCG_CHUNK, dot=_dot):
     """Preconditioned CG from x = 0 while ``k < maxiter and r.r > tol^2
-    b.b``. Returns ``(x, k)``, ``k`` a 0-d int64 tensor."""
+    b.b``. Returns ``(x, k)``, ``k`` a 0-d int64 tensor. ``dot`` is the
+    inner product (a sharded one sums over the shards: every shard then
+    reads the same stopping test)."""
     x = torch.zeros_like(b)
     r = b
     z = precond(r)
     p = z
-    rz = r @ z
+    rz = dot(r, z)
     k = torch.zeros((), dtype=torch.int64, device=b.device)
-    thresh2 = (tol * tol) * (b @ b)
+    thresh2 = (tol * tol) * dot(b, b)
 
     def going(r, k):
-        return (k < maxiter) & (r @ r > thresh2)
+        return (k < maxiter) & (dot(r, r) > thresh2)
 
     while bool(going(r, k)):
         for _ in range(chunk):
             go = going(r, k)
             Ap = matvec(p)
-            pAp = p @ Ap
+            pAp = dot(p, Ap)
             alpha = rz / torch.where(pAp == 0, 1.0, pAp)
             x_n = x + alpha * p
             r_n = r - alpha * Ap
             z_n = precond(r_n)
-            rz_n = r_n @ z_n
+            rz_n = dot(r_n, z_n)
             beta = rz_n / torch.where(rz == 0, 1.0, rz)
             p_n = z_n + beta * p
             x, r, z, p, rz = (torch.where(go, a, b_) for a, b_ in
@@ -268,14 +274,24 @@ def preconditioner(kblocks, sblocks, columns, diag_d, point):
     return apply
 
 
-def build_iterative_parts(spec):
+def _identity(x):
+    return x
+
+
+def build_iterative_parts(spec, psum=_identity):
     """Solver functions for the matrix-free iterative-Schur path:
     ``total_cost``, ``linearize(runtime, state) -> (cost, blocks)``,
     ``grad_and_diag(blocks) -> (g_c, diag, D, g_l)``, ``hcc_matvec``,
     ``e_matvec``, ``et_matvec``, ``schur_solve``, ``solve_with_pred``,
     ``retract``,
     ``step(runtime, state, lam, cg_tol, cg_maxiter) -> (cost, new_state,
-    new_cost, pred, delta, grad_max)`` and ``step_spec``."""
+    new_cost, pred, delta, grad_max)`` and ``step_spec``.
+
+    ``psum`` sums over the shards of a measurement-sharded problem
+    (``parallel.iterative``; a shard's rows may be any rows): every global
+    reduction passes through it, the costs, the gradient and diagonals,
+    each matvec's scatter and the preconditioner blocks, so every vector
+    the solve reads is the same on every shard."""
     layouts = [_bucket_layout(spec, b) for b in spec.buckets]
     columns = Columns(tuple((sp.tangent_offset, sp.n, TANGENT_DIMS[sp.kind])
                             for sp in spec.splines), spec.sensor_offset, spec.num_sensors)
@@ -306,19 +322,28 @@ def build_iterative_parts(spec):
                 blk["J_rho"] = J_rho * sq[:, None] * mask_l[data["lid"]][:, None]
                 blk["lid"] = data["lid"]
             blocks.append(blk)
-        return cost, blocks
+        return psum(cost), blocks
 
     def grad_and_diag_c(blocks):
         """``(g_c, diag(A_cc), D, g_l)``."""
-        return grad_and_diag(blocks, layouts, Pc, L)
+        return tuple(psum(list(grad_and_diag(blocks, layouts, Pc, L))))
+
+    def hcc_matvec_c(blocks, x):
+        """``A_cc x`` (undamped)."""
+        return psum(hcc_matvec(blocks, x))
 
     def e_matvec_c(blocks, x):
         """``E x -> [L]``."""
-        return e_matvec(blocks, x, max(L, 1))[:L]
+        return psum(e_matvec(blocks, x, max(L, 1))[:L])
 
     def et_matvec_c(blocks, w):
         """``E^T w -> [Pc]``."""
-        return et_matvec(blocks, w, Pc)
+        return psum(et_matvec(blocks, w, Pc))
+
+    def precond_blocks_c(blocks):
+        kblocks, sblocks = precond_blocks(blocks, layouts, columns)
+        *kblocks, sblocks = psum([*kblocks, sblocks])
+        return kblocks, sblocks
 
     def schur_solve(runtime, blocks, lam, cg_tol, cg_maxiter, state=None):
         """Damped iterative Schur solve: ``(delta [P], cg_iters, (g_c, g_l,
@@ -329,20 +354,19 @@ def build_iterative_parts(spec):
         if state is not None and L:
             mask_l = landmark_free_mask(state["rho"], g_l, mask_l)
         diag_d = lam * torch.clamp(diag, 1e-6, 1e32) + (1.0 - mask_c)
-        precond = preconditioner(*precond_blocks(blocks, layouts, columns), columns, diag_d,
-                                 diag + diag_d)
+        precond = preconditioner(*precond_blocks_c(blocks), columns, diag_d, diag + diag_d)
         if L:
             D_d = D + lam * torch.clamp(D, 1e-6, 1e32) + (1.0 - mask_l)
             rhs = et_matvec_c(blocks, mask_l * g_l / D_d) - g_c
 
             def matvec(x):
-                y = hcc_matvec(blocks, x) + diag_d * x
+                y = hcc_matvec_c(blocks, x) + diag_d * x
                 return y - et_matvec_c(blocks, e_matvec_c(blocks, x) * mask_l / D_d)
         else:
             rhs = -g_c
 
             def matvec(x):
-                return hcc_matvec(blocks, x) + diag_d * x
+                return hcc_matvec_c(blocks, x) + diag_d * x
 
         dc, k = pcg(matvec, precond, rhs, cg_tol, cg_maxiter)
         dc = dc * mask_c
@@ -362,7 +386,7 @@ def build_iterative_parts(spec):
             dl = torch.clamp(state["rho"] + dl, min=0.0) - state["rho"]
             delta = torch.cat([delta[:lo], dl, delta[lo + L:]])
         gTd = g_c @ dc
-        dHd = dc @ hcc_matvec(blocks, dc)
+        dHd = dc @ hcc_matvec_c(blocks, dc)
         grad_max = g_c.abs().max()
         if L:
             gTd = gTd + g_l @ dl
@@ -378,7 +402,7 @@ def build_iterative_parts(spec):
         delta, pred, grad_max = solve_with_pred(runtime, blocks, lam, cg_tol, cg_maxiter,
                                                 state=state)
         new_state = retract(runtime, state, delta)
-        return cost, new_state, total_cost(spec, runtime, new_state), pred, delta, grad_max
+        return cost, new_state, total_cost_c(runtime, new_state), pred, delta, grad_max
 
     def step_spec(runtime, state, lin, lam, cg_tol=1e-10, cg_maxiter=500):
         """Speculative-linearization step: solve from the linearization at
@@ -388,10 +412,13 @@ def build_iterative_parts(spec):
         new_state = retract(runtime, state, delta)
         return new_state, linearize(runtime, new_state), pred
 
+    def total_cost_c(runtime, state):
+        return psum(total_cost(spec, runtime, state))
+
     return dict(
-        total_cost=lambda runtime, state: total_cost(spec, runtime, state),
+        total_cost=total_cost_c,
         linearize=linearize, retract=retract, step=step, step_spec=step_spec,
-        schur_solve=schur_solve, solve_with_pred=solve_with_pred, hcc_matvec=hcc_matvec,
+        schur_solve=schur_solve, solve_with_pred=solve_with_pred, hcc_matvec=hcc_matvec_c,
         e_matvec=e_matvec_c, et_matvec=et_matvec_c, grad_and_diag=grad_and_diag_c,
     )
 

@@ -32,12 +32,14 @@ from .kernels import (
 )
 
 
-def whitened_rows(spec, bspec, runtime, state, data, mask_l):
+def whitened_rows(spec, bspec, runtime, state, data, mask_l, lid_key="lid"):
     """Linearize one bucket and whiten it for assembly.
 
     Returns ``(cost, (Jw, cols_c, rw, Jw_rho, lid))``: the bucket's cost and
     B2's inputs (Huber ``sqrt(rho')`` whitening; c-space column ids; the
-    landmark column masked per row by the landmark lock mask)."""
+    landmark column masked per row by the landmark lock mask). ``lid_key``
+    names the rows' landmark ids in ``mask_l`` and B2's landmark blocks
+    (``"lid_local"``: a shard's block of landmarks)."""
     r, J, cols, J_rho = bucket_terms(spec, bspec, runtime, state, data)
     cost, rho_p = _bucket_cost(bspec, data, r)
     lo, L = spec.landmark_offset, spec.num_landmarks
@@ -50,20 +52,36 @@ def whitened_rows(spec, bspec, runtime, state, data, mask_l):
         Jw_rho = torch.zeros(M, rdim, dtype=rw.dtype, device=rw.device)
         lid = torch.zeros(M, dtype=torch.int32, device=rw.device)
     else:
-        Jw_rho = (J_rho * sq[:, None] * mask_l[data["lid"]][:, None]).contiguous()
-        lid = data["lid"].to(torch.int32)
+        Jw_rho = (J_rho * sq[:, None] * mask_l[data[lid_key]][:, None]).contiguous()
+        lid = data[lid_key].to(torch.int32)
     return cost, (Jw, cols_c, rw, Jw_rho, lid)
 
 
-def build_schur_parts(spec):
+def _identity(x):
+    return x
+
+
+def build_schur_parts(spec, local_L=0, shard=0, psum=_identity, allgather=_identity):
     """Solver functions with per-landmark Schur elimination:
     ``linearize(runtime, state) -> (cost, H_cc, g_c, E, D, g_l)``,
     ``schur_solve``, ``solve_from_lin``, ``retract``, ``step_spec`` and
-    ``total_cost(runtime, state)`` (the residual-only re-cost)."""
+    ``total_cost(runtime, state)`` (the residual-only re-cost).
+
+    With ``local_L > 0`` (landmark-block sharding, ``parallel.schur``) this
+    is shard ``shard``'s part: the landmark blocks ``E, D, g_l`` are those
+    of landmarks ``[shard * local_L, (shard + 1) * local_L)``, the rows
+    scatter by ``data["lid_local"]`` and the landmark lock mask is
+    ``runtime["mask_l"]``, the shard's block. ``psum`` sums over the shards
+    (the costs, ``H_cc``, ``g_c``, ``E^T D^-1 E`` and ``E^T D^-1 g_l``, the
+    landmark terms of the predicted decrease) and ``allgather`` joins the
+    shards' landmark steps; both are identities on one device."""
     L = spec.num_landmarks
     P = spec.num_tangent
     Pc = P - L
     lo = spec.landmark_offset
+
+    # this shard's landmarks
+    block = slice(shard * local_L, (shard + 1) * local_L) if local_L else slice(0, L)
 
     def split_mask(mask):
         return torch.cat([mask[:lo], mask[lo + L:]]), mask[lo:lo + L]
@@ -72,17 +90,21 @@ def build_schur_parts(spec):
         mask = runtime["mask"]
         opts = dict(dtype=mask.dtype, device=mask.device)
         mask_c, mask_l = split_mask(mask)
+        E_rows = local_L or L
+        if local_L:
+            mask_l = runtime["mask_l"]
         H_cc = torch.zeros(Pc, Pc, **opts)
         g_c = torch.zeros(Pc, **opts)
-        E = torch.zeros(L, Pc, **opts)
-        D = torch.zeros(L, **opts)
-        g_l = torch.zeros(L, **opts)
+        E = torch.zeros(E_rows, Pc, **opts)
+        D = torch.zeros(E_rows, **opts)
+        g_l = torch.zeros(E_rows, **opts)
         cost = torch.zeros((), **opts)
         for bspec, data in zip(spec.buckets, runtime["data"]):
-            c, rows = whitened_rows(spec, bspec, runtime, state, data, mask_l)
+            c, rows = whitened_rows(spec, bspec, runtime, state, data, mask_l,
+                                    "lid_local" if local_L else "lid")
             with_rho = bspec.kind in LANDMARK_KINDS
             Hb, gb, Eb, Db, glb = assemble_schur_blocks(
-                *rows, P=Pc, L=L, with_rho=with_rho
+                *rows, P=Pc, L=E_rows, with_rho=with_rho
             )
             cost = cost + c
             H_cc = H_cc + Hb
@@ -97,6 +119,7 @@ def build_schur_parts(spec):
         H_cc = H_cc * (mask_c[:, None] * mask_c[None, :])
         g_c = g_c * mask_c
         E = E * mask_c[None, :]
+        cost, H_cc, g_c = psum([cost, H_cc, g_c])
         return cost, H_cc, g_c, E, D, g_l
 
     def schur_solve(runtime, H_cc, g_c, E, D, g_l, lam, state=None):
@@ -104,18 +127,18 @@ def build_schur_parts(spec):
         ``state`` given, landmarks at the rho = 0 bound whose gradient
         points outward are frozen for this step."""
         mask_c, mask_l = split_mask(runtime["mask"])
+        if local_L:
+            mask_l = runtime["mask_l"]
         if state is not None and L:
-            mask_l = landmark_free_mask(state["rho"], g_l, mask_l)
+            mask_l = landmark_free_mask(state["rho"][block], g_l, mask_l)
             E = E * mask_l[:, None]
         diag_c = torch.clamp(torch.diagonal(H_cc), 1e-6, 1e32)
         A_cc = H_cc + lam * torch.diag(diag_c) + torch.diag(1.0 - mask_c)
         D_d = D + lam * torch.clamp(D, 1e-6, 1e32) + (1.0 - mask_l)
         if L:
-            Ew = E / D_d[:, None]
-            S = A_cc - E.T @ Ew
-            rhs = E.T @ (g_l / D_d) - g_c
-            dc = torch.linalg.solve(S, rhs) * mask_c
-            dl = -(g_l + E @ dc) / D_d * mask_l
+            ETE, ETg = psum([E.T @ (E / D_d[:, None]), E.T @ (g_l / D_d)])
+            dc = torch.linalg.solve(A_cc - ETE, ETg - g_c) * mask_c
+            dl = allgather(-(g_l + E @ dc) / D_d * mask_l)
         else:
             dc = torch.linalg.solve(A_cc, -g_c) * mask_c
             dl = dc[:0]
@@ -126,9 +149,10 @@ def build_schur_parts(spec):
         delta = schur_solve(runtime, H_cc, g_c, E, D, g_l, lam, state=state)
         delta = project_delta(spec, runtime, state, delta)
         dc = torch.cat([delta[:lo], delta[lo + L:]])
-        dl = delta[lo:lo + L]
-        gTd = g_c @ dc + g_l @ dl
-        dHd = dc @ (H_cc @ dc) + 2.0 * dl @ (E @ dc) + dl @ (D * dl)
+        dl = delta[lo:lo + L][block]
+        gTd_l, dEd, dDd = psum([g_l @ dl, 2.0 * dl @ (E @ dc), dl @ (D * dl)])
+        gTd = g_c @ dc + gTd_l
+        dHd = dc @ (H_cc @ dc) + dEd + dDd
         return delta, -(gTd + 0.5 * dHd)
 
     def retract(runtime, state, delta):
@@ -149,5 +173,5 @@ def build_schur_parts(spec):
         solve_from_lin=solve_from_lin,
         retract=retract,
         step_spec=step_spec,
-        total_cost=lambda runtime, state: total_cost(spec, runtime, state),
+        total_cost=lambda runtime, state: psum(total_cost(spec, runtime, state)),
     )

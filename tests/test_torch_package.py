@@ -23,6 +23,12 @@ def test_import_with_jax_blocked():
         "from kontiki_tpu_torch.interop import trajectory_from_numpy, raw_problem_from_numpy\n"
         "from kontiki_tpu_torch.solver import banded, iterative, kkt\n"
         "from kontiki_tpu_torch.parallel import segments_ba, make_segment_ba_solver\n"
+        "from kontiki_tpu_torch.parallel import mesh, launch, distributed, schur, iterative, "
+        "segments\n"
+        "from kontiki_tpu_torch.parallel import Mesh, make_sharded_step, "
+        "make_sharded_schur_step, make_sharded_iterative_step, make_segment_sharded_step\n"
+        "from kontiki_tpu_torch.parallel.launch import run_spmd\n"
+        "from kontiki_tpu_torch.solver.banded import spike_block_tridiag_solve\n"
         "from kontiki_tpu_torch.ops.linearize_kernels import onehot_expand_rows\n"
         "from kontiki_tpu_torch.ops.linearize_kernels import newton_rows, newton_rows_plain\n"
         "from kontiki_tpu_torch.measurements import NewtonRsCameraMeasurement\n"

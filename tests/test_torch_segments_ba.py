@@ -13,9 +13,10 @@ landmarks, 4 observations each, seed 11; ``tests/test_segments_ba.py``):
 - a 3-iteration ``make_segment_ba_solver``: the same iterations, the final
   cost to 1e-8 relative (it falls by ~1e-10 of the initial cost, so the
   linearizations' roundoff shows there), the final state to 1e-8;
-- two shards raise ``NotImplementedError`` (lifting rows in banded mode
-  the reference's ``ValueError``); the PCG mode, Newton rows and pose
-  rows, ported since, are held to the JAX package's steps there;
+- two shards (two gloo ranks) against the port's one-shard step and
+  solve; lifting rows in banded mode raise the reference's ``ValueError``;
+  the PCG mode, Newton rows and pose rows are held to the JAX package's
+  steps there;
 - the loop's nested linearization, the window clamp at the real knot
   count and the ``valid`` input of the camera kernels.
 
@@ -186,9 +187,13 @@ def _rows_pair(rs, free_sensors=False):
 
 @pytest.mark.parametrize("case", ["two shards", "pcg", "rs_newton", "rs_lifting", "pose rows"])
 def test_unported_parts_raise(camera, case):
-    """Two shards (ROADMAP.md Queue A 5) and lifting rows in banded mode (the
-    JAX package's ``ValueError``) still raise. The parts ported since are
-    held to the JAX package instead: the PCG mode's step against the JAX
+    """Lifting rows in banded mode (the JAX package's ``ValueError``) still
+    raise, as does a shard count without a mesh of that many ranks. Two
+    shards run on a 2-rank gloo world: the step (cost, new cost and max
+    |gradient| to 1e-10 relative, pred 1e-8, state 1e-9) and a 3-iteration
+    solve (the same iterations, the final cost to 1e-8, the state to 1e-8)
+    against the port's one-shard ones, every rank the same bits. The other
+    parts ported since are held to the JAX package: the PCG mode's step against the JAX
     package's one-shard PCG step (converged CG); Newton rows' banded step
     against the JAX package's one-shard banded step (and the port's
     iterative step), the state to 1e-7 (the problem's terminal knot is
@@ -199,9 +204,29 @@ def test_unported_parts_raise(camera, case):
     jp, tp = camera
     mesh = jax_parallel.default_mesh(n_devices=1)
     if case == "two shards":
+        import torch_spmd_ranks
+        from kontiki_tpu_torch.parallel import launch
+
         for make in (sba.make_segment_ba_step, sba.make_segment_ba_solver):
-            with pytest.raises(NotImplementedError, match="ROADMAP.md Queue A 5"):
+            with pytest.raises(ValueError, match="mesh of 2 ranks"):
                 make(tp, n_shards=2)
+        outs = launch.run_spmd(torch_spmd_ranks.two_shards, 2, "cpu",
+                               interop.raw_problem_arrays(tp))
+        got = outs[0]
+        want = sba.make_segment_ba_step(tp)[0](tp.state0, 1e-4)
+        for i, rtol in ((0, 1e-10), (2, 1e-10), (3, 1e-8), (4, 1e-10)):
+            np.testing.assert_allclose(got["step"][i].item(), want[i].item(), rtol=rtol)
+        for k, v in want[1].items():
+            np.testing.assert_allclose(got["step"][1][k].numpy(), v.numpy(), rtol=0, atol=1e-9)
+        np.testing.assert_allclose(got["cost"].item(), want[0].item(), rtol=1e-10)
+        solve = sba.make_segment_ba_solver(tp, max_iterations=3,
+                                           function_tolerance=0.0)(tp.state0)
+        assert got["solve"][2] == solve[2] == 3
+        np.testing.assert_allclose(got["solve"][1].item(), solve[1].item(), rtol=1e-8)
+        for k, v in solve[0].items():
+            np.testing.assert_allclose(got["solve"][0][k].numpy(), v.numpy(), rtol=0, atol=1e-8)
+        for k, v in got["solve"][0].items():
+            assert torch.equal(outs[1]["solve"][0][k], v), k
     elif case == "rs_lifting":
         for make in (sba.make_segment_ba_step, sba.make_segment_ba_solver):
             with pytest.raises(ValueError, match="mode='pcg'"):
