@@ -200,7 +200,8 @@ Phases, in order; any failure exits non-zero without the final line:
     state at 1e-9; the timed 6-iteration solve, its iterations and final
     cost against the one-shard solve's; every rank the same bits; per rank
     the B1/B3/B6/B8 (and B4) launches, peak memory, it/s and one step's
-    stages with the time inside the collectives); SPIKE on 4 ranks on
+    stages with the time inside the collectives; last, f32_check's config 5
+    in float32 for phase 27); SPIKE on 4 ranks on
     config 5's and the gyro band's damped bands against
     ``block_tridiag_solve`` (1e-9); a one-rank NCCL world running config
     5's step (device-side ``all_reduce``, a self ``ppermute``; 1e-12 from
@@ -209,11 +210,28 @@ Phases, in order; any failure exits non-zero without the final line:
     gloo ranks against the port's one-device steps (1e-9). Each prints its
     backend and transport; a failing rank fails the script.
 
+27. the float32 tier (the JAX package's ``KONTIKI_TPU_X64=0``):
+    ``tests/f32_check.py``'s five problems at its sizes, seeds, iterations
+    and solver options through the port in ``torch.float32`` (configs 1-4:
+    ``Problem(..., dtype=torch.float32)`` -> ``solver.lm.solve``; config 5:
+    ``make_big_ba_problem(..., dtype=torch.float32)`` ->
+    ``make_segment_ba_solver`` on one shard, and on the 4 gloo ranks of
+    phase 26's world), held to its gates, every float tensor float32; then
+    the five BASELINE configs at full size in float32 beside float64
+    (configs 1-4 through ``make_fused_solver(problem, 25,
+    function_tolerance=0.0)``, config 5 through ``make_segment_ba_solver(
+    problem, max_iterations=6, mode="banded")`` on its arrays in float32):
+    each dtype's rate after a one-iteration warm-up, config 5's memory,
+    the float32 initial cost within ``F32_COST0_RTOL`` of the JAX
+    package's float32 one and the score within f32_check's bound of it,
+    and B1, B2, B3, B4 and B6 launched in float32.
+
 The JAX values of phases 19-20 come from ``JAX_PLATFORMS=cpu python3
 tools/atan_lifting_reference.py``, those of phases 21-22 from
 ``JAX_PLATFORMS=cpu python3 tools/newton_reference.py``, those of phases
 23-24 from ``JAX_PLATFORMS=cpu python3 tools/solvers_reference.py``, those
-of phase 25 from ``JAX_PLATFORMS=cpu python3 tools/imu_long_reference.py``.
+of phase 25 from ``JAX_PLATFORMS=cpu python3 tools/imu_long_reference.py``,
+those of phase 27 from ``JAX_PLATFORMS=cpu python3 tools/f32_reference.py``.
 
 Each path's launch counts are set to 0 just before its timed solve and
 read just after. A kernel's bound is the larger of its bytes (each input
@@ -612,6 +630,13 @@ def bound(nbytes, ops):
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def f32_counted(lk, ak):
+    """B1, B3, B2, B4 and B6: the wrappers that count their float32 launches
+    (``f32_launches``)."""
+    return (lk.linearize_rows, lk.cost_rows, ak.assemble_schur_blocks, lk.imu_rows,
+            lk.onehot_expand_rows)
+
+
 def reset_counts():
     from kontiki_tpu_torch.ops import assembly_kernels as ak
     from kontiki_tpu_torch.ops import linearize_kernels as lk
@@ -619,6 +644,8 @@ def reset_counts():
 
     lk.linearize_rows.launches = 0
     lk.linearize_rows.split_launches = 0
+    for wrapper in f32_counted(lk, ak):
+        wrapper.f32_launches = 0
     lk.linearize_rows.branch_launches.clear()
     lk.cost_rows.launches = 0
     lk.cost_rows.branch_launches.clear()
@@ -657,6 +684,7 @@ def read_counts():
         "newton_rows": lk.newton_rows.launches,
         "newton_rows cost-only": lk.newton_rows.cost_launches,
         **{f"newton_rows {b}": n for b, n in lk.newton_rows.branch_launches.items()},
+        **{f"{w.__name__} f32": w.f32_launches for w in f32_counted(lk, ak)},
     }
     for name, n in counts.items():
         MAIN_PATH_LAUNCHES[name] = MAIN_PATH_LAUNCHES.get(name, 0) + n
@@ -3512,13 +3540,15 @@ def _stage_ms(fn):
     return out, 1e3 * (time.perf_counter() - t0)
 
 
-def _rank_config5(mesh, arrays):
+def _rank_config5(mesh, arrays, f32_arrays):
     """One rank of the config-5 rehearsal: the problem from the parent's
     arrays on this rank's card; banded ``total_cost``, one step and the
     timed 6-iteration solve (after an untimed one; launches counted from 0
     just before, read just after); one PCG step with CG cut after 5
     iterations; config 4-Newton's banded step (B8 and B4 on every rank);
-    one banded step's stages timed, with the time inside the collectives."""
+    one banded step's stages timed, with the time inside the collectives;
+    last, f32_check's config 5 in float32 from ``f32_arrays``
+    (``_f32_config5``)."""
     from kontiki_tpu_torch import interop
     from kontiki_tpu_torch.parallel.segments_ba import (
         _build_segment_ba,
@@ -3580,10 +3610,12 @@ def _rank_config5(mesh, arrays):
     _, ms["re-cost (cost_local)"] = _stage_ms(lambda: b["cost_local"](new))
     out["stages_ms"] = ms
     out["collectives_ms"] = dict(acc)
+    del b, st, asm, ctx, sol, new
+    out["f32_check"] = _f32_config5(mesh, f32_arrays)
     return out
 
 
-def phase_sharded_config5(big):
+def phase_sharded_config5(big, f32_arrays):
     """Config 5 at full size on ``SHARDED_RANKS`` gloo ranks on the one card
     through ``make_segment_ba_step`` / ``_solver`` against the one-shard
     path of this script (whose values are pinned to the JAX package's):
@@ -3592,7 +3624,9 @@ def phase_sharded_config5(big):
     within config 5's 1e-4), one PCG step with CG cut after 5 iterations
     (1e-9), config 4-Newton's banded step (1e-9); every rank the same bits;
     per rank the B1/B3/B6/B8 launches, peak memory, it/s and one step's
-    stages. Labelled a one-card rehearsal over host-staged gloo."""
+    stages. Labelled a one-card rehearsal over host-staged gloo. The same
+    world solves f32_check's config 5 in float32 from ``f32_arrays``
+    (``phase_f32_check`` reads it from the returned ranks' outputs)."""
     from kontiki_tpu_torch import interop
     from kontiki_tpu_torch.parallel.launch import backend_for, run_spmd
     from kontiki_tpu_torch.parallel.segments_ba import make_segment_ba_solver, make_segment_ba_step
@@ -3612,7 +3646,7 @@ def phase_sharded_config5(big):
     label = (f"one-card rehearsal, {n} ranks on cuda:0 over {backend_for('cuda:0', n)}, "
              f"not a scaling figure [{CARD}]")
     t0 = time.perf_counter()
-    outs = run_spmd(_rank_config5, n, "cuda:0", arrays, timeout=SPMD_TIMEOUT)
+    outs = run_spmd(_rank_config5, n, "cuda:0", arrays, f32_arrays, timeout=SPMD_TIMEOUT)
     print(f"sharded config 5: {n} ranks ran in {time.perf_counter() - t0:.1f} s with the "
           f"spawn and each rank's build ({label})", flush=True)
 
@@ -3851,7 +3885,345 @@ def phase_sharded_nccl(big):
             fail(f"one-rank NCCL world: {what} differs from the one-shard path's by {rel:.2e}")
 
 
+# The JAX package's float32 tier (KONTIKI_TPU_X64=0, kontiki_tpu/config.py:
+# state, data, times and normal equations in float32, no compensated
+# accumulation): tests/f32_check.py's five problems at its sizes, seeds,
+# iterations and solver options, and its gates on the solutions' scores
+# (config 1 the aligned AOE in rad, config 2 the ATE, config 3 the
+# sim3-aligned ATE, configs 4-5 the se3-aligned ATE, in m). Config 4 also
+# needs the ATE below the start's and the cost down by 1e6.
+F32_CHECK = {
+    "config 1": dict(make="make_gyro_problem", max_iterations=30, gate=1e-4,
+                     kwargs=dict(duration=3.0, rate=100.0, seed=1, sigma_q=0.05)),
+    "config 2": dict(make="make_imu_problem", max_iterations=40, gate=1e-3,
+                     kwargs=dict(duration=3.0, rate=100.0, seed=2, position_rate=5.0)),
+    "config 3": dict(make="make_rsvi_problem", max_iterations=40, gate=2e-3,
+                     kwargs=dict(nviews=8, nlandmarks=20, imu_rate=0.0, seed=3, perturb_rho=0.1,
+                                 sigma_p=0.02, sigma_q=0.01)),
+    "config 4": dict(make="make_rsvi_problem", max_iterations=40, gate=2e-3,
+                     kwargs=dict(nviews=8, nlandmarks=24, imu_rate=100.0, seed=12,
+                                 perturb_rho=0.05, sigma_p=0.02, sigma_q=0.01)),
+}
+F32_CHECK5 = dict(n_views=120, n_landmarks=600, obs_per_landmark=4, seed=13, imu_rate=50.0)
+F32_CHECK5_SOLVER = dict(max_iterations=20, function_tolerance=1e-12, cg_tol=1e-6,
+                         cg_maxiter=100)
+F32_CHECK5_GATE = 2e-3
+# The five BASELINE configs at full size in the JAX package's float32 tier,
+# on the CPU (JAX_PLATFORMS=cpu python3 tools/f32_reference.py): the initial
+# cost, the final cost and iterations of make_fused_solver(problem, 25,
+# function_tolerance=0.0) (config 5: make_segment_ba_solver(problem, mesh of
+# one, max_iterations=6, function_tolerance=0.0, mode="banded")), and the
+# score of the start and of the solution (f32_check's, on [0.5, 5.5] for
+# configs 1-2, the views' span for 3-4, [t1, t2] for 5).
+JAX_F32 = {
+    "config 1": dict(cost0=88.54670715332031, cost=1.1803922422837232e-11, iterations=25,
+                     score0=0.034181322902441025, score=6.397623764087257e-08),
+    "config 2": dict(cost0=116355.7421875, cost=3.3772977303669904e-07, iterations=25,
+                     score0=0.057742778211832047, score=0.0228236336261034),
+    "config 3": dict(cost0=36944.4140625, cost=4.242252089170506e-06, iterations=25,
+                     score0=0.015422929448432706, score=8.761633764692909e-08),
+    "config 4": dict(cost0=58760.5859375, cost=1.0678278158593457e-05, iterations=25,
+                     score0=0.020439486423104346, score=7.787591881105015e-08),
+    "config 5": dict(cost0=784575.3125, cost=0.1164119690656662, iterations=6,
+                     score0=0.012044502215480814, score=0.0015811954843755324),
+}
+# The port's float32 initial cost against the JAX package's: two float32
+# sums of the same rows in another order. On the CPU the port's plain
+# versions came within 1.7e-7 to 1.2e-6 of them (configs 1-4), and the JAX
+# package's own float32 initial costs are 2.4e-7 to 2.1e-6 from its float64
+# ones.
+F32_COST0_RTOL = 1e-4
+# |score of the port's float32 solution - the JAX package's| at full size:
+# f32_check's bound of each config.
+F32_SCORE_BOUND = {"config 1": 1e-4, "config 2": 1e-3, "config 3": 2e-3, "config 4": 2e-3,
+                   "config 5": 2e-3}
+F32_KERNELS = ("linearize_rows", "assemble_schur_blocks", "cost_rows", "imu_rows",
+               "onehot_expand_rows")
+
+
+def f32_score(name, kwargs, gen, traj):
+    """f32_check's score of ``traj`` against the truth of ``gen`` (the
+    queries through B5 on the card)."""
+    from kontiki_tpu_torch.synthetic import trajectory_aoe, trajectory_ate
+
+    truth = gen["true_trajectory"]
+    if name in ("config 1", "config 2"):
+        t1, t2 = 0.5, 0.5 + kwargs["duration"]
+        return (trajectory_aoe if name == "config 1" else trajectory_ate)(truth, traj, t1, t2)
+    t1, t2 = gen["views"][0].t0, gen["views"][-1].t0
+    return trajectory_ate(truth, traj, t1, t2, align="sim3" if name == "config 3" else "se3")
+
+
+def big_ba_score(big, state):
+    """Config 5's se3-aligned ATE of ``state``'s knots on [t1, t2]."""
+    from kontiki_tpu_torch.synthetic import trajectory_ate
+
+    solved = big["trajectory"].clone()
+    solved.R3_spline.set_knots(state["r3"].cpu().numpy())
+    solved.SO3_spline.set_knots(state["so3"].cpu().numpy())
+    return trajectory_ate(big["true_trajectory"], solved, big["t1"], big["t2"], align="se3")
+
+
+def check_float32(what, tensors):
+    """Fail unless every float tensor of ``tensors`` ((name, tensor) pairs)
+    is float32."""
+    bad = {k: str(v.dtype) for k, v in tensors if v.is_floating_point() and v.dtype != torch.float32}
+    if bad:
+        fail(f"{what}: tensors left float32: {bad}")
+
+
+def problem_tensors(problem):
+    yield "mask", problem.mask
+    yield "d_max", problem.d_max
+    yield from problem.state0.items()
+    for key, b in problem.buckets.items():
+        for k, v in b.data.items():
+            yield f"{key}.{k}", v
+
+
+def f32_launches(launches):
+    return {k: launches.get(f"{k} f32", 0) for k in F32_KERNELS}
+
+
+def _f32_config5(mesh, arrays):
+    """f32_check's config 5 on this rank of ``mesh``: the problem from the
+    parent's arrays in float32 on this rank's card, solved by
+    ``make_segment_ba_solver`` (launches counted from 0 just before)."""
+    from kontiki_tpu_torch import interop
+    from kontiki_tpu_torch.parallel.segments_ba import make_segment_ba_solver
+
+    problem = interop.raw_problem_from_numpy(**arrays, device=mesh.device, dtype=torch.float32)
+    reset_counts()
+    t0 = time.perf_counter()
+    state, cost, iters = make_segment_ba_solver(problem, mesh, **F32_CHECK5_SOLVER)(
+        problem.state0)
+    torch.cuda.synchronize()
+    return dict(rank=mesh.rank, seconds=time.perf_counter() - t0, launches=read_counts(),
+                state={k: v.cpu() for k, v in state.items()}, cost=cost.item(), iterations=iters,
+                dtypes=sorted({str(v.dtype) for v in list(state.values()) + [cost]}))
+
+
+def f32_check5_problem():
+    """f32_check's config 5 through ``make_big_ba_problem(...,
+    dtype=torch.float32)`` on the card."""
+    from kontiki_tpu_torch import synthetic
+
+    big = synthetic.make_big_ba_problem(**F32_CHECK5, dtype=torch.float32)
+    check_float32("f32 tier config 5 problem", problem_tensors(big["problem"]))
+    return big
+
+
+def phase_f32_check(big, sharded):
+    """tests/f32_check.py's five problems through the port in float32 on the
+    card, at its sizes, seeds, iterations and solver options, held to its
+    gates: configs 1-4 through ``Problem(..., dtype=torch.float32)`` and
+    ``solver.lm.solve``, config 5 (``big``, ``f32_check5_problem``) through
+    ``make_segment_ba_solver`` on one shard, and its solve on the
+    ``SHARDED_RANKS`` gloo ranks of ``phase_sharded_config5`` (``sharded``,
+    the ranks' outputs; the JAX tier runs it on 4 devices). Every float
+    tensor of each problem and solution is float32; each solve's float32
+    launches are printed. Returns the float32 launches of the phase,
+    summed."""
+    from kontiki_tpu_torch import synthetic
+    from kontiki_tpu_torch.parallel.launch import backend_for
+    from kontiki_tpu_torch.parallel.segments_ba import make_segment_ba_solver
+    from kontiki_tpu_torch.solver.lm import solve
+    from kontiki_tpu_torch.solver.problem import Problem
+
+    f32 = torch.float32
+    total = dict.fromkeys(F32_KERNELS, 0)
+
+    def add(launches):
+        for k, v in f32_launches(launches).items():
+            total[k] += v
+
+    for name, cfg in F32_CHECK.items():
+        gen = getattr(synthetic, cfg["make"])(**cfg["kwargs"])
+        problem = Problem(gen["trajectory"], gen["measurements"], dtype=f32)
+        check_float32(f"f32 tier {name} problem", problem_tensors(problem))
+        score0 = f32_score(name, cfg["kwargs"], gen, gen["trajectory"])
+        reset_counts()
+        t0 = time.perf_counter()
+        state, summary = solve(problem, max_iterations=cfg["max_iterations"], progress=False)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = read_counts()
+        add(launches)
+        check_float32(f"f32 tier {name} solution", state.items())
+        problem.write_back(state)
+        score = f32_score(name, cfg["kwargs"], gen, gen["trajectory"])
+        ratio = summary.final_cost / max(summary.initial_cost, 1e-30)
+        print(f"f32 tier (f32_check) {name}: {len(summary.iterations) - 1} iterations "
+              f"({summary.num_successful_steps} accepted) in {seconds:.3f} s, cost "
+              f"{summary.initial_cost:.6e} -> {summary.final_cost:.6e} (x{ratio:.2e}), score "
+              f"{score0:.3e} -> {score:.3e} (gate {cfg['gate']:.0e}); float32 launches "
+              f"{f32_launches(launches)} [{CARD}]", flush=True)
+        if not score < cfg["gate"]:
+            fail(f"f32 tier {name}: score {score:.3e} >= {cfg['gate']:.0e}")
+        if name == "config 4" and not (score < score0 and ratio < 1e-6):
+            fail(f"f32 tier {name}: ATE {score0:.3e} -> {score:.3e}, cost x{ratio:.2e}")
+        if sum(f32_launches(launches).values()) == 0:
+            fail(f"f32 tier {name}: no float32 kernel launch")
+
+    problem = big["problem"]
+    reset_counts()
+    t0 = time.perf_counter()
+    state, cost, iters = make_segment_ba_solver(problem, **F32_CHECK5_SOLVER)(problem.state0)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_counts()
+    add(launches)
+    check_float32("f32 tier config 5 solution", list(state.items()) + [("cost", cost)])
+    score = big_ba_score(big, state)
+    print(f"f32 tier (f32_check) config 5, one shard: {iters} iterations in {seconds:.3f} s, "
+          f"final cost {cost.item():.6e}, ATE {score:.3e} (gate {F32_CHECK5_GATE:.0e}); "
+          f"float32 launches {f32_launches(launches)} [{CARD}]", flush=True)
+    if not score < F32_CHECK5_GATE:
+        fail(f"f32 tier config 5: ATE {score:.3e} >= {F32_CHECK5_GATE:.0e}")
+    if iters != F32_CHECK5_SOLVER["max_iterations"]:
+        fail(f"f32 tier config 5: {iters} iterations; below float32's epsilon the function "
+             f"tolerance cannot stop the loop")
+
+    n = len(sharded)
+    label = f"one-card rehearsal, {n} ranks on cuda:0 over {backend_for('cuda:0', n)}"
+    outs = [o["f32_check"] for o in sharded]
+    r0 = outs[0]
+    score4 = big_ba_score(big, r0["state"])
+    rel = abs(r0["cost"] - cost.item()) / cost.item()
+    print(f"f32 tier (f32_check) config 5, {n} ranks: {r0['iterations']} iterations, final "
+          f"cost {r0['cost']:.6e} (one shard {cost.item():.6e}, rel {rel:.2e}), ATE "
+          f"{score4:.3e} (gate {F32_CHECK5_GATE:.0e}), dtypes {r0['dtypes']} ({label}) "
+          f"[{CARD}]", flush=True)
+    if not score4 < F32_CHECK5_GATE:
+        fail(f"f32 tier config 5 on {n} ranks: ATE {score4:.3e} >= {F32_CHECK5_GATE:.0e}")
+    if r0["dtypes"] != ["torch.float32"] or r0["iterations"] != iters:
+        fail(f"f32 tier config 5 on {n} ranks: dtypes {r0['dtypes']}, {r0['iterations']} "
+             f"iterations")
+    for o in outs:
+        if any(not torch.equal(o["state"][k], v) for k, v in r0["state"].items()):
+            fail(f"f32 tier config 5: rank {o['rank']}'s state differs from rank 0's")
+        counts = f32_launches(o["launches"])
+        print(f"f32 tier config 5 rank {o['rank']}: {o['seconds']:.3f} s, float32 launches "
+              f"{counts} ({label}) [{CARD}]", flush=True)
+        if not all(counts[k] > 0 for k in ("linearize_rows", "imu_rows", "onehot_expand_rows")):
+            fail(f"f32 tier config 5 rank {o['rank']}: B1, B4 or B6 not launched in float32")
+        add(o["launches"])
+        for k, v in o["launches"].items():
+            MAIN_PATH_LAUNCHES[k] = MAIN_PATH_LAUNCHES.get(k, 0) + v
+    return total
+
+
+def _timed(solve, warm_up, s0):
+    """(state, cost, iterations, seconds, launches) of ``solve(s0)`` after
+    an untimed ``warm_up(s0)`` (a one-iteration solve: the first call pays
+    the one-off set-up), launches counted from 0 just before the timed
+    call, the host clock ending in a synchronize."""
+    warm_up(s0)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    state, cost, iters = solve(s0)
+    torch.cuda.synchronize()
+    return state, cost.item(), iters, time.perf_counter() - t0, read_counts()
+
+
+def phase_f32_baseline(big5, f32_check_launches):
+    """The five BASELINE configs at full size in float32 beside the same
+    runs in float64: configs 1-4 through ``make_fused_solver(problem, 25,
+    function_tolerance=0.0)`` on the generators' problems, config 5 through
+    ``make_segment_ba_solver(problem, max_iterations=6,
+    function_tolerance=0.0, mode="banded")`` on config 5's arrays. Each
+    dtype's rate (host clock after a warm-up), and config 5's memory; the
+    float32 runs held to the JAX package's float32 values (``JAX_F32``): the
+    initial cost within ``F32_COST0_RTOL``, the score within
+    ``F32_SCORE_BOUND``, the final cost below the initial one. B1, B2, B3, B4
+    and B6 must each have launched in float32 in this phase or in
+    ``phase_f32_check`` (``f32_check_launches``)."""
+    from kontiki_tpu_torch import interop, synthetic
+    from kontiki_tpu_torch.parallel.segments_ba import make_segment_ba_solver
+    from kontiki_tpu_torch.solver.lm import make_fused_solver
+    from kontiki_tpu_torch.solver.problem import Problem
+
+    dtypes = (torch.float64, torch.float32)
+    total = dict(f32_check_launches)
+    runs = {}
+    for name in ("config 1", "config 2", "config 3", "config 4"):
+        cfg = IMU_CONFIGS.get(name) or dict(make="make_rsvi_problem", **CAMERA_CONFIGS[name])
+        gen = getattr(synthetic, cfg["make"])(**cfg["kwargs"])
+        problems = {dt: Problem(gen["trajectory"], gen["measurements"], dtype=dt)
+                    for dt in dtypes}
+        check_float32(f"f32 {name} problem", problem_tensors(problems[torch.float32]))
+        for dt, problem in problems.items():
+            s0 = problem.state0
+            cost0 = make_fused_solver(problem, 0, function_tolerance=0.0)(s0)[1].item()
+            solve = make_fused_solver(problem, 25, function_tolerance=0.0)
+            warm_up = make_fused_solver(problem, 1, function_tolerance=0.0)
+            state, cost, iters, seconds, launches = _timed(solve, warm_up, s0)
+            runs[name, dt] = dict(cost0=cost0, cost=cost, iterations=iters, seconds=seconds,
+                                  launches=launches, state=state)
+        for dt, problem in problems.items():  # each solution into the objects in turn
+            problem.write_back(runs[name, dt]["state"])
+            runs[name, dt]["score"] = f32_score(name, cfg["kwargs"], gen, gen["trajectory"])
+    arrays = interop.raw_problem_arrays(big5["problem"])
+    for dt in dtypes:
+        problem = (big5["problem"] if dt == torch.float64
+                   else interop.raw_problem_from_numpy(**arrays, dtype=dt))
+        resident = sum(v.numel() * v.element_size() for _, v in problem_tensors(problem))
+        s0 = problem.state0
+        cost0 = make_segment_ba_solver(problem, max_iterations=0, function_tolerance=0.0)(s0)[1]
+        solve, warm_up = (make_segment_ba_solver(problem, max_iterations=k,
+                                                 function_tolerance=0.0, mode="banded")
+                          for k in (CONFIG5_ITERATIONS, 1))
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        state, cost, iters, seconds, launches = _timed(solve, warm_up, s0)
+        runs["config 5", dt] = dict(
+            cost0=cost0.item(), cost=cost, iterations=iters, seconds=seconds, launches=launches,
+            score=big_ba_score(big5, state), resident=resident,
+            peak=torch.cuda.max_memory_allocated() - base)
+        del problem, state, solve, warm_up
+    for name in ("config 1", "config 2", "config 3", "config 4", "config 5"):
+        r64, r32, ref = runs[name, torch.float64], runs[name, torch.float32], JAX_F32[name]
+        for r in (r64, r32):
+            print(f"f32 tier {name} {'float32' if r is r32 else 'float64'}: {r['iterations']} "
+                  f"iterations in {r['seconds']:.4f} s = {r['iterations'] / r['seconds']:.2f} "
+                  f"it/s; cost {r['cost0']!r} -> {r['cost']!r}; score {r['score']!r}"
+                  + (f"; problem tensors {r['resident'] / 2**30:.3f} GiB, the solve's peak "
+                     f"above them {r['peak'] / 2**30:.3f} GiB" if name == "config 5" else "")
+                  + f" [{CARD}]", flush=True)
+        rel0 = abs(r32["cost0"] - ref["cost0"]) / ref["cost0"]
+        dscore = abs(r32["score"] - ref["score"])
+        counts = f32_launches(r32["launches"])
+        print(f"f32 tier {name}: float32 against the JAX package's float32 tier: initial cost "
+              f"rel {rel0:.2e} (tol {F32_COST0_RTOL:.0e}), final cost {r32['cost']:.3e} (JAX "
+              f"{ref['cost']:.3e}), score {r32['score']:.3e} (JAX {ref['score']:.3e}, |diff| "
+              f"{dscore:.2e}, bound {F32_SCORE_BOUND[name]:.0e}); float32 rate over float64 "
+              f"rate {r64['seconds'] / r32['seconds']:.3f}; float32 launches {counts} [{CARD}]",
+              flush=True)
+        if not rel0 <= F32_COST0_RTOL:
+            fail(f"f32 tier {name}: initial cost {r32['cost0']!r} differs from the JAX "
+                 f"package's float32 {ref['cost0']!r} by {rel0:.2e}")
+        if not dscore <= F32_SCORE_BOUND[name]:
+            fail(f"f32 tier {name}: score {r32['score']:.3e} vs the JAX package's "
+                 f"{ref['score']:.3e}")
+        if not (math.isfinite(r32["cost"]) and r32["cost"] < r32["cost0"]):
+            fail(f"f32 tier {name}: final cost {r32['cost']!r} not below the initial one")
+        if r32["iterations"] != ref["iterations"]:
+            fail(f"f32 tier {name}: {r32['iterations']} iterations, the JAX package "
+                 f"{ref['iterations']}")
+        for k in F32_KERNELS:
+            total[k] += counts[k]
+    print(f"f32 tier: float32 launches of the phase (f32_check's problems and the full-size "
+          f"solves) {total} [{CARD}]", flush=True)
+    missing = [k for k, v in total.items() if not v > 0]
+    if missing:
+        fail(f"f32 tier: {missing} never launched in float32 on a solve path")
+    return runs
+
+
 def main():
+    from kontiki_tpu_torch.interop import raw_problem_arrays
+
     phase_device()
     phase_build()
     prob4, problem4 = phase_problem("config 4")
@@ -3910,10 +4282,12 @@ def main():
     systems = band_systems(big5, band)
     phase_band_solve(systems)
     phase_config5_methods(big5)
-    phase_sharded_config5(big5)
+    f32_big5 = f32_check5_problem()
+    sharded = phase_sharded_config5(big5, raw_problem_arrays(f32_big5["problem"]))
     phase_spike(systems)
     phase_sharded_nccl(big5)
     phase_sharded_schur(problem4, imu["config 2"])
+    phase_f32_baseline(big5, phase_f32_check(f32_big5, sharded))
     del big5, band, systems
     long_imu = long_imu_problem()
     long_problem = phase_long_imu_build(long_imu)

@@ -9,7 +9,7 @@ import math
 
 import torch
 
-from .quaternion import qconj, qmul, qrotate, quat_to_matrix
+from .quaternion import qconj, qmul, qnormalize, qrotate, quat_to_matrix
 
 _EPS = 1e-10  # theta^2 guard for Taylor branches
 
@@ -144,3 +144,9 @@ def se3_pack(q, t):
 def se3_unpack(p):
     """Packed [..., 7] -> (q, t)."""
     return p[..., :4], p[..., 4:]
+
+
+def se3_normalize(p):
+    """Renormalize the quaternion part of a packed SE3."""
+    q, t = se3_unpack(p)
+    return se3_pack(qnormalize(q), t)

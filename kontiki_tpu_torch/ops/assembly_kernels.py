@@ -105,6 +105,7 @@ def assemble_schur_blocks(Jw, cols, rw, J_rho, lid, *, P, L, with_rho):
                 f"assemble_schur_blocks: kernel launch failed (CUDA error {err})"
             )
         assemble_schur_blocks.launches += 1
+        assemble_schur_blocks.f32_launches += int(Jw.dtype == torch.float32)
         shape = f"rdim {rdim} C {C}"
         assemble_schur_blocks.shape_launches[shape] = (
             assemble_schur_blocks.shape_launches.get(shape, 0) + 1)
@@ -113,9 +114,10 @@ def assemble_schur_blocks(Jw, cols, rw, J_rho, lid, *, P, L, with_rho):
     return H, g, E, D, g_l
 
 
-#: kernel launches since the count was last reset (CUDA tensors only), and
-#: per row shape ("rdim 2 C 85")
+#: kernel launches since the count was last reset (CUDA tensors only), how
+#: many of them were in float32, and per row shape ("rdim 2 C 85")
 assemble_schur_blocks.launches = 0
+assemble_schur_blocks.f32_launches = 0
 assemble_schur_blocks.shape_launches = {}
 
 

@@ -548,20 +548,23 @@ def linearize_rows(cfg, ins):
     if M == 0:
         return r, J, J_rho
     _launch_camera("linearize_rows", cfg, ins, (r, J, J_rho))
-    _count(linearize_rows, cfg)
+    _count(linearize_rows, cfg, x)
     linearize_rows.split_launches += int(cfg["kind"] == "split")
     return r, J, J_rho
 
 
-def _count(wrapper, cfg):
+def _count(wrapper, cfg, x):
     wrapper.launches += 1
+    wrapper.f32_launches += int(x.dtype == torch.float32)
     branch = camera_branch(cfg)
     wrapper.branch_launches[branch] = wrapper.branch_launches.get(branch, 0) + 1
 
 
 #: kernel launches since the count was last reset (CUDA tensors only), per
-#: branch (``camera_branch``), and how many of them were on split windows
+#: branch (``camera_branch``), and how many of them were in float32 and on
+#: split windows
 linearize_rows.launches = 0
+linearize_rows.f32_launches = 0
 linearize_rows.branch_launches = {}
 linearize_rows.split_launches = 0
 
@@ -582,13 +585,14 @@ def cost_rows(cfg, ins):
     if M == 0:
         return r
     _launch_camera("cost_rows", cfg, ins, (r,))
-    _count(cost_rows, cfg)
+    _count(cost_rows, cfg, x)
     return r
 
 
-#: kernel launches since the count was last reset (CUDA tensors only), and
-#: per branch (``camera_branch``)
+#: kernel launches since the count was last reset (CUDA tensors only), how
+#: many of them were in float32, and per branch (``camera_branch``)
 cost_rows.launches = 0
+cost_rows.f32_launches = 0
 cost_rows.branch_launches = {}
 
 
@@ -1117,13 +1121,15 @@ def imu_rows(cfg, ins, cost_only=False):
         raise RuntimeError(f"imu_rows: kernel launch failed (CUDA error {err})")
     imu_rows.launches += 1
     imu_rows.cost_launches += int(cost_only)
+    imu_rows.f32_launches += int(x.dtype == torch.float32)
     return r if cost_only else (r, J)
 
 
-#: kernel launches since the count was last reset (CUDA tensors only), and
-#: how many of them were the cost-only form
+#: kernel launches since the count was last reset (CUDA tensors only), how
+#: many of them were the cost-only form and how many in float32
 imu_rows.launches = 0
 imu_rows.cost_launches = 0
+imu_rows.f32_launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -1253,11 +1259,14 @@ def onehot_expand_rows(Jw, rel, WB):
     if err:
         raise RuntimeError(f"onehot_expand_rows: kernel launch failed (CUDA error {err})")
     onehot_expand_rows.launches += 1
+    onehot_expand_rows.f32_launches += int(Jw.dtype == torch.float32)
     return out
 
 
-#: kernel launches since the count was last reset (CUDA tensors only)
+#: kernel launches since the count was last reset (CUDA tensors only), and
+#: how many of them were in float32
 onehot_expand_rows.launches = 0
+onehot_expand_rows.f32_launches = 0
 
 
 # ---------------------------------------------------------------------------

@@ -7,8 +7,9 @@ owner, each shard's count padded to the largest with ``valid = 0`` rows);
 the other buckets are measurement-sharded. A shard linearizes its rows
 through the port's Schur parts in their landmark-block form
 (``solver.schur.build_schur_parts(spec, local_L=Lb, shard=s,
-psum=mesh.psum, allgather=mesh.allgather)``: kernel B1 on the camera rows,
-B2 assembling ``H_cc, g_c`` and the shard's ``E [Lb, Pc], D, g_l``).
+psum=mesh.psum, allgather=mesh.allgather, pmax=mesh.pmax)``: kernel B1 on
+the camera rows, B2 assembling ``H_cc, g_c`` and the shard's ``E [Lb, Pc],
+D, g_l``).
 ``(cost, H_cc, g_c)`` are summed over the shards; the landmark blocks never
 leave their shard. The damped solve sums the shards' ``E^T D^-1 E`` and
 ``E^T D^-1 g_l`` ([Pc, Pc] and [Pc]), solves the reduced system on every
@@ -122,7 +123,7 @@ def make_sharded_schur_functions(problem, mesh):
     spec_r, rt = shard_rows(spec, runtime, mesh)
     rt["mask_l"] = runtime["mask_l"][s * Lb:(s + 1) * Lb]
     parts = build_schur_parts(spec_r, local_L=Lb, shard=s, psum=mesh.psum,
-                              allgather=mesh.allgather)
+                              allgather=mesh.allgather, pmax=mesh.pmax)
     return (lambda state: parts["total_cost"](rt, state),
             lambda state: parts["linearize"](rt, state),
             lambda H_cc, g_c, E, D, g_l, lam, state=None: parts["schur_solve"](
@@ -135,16 +136,8 @@ def _step_fn(problem, mesh):
     """One LM step on padded states: ``step(state, lam) -> (cost,
     new_state, new_cost, pred, delta, grad_max)``, the delta projected to
     the bounded retraction's increment; and the padded ``total_cost``."""
-    cost_fn, lin_fn, _, _, layout, rt, parts = make_sharded_schur_functions(problem, mesh)
-
-    def step(state, lam):
-        cost, H_cc, g_c, E, D, g_l = lin_fn(state)
-        delta, pred = parts["solve_from_lin"](rt, state, H_cc, g_c, E, D, g_l, lam)
-        new_state = parts["retract"](rt, state, delta)
-        grad_max = torch.maximum(g_c.abs().max(), mesh.pmax(g_l.abs().max()))
-        return cost, new_state, cost_fn(new_state), pred, delta, grad_max
-
-    return step, cost_fn, layout
+    cost_fn, _, _, _, layout, rt, parts = make_sharded_schur_functions(problem, mesh)
+    return (lambda state, lam: parts["step"](rt, state, lam)), cost_fn, layout
 
 
 def make_sharded_schur_step(problem, mesh):

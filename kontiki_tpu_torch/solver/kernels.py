@@ -345,26 +345,51 @@ def _imu_rows_fused(spec, bspec, runtime, state, data, cost_only=False):
 # ---------------------------------------------------------------------------
 
 def _imu_residual(kind, t0, dt, gravity):
-    """residual(delta [4*td + 13], win [4, 7], i_base, t, y, weight, d, ab, gb)
-    -> r [3] for one gyro/accel row (``i_base`` as a float).
+    """residual(delta [4*td + 13], win [1, 4, 7], i_base [1], t [1], y [1, 3],
+    weight [1], d [1], ab [1, 3], gb [1, 3]) -> r [1, 3] for one gyro/accel
+    row (``i_base`` as a float); the row's values keep a batch of one (see
+    ``_vmap_rows``).
 
     ``delta`` holds the window knots' tangent increments, then the sensor
     slots; only the time offset and the biases reach an IMU residual."""
 
     def residual(delta, win, i_base, t, y, weight, d0, ab0, gb0):
         sens = delta[24:]
-        sub = retract_window("se3", win, delta[:24].reshape(4, 6))
+        sub = retract_window("se3", win, delta[:24].reshape(1, 4, 6))
         # a 4-knot window at the segment base: u = s - i_base
-        u = (t + (d0 + sens[6]) - t0) / dt - i_base
+        u = (t + (d0 + sens[6:7]) - t0) / dt - i_base
         _, _, a, q, w = ev.se3_window(sub, u, dt)
         q_conj = quat.qconj(q)
         if kind == "gyro":
             body = quat.qrotate(q_conj, w) + (gb0 + sens[10:13])
         else:
             body = quat.qrotate(q_conj, a + gravity) + (ab0 + sens[7:10])
-        return weight * (y - body)
+        return weight[:, None] * (y - body)
 
     return residual
+
+
+def _vmap_rows(f, args, cost_only):
+    """``f`` over the rows of ``args`` (the first the tangent increments
+    ``[M, C]``, each other ``[M, ...]``): ``r [M, rdim]``, and with
+    ``cost_only`` false ``J [M, rdim, C]`` by forward mode. Every argument
+    but the first keeps a batch of one in ``f``: ``torch.func.jvp`` takes the
+    tangent of a 0-dim float32 tensor times a Python float as float64, and
+    the rows' scalars (their times, the interpolation amount) would be 0-dim
+    under ``vmap``."""
+    def batch_of_one(a):
+        return tuple(map(batch_of_one, a)) if isinstance(a, tuple) else a[:, None]
+
+    delta, rest = args[0], batch_of_one(args[1:])
+    if cost_only:
+        return torch.func.vmap(f)(delta, *rest)[:, 0]
+
+    def row(d, *r):
+        out = f(d, *r)[0]
+        return out, out
+
+    J, r = torch.func.vmap(torch.func.jacfwd(row, has_aux=True))(delta, *rest)
+    return r, J
 
 
 def _imu_rows(spec, bspec, runtime, state, data, cost_only=False):
@@ -393,13 +418,8 @@ def _imu_rows(spec, bspec, runtime, state, data, cost_only=False):
     args = (zeros, win, i_base.to(knots.dtype), data["t"], data["y"], data["weight"], d0,
             state["abias"][sid], state["gbias"][sid])
     if cost_only:
-        return torch.func.vmap(f)(*args)
-
-    def row(delta, *rest):
-        r = f(delta, *rest)
-        return r, r
-
-    J, r = torch.func.vmap(torch.func.jacfwd(row, has_aux=True))(*args)
+        return _vmap_rows(f, args, True)
+    r, J = _vmap_rows(f, args, False)
     td = TANGENT_DIMS[sp.kind]
     cols = torch.cat(
         [
@@ -427,8 +447,9 @@ def _angular_distance(q_meas, q_hat):
 
 
 def _pose_residual(kind, kinds, t0s, dts):
-    """residual(delta, wins, i_bases, t, y) -> r [rdim] for one position
-    (``y - p``) or orientation (``angular_distance(y, q)``) row.
+    """residual(delta, wins, i_bases, t, y) -> r [1, rdim] for one position
+    (``y - p``) or orientation (``angular_distance(y, q)``) row, the row's
+    values with a batch of one (``_vmap_rows``).
 
     ``delta`` holds each spline's window tangent increments in spline
     order; ``wins`` the 4-knot windows and ``i_bases`` their base indices
@@ -441,7 +462,7 @@ def _pose_residual(kind, kinds, t0s, dts):
         off = 0
         for k, win, i_base, t0, dt in zip(kinds, wins, i_bases, t0s, dts):
             td = TANGENT_DIMS[k]
-            sub = retract_window(k, win, delta[off:off + 4 * td].reshape(4, td))
+            sub = retract_window(k, win, delta[off:off + 4 * td].reshape(1, 4, td))
             off += 4 * td
             u = (t - t0) / dt - i_base
             if k == "r3":
@@ -452,7 +473,7 @@ def _pose_residual(kind, kinds, t0s, dts):
                 p, _, _, q, _ = ev.se3_window(sub, u, dt)
         if kind == "position":
             return y - p
-        return _angular_distance(y, q)[None]
+        return _angular_distance(y, q)[..., None]
 
     return residual
 
@@ -481,13 +502,8 @@ def _pose_rows(spec, bspec, runtime, state, data, cost_only=False):
     args = (torch.zeros(t.shape[0], C, dtype=t.dtype, device=t.device), tuple(wins),
             tuple(i_bases), t, data["y"])
     if cost_only:
-        return torch.func.vmap(f)(*args)
-
-    def row(delta, *rest):
-        r = f(delta, *rest)
-        return r, r
-
-    J, r = torch.func.vmap(torch.func.jacfwd(row, has_aux=True))(*args)
+        return _vmap_rows(f, args, True)
+    r, J = _vmap_rows(f, args, False)
     return r, J, torch.cat(cols, dim=1)
 
 
@@ -648,9 +664,9 @@ def _retract_state(spec, runtime, state, delta):
 def build_parts(spec):
     """Dense solver functions: ``total_cost(runtime, state)``,
     ``linearize(runtime, state) -> (cost, H, g)``, ``retract``,
-    ``solve_from_lin`` and ``step(runtime, state, lam) -> (cost, new_state,
-    new_cost, pred, delta)`` (the classic LM step: linearize, damped solve,
-    retract, re-cost)."""
+    ``solve_from_lin``, ``grad_max(state, g)`` and ``step(runtime, state,
+    lam) -> (cost, new_state, new_cost, pred, delta, grad_max)`` (the
+    classic LM step: linearize, damped solve, retract, re-cost)."""
     P = spec.num_tangent
     L, lo = spec.num_landmarks, spec.landmark_offset
 
@@ -685,29 +701,41 @@ def build_parts(spec):
     def retract(runtime, state, delta):
         return _retract_state(spec, runtime, state, delta)
 
+    def free_landmarks(state, g):
+        """1 where a column takes part in this step, 0 for the rho = 0
+        landmarks whose gradient points outward (frozen for the step)."""
+        free = torch.ones_like(g)
+        free[lo:lo + L] = landmark_free_mask(state["rho"], g[lo:lo + L],
+                                             torch.ones_like(g[lo:lo + L]))
+        return free
+
     def solve_from_lin(runtime, state, H, g, lam):
         """(projected delta, predicted cost reduction) from ``(H, g)``."""
         mask = runtime["mask"]
         if L:
-            # freeze rho = 0 landmarks with an outward gradient for this step
-            free = torch.ones_like(g)
-            free[lo:lo + L] = landmark_free_mask(state["rho"], g[lo:lo + L],
-                                                 torch.ones_like(g[lo:lo + L]))
+            free = free_landmarks(state, g)
             H = H * free[:, None] * free[None, :]
             g = g * free
             mask = mask * free
         delta = project_delta(spec, runtime, state, damped_solve(mask, H, g, lam))
         return delta, -(g @ delta + 0.5 * delta @ (H @ delta))
 
+    def grad_max(state, g):
+        """max |g| over the columns the step sees (frozen landmarks 0)."""
+        if L:
+            g = g * free_landmarks(state, g)
+        return g.abs().max() if P else g.new_zeros(())
+
     def step(runtime, state, lam):
         cost, H, g = linearize(runtime, state)
         delta, pred = solve_from_lin(runtime, state, H, g, lam)
         new_state = retract(runtime, state, delta)
-        return cost, new_state, total_cost(spec, runtime, new_state), pred, delta
+        return (cost, new_state, total_cost(spec, runtime, new_state), pred, delta,
+                grad_max(state, g))
 
     return dict(total_cost=lambda runtime, state: total_cost(spec, runtime, state),
                 linearize=linearize, retract=retract, solve_from_lin=solve_from_lin,
-                step=step)
+                grad_max=grad_max, step=step)
 
 
 # ---------------------------------------------------------------------------
@@ -747,3 +775,40 @@ def problem_runtime(problem):
         "spline_dt": [float(sp.dt) for sp in problem.splines],
         "data": [dict(b.data) for b in problem.buckets.values()],
     }
+
+
+def bucket_residuals(problem, state=None):
+    """Each bucket's residual rows through the solver's batched terms:
+    ``{bucket_key: r [M, rdim]}`` as numpy, weights applied and the robust
+    loss not (the raw residual the object API's ``measurement.error``
+    returns), at ``state`` (default ``problem.state0``)."""
+    spec, runtime = problem_spec(problem), problem_runtime(problem)
+    state = problem.state0 if state is None else state
+    return {key: bucket_terms(spec, bspec, runtime, state, data, cost_only=True).cpu().numpy()
+            for key, bspec, data in zip(problem.buckets, spec.buckets, runtime["data"])}
+
+
+def make_functions(problem):
+    """``(cost_fn(state), linearize_fn(state) -> (cost, H, g))`` of the
+    dense strategy, over ``problem``'s runtime."""
+    spec, runtime = problem_spec(problem), problem_runtime(problem)
+    parts = build_parts(spec)
+    return (lambda state: parts["total_cost"](runtime, state),
+            lambda state: parts["linearize"](runtime, state))
+
+
+def make_step(problem):
+    """``(step(state, lam) -> (cost, new_state, new_cost, pred, delta,
+    grad_max), cost_fn(state))``: one dense LM step (linearize, damped
+    solve, retract, re-cost) over ``problem``'s runtime; ``grad_max`` is
+    max |g| over the columns the step sees."""
+    spec, runtime = problem_spec(problem), problem_runtime(problem)
+    parts = build_parts(spec)
+    return (lambda state, lam: parts["step"](runtime, state, lam),
+            lambda state: parts["total_cost"](runtime, state))
+
+
+def retract_state(problem, state, delta):
+    """``state`` moved by the masked tangent step ``delta`` [P], the bounds
+    kept by projection."""
+    return _retract_state(problem_spec(problem), problem_runtime(problem), state, delta)

@@ -34,7 +34,7 @@ import torch
 from .._ceres import CallbackReturnType, IterationSummary, Summary, TerminationType
 from .banded import build_banded_parts
 from .iterative import build_iterative_parts
-from .kernels import build_parts, landmark_free_mask, problem_runtime, problem_spec
+from .kernels import build_parts, problem_runtime, problem_spec
 from .schur import build_schur_parts
 
 #: the linear-solver strategies besides 'auto'
@@ -186,7 +186,6 @@ def _make_phases(problem, strategy, cg_tol=1e-10, cg_maxiter=500):
     strategy = _resolve_strategy(problem, strategy)
     spec = problem_spec(problem)
     runtime = problem_runtime(problem)
-    L, lo = spec.num_landmarks, spec.landmark_offset
 
     if strategy == "schur":
         parts = build_schur_parts(spec)
@@ -198,10 +197,7 @@ def _make_phases(problem, strategy, cg_tol=1e-10, cg_maxiter=500):
         def solve_phase(lin_out, lam, state):
             H_cc, g_c, E, D, g_l = lin_out
             delta, pred = parts["solve_from_lin"](runtime, state, H_cc, g_c, E, D, g_l, lam)
-            grad_max = g_c.abs().max()
-            if L:
-                grad_max = torch.maximum(grad_max, g_l.abs().max())
-            return delta, pred, grad_max
+            return delta, pred, parts["grad_max"](g_c, g_l)
 
     elif strategy in ("iterative_schur", "banded"):
         if strategy == "banded":
@@ -229,12 +225,7 @@ def _make_phases(problem, strategy, cg_tol=1e-10, cg_maxiter=500):
         def solve_phase(lin_out, lam, state):
             H, g = lin_out
             delta, pred = parts["solve_from_lin"](runtime, state, H, g, lam)
-            if L:  # the gradient the step sees: frozen landmarks count 0
-                g_l = g[lo:lo + L]
-                g = torch.cat([g[:lo], g_l * landmark_free_mask(state["rho"], g_l,
-                                                                torch.ones_like(g_l)),
-                               g[lo + L:]])
-            return delta, pred, g.abs().max()
+            return delta, pred, parts["grad_max"](state, g)
 
     return dict(
         linearize=linearize,

@@ -473,11 +473,12 @@ class Problem:
     # write-back
     # ------------------------------------------------------------------
     def write_back(self, state):
-        """Copy ``state`` (a dict of tensors on any device) into the
-        trajectory, sensor, landmark and lifting-measurement objects: knots
-        with re-normalised quaternions, relative poses, time offsets clipped
-        to their bounds, IMU biases, inverse depths and row times ``vt``."""
-        state = {k: v.detach().cpu().numpy() for k, v in state.items()}
+        """Copy ``state`` (a dict of tensors on any device, of any float
+        dtype) into the float64 trajectory, sensor, landmark and
+        lifting-measurement objects: knots with re-normalised quaternions
+        (in float64), relative poses, time offsets clipped to their bounds,
+        IMU biases, inverse depths and row times ``vt``."""
+        state = {k: v.detach().cpu().double().numpy() for k, v in state.items()}
         for sp in self.splines:
             arr = state[sp.kind]
             if sp.kind == "so3":

@@ -27,6 +27,8 @@ from .kernels import (
     _retract_state,
     bucket_terms,
     landmark_free_mask,
+    problem_runtime,
+    problem_spec,
     project_delta,
     total_cost,
 )
@@ -61,10 +63,13 @@ def _identity(x):
     return x
 
 
-def build_schur_parts(spec, local_L=0, shard=0, psum=_identity, allgather=_identity):
+def build_schur_parts(spec, local_L=0, shard=0, psum=_identity, allgather=_identity,
+                      pmax=_identity):
     """Solver functions with per-landmark Schur elimination:
     ``linearize(runtime, state) -> (cost, H_cc, g_c, E, D, g_l)``,
-    ``schur_solve``, ``solve_from_lin``, ``retract``, ``step_spec`` and
+    ``schur_solve``, ``solve_from_lin``, ``grad_max(g_c, g_l)``,
+    ``retract``, ``step(runtime, state, lam) -> (cost, new_state, new_cost,
+    pred, delta, grad_max)`` (the classic LM step), ``step_spec`` and
     ``total_cost(runtime, state)`` (the residual-only re-cost).
 
     With ``local_L > 0`` (landmark-block sharding, ``parallel.schur``) this
@@ -73,8 +78,9 @@ def build_schur_parts(spec, local_L=0, shard=0, psum=_identity, allgather=_ident
     scatter by ``data["lid_local"]`` and the landmark lock mask is
     ``runtime["mask_l"]``, the shard's block. ``psum`` sums over the shards
     (the costs, ``H_cc``, ``g_c``, ``E^T D^-1 E`` and ``E^T D^-1 g_l``, the
-    landmark terms of the predicted decrease) and ``allgather`` joins the
-    shards' landmark steps; both are identities on one device."""
+    landmark terms of the predicted decrease), ``allgather`` joins the
+    shards' landmark steps and ``pmax`` takes the largest landmark gradient
+    over the shards; all three are identities on one device."""
     L = spec.num_landmarks
     P = spec.num_tangent
     Pc = P - L
@@ -155,8 +161,25 @@ def build_schur_parts(spec, local_L=0, shard=0, psum=_identity, allgather=_ident
         dHd = dc @ (H_cc @ dc) + dEd + dDd
         return delta, -(gTd + 0.5 * dHd)
 
+    def grad_max(g_c, g_l):
+        """max |g| over the reduced and the landmark gradient (before the
+        step's landmark freeze, as the JAX package's Schur step takes it)."""
+        gmax = g_c.abs().max() if Pc else g_c.new_zeros(())
+        if L:
+            gmax = torch.maximum(gmax, pmax(g_l.abs().max()))
+        return gmax
+
     def retract(runtime, state, delta):
         return _retract_state(spec, runtime, state, delta)
+
+    def re_cost(runtime, state):
+        return psum(total_cost(spec, runtime, state))
+
+    def step(runtime, state, lam):
+        cost, H_cc, g_c, E, D, g_l = linearize(runtime, state)
+        delta, pred = solve_from_lin(runtime, state, H_cc, g_c, E, D, g_l, lam)
+        new_state = retract(runtime, state, delta)
+        return cost, new_state, re_cost(runtime, new_state), pred, delta, grad_max(g_c, g_l)
 
     def step_spec(runtime, state, lin, lam):
         """Speculative-linearization step: solve from the linearization at
@@ -171,7 +194,19 @@ def build_schur_parts(spec, local_L=0, shard=0, psum=_identity, allgather=_ident
         linearize=linearize,
         schur_solve=schur_solve,
         solve_from_lin=solve_from_lin,
+        grad_max=grad_max,
         retract=retract,
+        step=step,
         step_spec=step_spec,
-        total_cost=lambda runtime, state: psum(total_cost(spec, runtime, state)),
+        total_cost=re_cost,
     )
+
+
+def make_schur_step(problem):
+    """``(step(state, lam), cost_fn(state))`` with Schur elimination of the
+    landmarks, over ``problem``'s runtime; the contract of
+    ``kernels.make_step``."""
+    spec, runtime = problem_spec(problem), problem_runtime(problem)
+    parts = build_schur_parts(spec)
+    return (lambda state, lam: parts["step"](runtime, state, lam),
+            lambda state: parts["total_cost"](runtime, state))

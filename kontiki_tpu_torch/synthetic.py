@@ -21,7 +21,7 @@ another, evaluating each on its own device.
 import numpy as np
 import torch
 
-from .config import host_dtype
+from .config import default_dtype, host_dtype, resolve_device
 from .constants import GRAVITY
 from .math import quaternion as quat
 from .measurements import (
@@ -432,10 +432,14 @@ def make_big_ba_problem(
     perturb_rho=0.05,
     noise_px=0.0,
     device=None,
+    dtype=default_dtype,
 ):
     """BASELINE config 5 at scale: array-level rolling-shutter BA on a split
     R3 + SO3 trajectory, built as a ``solver.problem.RawProblem`` on
-    ``device`` (None: the CUDA card) without per-observation objects.
+    ``device`` (None: the CUDA card) in ``dtype`` without per-observation
+    objects. The draws and the row-time fixed point run in float64 whatever
+    ``dtype`` is, so a float32 problem holds the float64 one's arrays
+    rounded once.
 
     Each landmark is observed in its reference view and the
     ``obs_per_landmark`` frames after it; the rolling-shutter row time of
@@ -451,6 +455,7 @@ def make_big_ba_problem(
     from .sensors import PinholeCamera
     from .solver.problem import RawBucket, RawProblem
 
+    device = resolve_device(device)  # raise before generating for want of a card
     rng = np.random.default_rng(seed)
     span = (n_views - 1) / fps
     true_traj = make_split_trajectory(span + 1.5, dt=knot_dt, seed=seed, speed=0.3, wmag=0.2)
@@ -561,23 +566,25 @@ def make_big_ba_problem(
     }
     problem = RawProblem(
         splines=[("r3", knots_p, r3.t0, r3.dt), ("so3", knots_q, so3.t0, so3.dt)],
-        buckets=buckets, sensors=sensors, rho=rho0, device=device,
+        buckets=buckets, sensors=sensors, rho=rho0, device=device, dtype=dtype,
     )
     return dict(problem=problem, true_trajectory=true_traj, trajectory=traj,
                 t1=float(t0s[0]), t2=float(t0s[-1]), n_obs=M)
 
 
 def make_gyro_band_problem(n_knots=10_050, dt=0.1, rate=20.0, seed=3, perturb_seed=1,
-                           device=None):
+                           device=None, dtype=default_dtype):
     """A long gyro-only SO3 fit as a ``RawProblem`` (the JAX package's
     ``tests/test_banded.py`` 10k-knot problem): ``n_knots`` knots of
     ``make_so3_trajectory(duration, dt, seed, wmag=0.3)``, ideal gyro rows
     at ``rate`` Hz on [0.5, duration - 0.5), the knots perturbed by 1e-3
-    (``perturb_seed``) and renormalized, one locked ``BasicImu``. At 10,050
+    (``perturb_seed``) and renormalized, one locked ``BasicImu``, on
+    ``device`` (None: the CUDA card) in ``dtype``. At 10,050
     knots its dense normal equations would take ~7 GB; the banded strategy
     solves it in O(n)."""
     from .solver.problem import RawBucket, RawProblem
 
+    device = resolve_device(device)
     duration = (n_knots - 4) * dt
     traj = make_so3_trajectory(duration, dt=dt, seed=seed, wmag=0.3)
     ts = np.arange(0.5, duration - 0.5, 1.0 / rate)
@@ -593,7 +600,7 @@ def make_gyro_band_problem(n_knots=10_050, dt=0.1, rate=20.0, seed=3, perturb_se
         splines=[("so3", pert, traj.t0, dt)],
         buckets={"gyro": RawBucket(kind="gyro", M=len(ts), rdim=3, data=data,
                                    window={"so3": 4})},
-        sensors=sensors, rho=np.zeros(0), device=device)
+        sensors=sensors, rho=np.zeros(0), device=device, dtype=dtype)
 
 
 def newton_edge_rows(ins, n=2):

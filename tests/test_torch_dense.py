@@ -129,10 +129,11 @@ def test_damped_solve_matches_jax(pair):
 
 
 def test_step_matches_jax(pair):
-    cost, state, new_cost, pred, delta = pair["parts"]["step"](
+    cost, state, new_cost, pred, delta, grad_max = pair["parts"]["step"](
         pair["rt"], pair["T"].state0, torch.tensor(LAM))
     jcost, jstate, jnew_cost, jpred, jdelta = pair["step"]
     _close(cost, jcost, "cost")
+    _close(grad_max, np.abs(np.asarray(pair["lin"][2])).max(), "grad_max")
     _close(delta, jdelta, "delta", tol=1e-7)
     _close(pred, jpred, "pred", tol=1e-7)
     _close(new_cost, jnew_cost, "new cost", tol=1e-7)

@@ -24,6 +24,7 @@ landmarks, 4 observations each, seed 11; ``tests/test_segments_ba.py``):
 gyro and accel rows at 50 Hz.
 """
 import functools
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import pytest
@@ -87,8 +88,23 @@ def _check_solve(jp, tp, iters=3):
                                    atol=1e-8, err_msg=k)
 
 
+@functools.lru_cache(maxsize=None)
+def _two_shard_world():
+    """The 2-rank gloo world of ``test_unported_parts_raise[two shards]``
+    (``torch_spmd_ranks.two_shards`` on the camera problem), started in a
+    thread when the camera problem is first used, so that it runs beside
+    the JAX package's compiles; returns its future."""
+    import torch_spmd_ranks
+    from kontiki_tpu_torch.parallel import launch
+
+    tp = _pair(0.0)[1]
+    return ThreadPoolExecutor(1).submit(launch.run_spmd, torch_spmd_ranks.two_shards, 2, "cpu",
+                                        interop.raw_problem_arrays(tp))
+
+
 @pytest.fixture(scope="module")
 def camera():
+    _two_shard_world()
     return _pair(0.0)
 
 
@@ -204,14 +220,10 @@ def test_unported_parts_raise(camera, case):
     jp, tp = camera
     mesh = jax_parallel.default_mesh(n_devices=1)
     if case == "two shards":
-        import torch_spmd_ranks
-        from kontiki_tpu_torch.parallel import launch
-
         for make in (sba.make_segment_ba_step, sba.make_segment_ba_solver):
             with pytest.raises(ValueError, match="mesh of 2 ranks"):
                 make(tp, n_shards=2)
-        outs = launch.run_spmd(torch_spmd_ranks.two_shards, 2, "cpu",
-                               interop.raw_problem_arrays(tp))
+        outs = _two_shard_world().result()
         got = outs[0]
         want = sba.make_segment_ba_step(tp)[0](tp.state0, 1e-4)
         for i, rtol in ((0, 1e-10), (2, 1e-10), (3, 1e-8), (4, 1e-10)):

@@ -13,6 +13,12 @@ Printed per part (``--only`` picks some of them):
   one refinement step) the residual ``|T x - b| / |b|``, the error against
   a dense solve and the banded strategy's 1-iteration cost's distance from
   the dense strategy's;
+- ``f32band``: the same in float32 (the problem built with
+  ``dtype=torch.float32``; the errors against the float64 dense solve of
+  the float32 band), then the 1,000-knot gyro band
+  (``make_gyro_band_problem(n_knots=1000)``) through the fused banded
+  strategy in float64 and float32: the cost after 0, 1, 2, 5 and 10
+  iterations;
 - ``cg``: a lifting problem (``make_rsvi_problem(nviews=6, nlandmarks=12,
   imu_rate=40.0, seed=29, rs="lifting", trajectory="split")`` with a
   perturbed start and 0.5 px noise, the camera's pose and time offset and
@@ -51,23 +57,23 @@ def _norm(a):
     return torch.linalg.vector_norm(a).item()
 
 
-def band():
+def band(dtype=torch.float64):
     gen = synthetic.make_imu_problem(duration=5.0, rate=200.0, seed=2)
-    problem = Problem(gen["trajectory"], gen["measurements"], device="cpu")
+    problem = Problem(gen["trajectory"], gen["measurements"], device="cpu", dtype=dtype)
     parts = banded.build_banded_parts(kernels.problem_spec(problem))
     rt = kernels.problem_runtime(problem)
     _, blocks = parts["linearize"](rt, problem.state0)
     D, U, rhs, _ = parts["damped_system"](rt, blocks, parts["grad_and_diag"](blocks)[0], 1e-4)
     nb, d, R = rhs.shape
-    T = torch.zeros(nb * d, nb * d, dtype=D.dtype)
+    T = torch.zeros(nb * d, nb * d, dtype=torch.float64)
     for k in range(nb):
         T[k * d:(k + 1) * d, k * d:(k + 1) * d] = D[k]
         if k + 1 < nb:
             T[k * d:(k + 1) * d, (k + 1) * d:(k + 2) * d] = U[k]
             T[(k + 1) * d:(k + 2) * d, k * d:(k + 1) * d] = U[k].T
-    dense = torch.linalg.solve(T, rhs.reshape(nb * d, R)).reshape(nb, d, R)
-    print(f"config 2 damped band: {nb} blocks of {d}, {R} right-hand sides, condition "
-          f"{torch.linalg.cond(T).item():.3e}")
+    dense = torch.linalg.solve(T, rhs.double().reshape(nb * d, R)).reshape(nb, d, R)
+    print(f"config 2 damped band in {dtype}: {nb} blocks of {d}, {R} right-hand sides, "
+          f"condition {torch.linalg.cond(T).item():.3e}")
     cost1_dense = make_fused_solver(problem, 1, function_tolerance=0.0,
                                     strategy="dense")(problem.state0)[1].item()
     solves = {"scan": banded._scan_solve,
@@ -82,9 +88,19 @@ def band():
         finally:
             banded.block_tridiag_solve = keep
         res = _norm(banded._band_matvec(D, U, x) - rhs) / _norm(rhs)
-        err = _norm(x - dense) / _norm(dense)
+        err = _norm(x.double() - dense) / _norm(dense)
         print(f"  {name}: residual {res:.2e}, error against dense {err:.2e}, banded "
               f"1-iteration cost {abs(cost1 - cost1_dense) / cost1_dense:.2e} from dense")
+
+
+def f32band():
+    band(torch.float32)
+    for dtype in (torch.float64, torch.float32):
+        problem = synthetic.make_gyro_band_problem(n_knots=1000, device="cpu", dtype=dtype)
+        costs = [make_fused_solver(problem, k, function_tolerance=0.0, strategy="banded")(
+            problem.state0)[1].item() for k in (0, 1, 2, 5, 10)]
+        print(f"gyro band, 1,000 knots, {dtype}: cost after 0, 1, 2, 5, 10 banded iterations "
+              + ", ".join(f"{c:.3e}" for c in costs))
 
 
 def cg():
@@ -152,7 +168,7 @@ def config5():
               f"{abs(out[i].item() - want[name]) / abs(want[name]):.2e})")
 
 
-PARTS = dict(band=band, cg=cg, config5=config5)
+PARTS = dict(band=band, f32band=f32band, cg=cg, config5=config5)
 
 
 def main():
